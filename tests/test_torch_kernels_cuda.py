@@ -1,0 +1,59 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA GPU with ``nvcc`` (sm_90a); without one they skip.  On
+the card, run ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.multipliers import MULTIPLIERS
+from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built with nvcc for sm_90a)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 33, 5), (4, 2048, 512), (13, 300, 77), (70, 1000, 130)])
+@pytest.mark.parametrize("multiplier", MULTIPLIERS)
+def test_approx_matmul_kernel_equals_plain(dev, multiplier, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M * K + N)
+    a = torch.randint(0, 256, (M, K), generator=g, device=dev, dtype=torch.uint8)
+    b = torch.randint(0, 256, (K, N), generator=g, device=dev, dtype=torch.uint8)
+    before = approx_matmul.launches
+    out = approx_matmul(a, b, multiplier=multiplier)
+    torch.cuda.synchronize()
+    assert approx_matmul.launches == before + 1
+    assert torch.equal(out, approx_matmul_plain(a, b, multiplier=multiplier))
+
+
+@pytest.mark.parametrize("B,W,bs,n_kv,g,hd", [(4, 10, 16, 8, 4, 64), (3, 5, 4, 2, 2, 32),
+                                              (2, 6, 1, 1, 3, 16)])
+def test_paged_attention_kernel_within_1e4_of_plain(dev, B, W, bs, n_kv, g, hd):
+    rng = np.random.default_rng(B * W)
+    nb = B * W + 1
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
+    q, kn, vn, kp, vp = f(B, n_kv * g, hd), f(B, n_kv, hd), f(B, n_kv, hd), \
+        f(nb, bs, n_kv, hd), f(nb, bs, n_kv, hd)
+    tbl = torch.as_tensor(rng.permutation(nb)[:B * W].reshape(B, W), dtype=torch.int32, device=dev)
+    tbl[0, 1:] = nb                                   # row 0 holds one block
+    tbl[-1, :] = nb                                   # last row holds none
+    cur = torch.as_tensor(rng.integers(0, W * bs, B), dtype=torch.int32, device=dev)
+    cur[0] = bs - 1
+    args = (q, kn, vn, kp, vp, tbl, cur)
+    before = paged_attention.launches
+    out = paged_attention(*args, block_size=bs)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_plain(*args, block_size=bs)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
