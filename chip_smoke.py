@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-Hopper GPU: granite-3-2b at full width served through the two hand-written
-CUDA kernels, each held against its plain PyTorch version.
+Hopper GPU: granite-3-2b at full width served and retrained through the
+hand-written CUDA kernels, each held against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed S] [--out report.json] [--profile]
 
@@ -24,6 +24,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. oracle  the first 2 requests again through a session on the plain
            versions (approx_lowrank, attn_impl="gather") on the card; the
            greedy tokens must be identical.
+6. K3      approx_mul_eltwise (CUDA, bit logic) on all 65,536 code pairs of
+           mul8x8_1/2/3: equal to its plain version, to ``mul8x8_table`` and
+           to the LUT K1 uploads (``lut_mismatches``, the path K3 serves,
+           counted with its launches zeroed just before); ragged 1-D
+           (10**6 + 3) and 4-D cases; one 64 M-element call timed.
+7. train   QAT retraining of granite-3-2b at full width (40 layers),
+           mul8x8_2 through K1 (``mode="kernel"``), band_reg 1e-4, AdamW as
+           ``launch/train.py`` sets it, batch 8 x seq 64 (every K1 call at
+           M = 512): 3 steps through ``train_loop`` on ``token_batches`` with
+           ``remat`` on (the config's default), each loss finite and K1's
+           launch count (zeroed just before) > 0; step time, peak memory, a
+           profiled step (K1's device share) and a step with ``remat`` off.
+           Oracle: one step at full width and 4 layers from identical
+           state and batch with ``mode="kernel"`` and ``mode="lowrank"``
+           (K1's plain version): bit-identical loss, parameters and
+           moments.  Then ``launch/train.py --reduced`` runs 2 steps and a
+           second call resumes from its checkpoint for 2 more.
 
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
@@ -32,7 +49,9 @@ replay a subset of the trace.  The weights are random, from ``--seed``.
 Timings are CUDA-event means over repeated launches; a bound is the larger
 of the bytes the call must move over 3.35 TB/s and its operations over the
 peak rate of their type (int8 1979 TOP/s for the uint8 codes of K1, f32
-67 TFLOP/s for K2), the H100 SXM data-sheet rates at 700 W.  The line
+67 TFLOP/s for K2; K3 moves 2 bytes in and 4 out per element and its
+integer logic has no rate in the data sheet), the H100 SXM data-sheet
+rates at 700 W.  The line
 before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -40,9 +59,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -64,6 +87,10 @@ MAX_NEW = 32
 REQUESTS = 8
 MAX_LEN = 160                        # largest bucket + MAX_NEW, whole blocks
 K2_TOL = 1e-4
+K3_DESIGNS = ("mul8x8_1", "mul8x8_2", "mul8x8_3")
+K3_TIMED_N = 1 << 26                 # 64 M elements
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 3
+ORACLE_LAYERS = 4
 
 
 def log(*a):
@@ -397,6 +424,217 @@ def decode_step_diff(cfg, params, trace, toks, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: K3
+# ---------------------------------------------------------------------------
+
+
+def k3_phase(dev, gen):
+    from repro_torch.core.multipliers import mul8x8_table
+    from repro_torch.kernels.approx_matmul.ops import _lut
+    from repro_torch.kernels.approx_mul_eltwise import (approx_mul_eltwise,
+                                                        approx_mul_eltwise_plain,
+                                                        lut_mismatches)
+
+    # the path: K1's LUT checked against the bit logic, one launch per design
+    approx_mul_eltwise.launches = 0
+    mismatches = {m: lut_mismatches(m, device=dev) for m in K3_DESIGNS}
+    torch.cuda.synchronize()
+    launches = approx_mul_eltwise.launches
+    if any(mismatches.values()) or launches != len(K3_DESIGNS):
+        raise AssertionError(f"K3: K1's LUT differs from the bit logic {mismatches} "
+                             f"({launches} launches)")
+
+    codes = torch.arange(256, device=dev, dtype=torch.uint8)
+    a, b = codes.repeat_interleave(256), codes.repeat(256)
+    checked = 0
+
+    def check(name, x, y, mult, *others):
+        nonlocal checked
+        out = approx_mul_eltwise(x, y, multiplier=mult)
+        want = [approx_mul_eltwise_plain(x, y, mult), *others]
+        torch.cuda.synchronize()
+        for w in want:
+            if out.dtype != torch.int32 or out.shape != x.shape or not torch.equal(out, w):
+                bad = (out != w).sum().item() if out.shape == w.shape else "all"
+                raise AssertionError(f"K3 {mult} {name}: {bad} of {x.numel()} outputs differ")
+        checked += 1
+        log(f"K3 equal: {mult} {name} {tuple(x.shape)} {x.dtype}")
+
+    for m in K3_DESIGNS:
+        table = torch.from_numpy(mul8x8_table(m).reshape(-1).copy()).to(dev)
+        k1_lut = _lut(m, dev).to(torch.int32) & 0xFFFF
+        check("all pairs vs plain, table and K1's LUT", a, b, m, table, k1_lut)
+        for dtype in (torch.uint8, torch.int32):
+            n = 10**6 + 3
+            x = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=dtype)
+            y = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=dtype)
+            check("ragged 1-D", x, y, m)
+            shape = (3, 17, 65, 129)
+            x = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=dtype)
+            y = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=dtype)
+            check("4-D", x, y, m)
+        check("unaligned views", a[1:-3], b[3:-1], m)
+
+    n = K3_TIMED_N
+    x = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
+    y = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
+    check("timed shape", x, y, "mul8x8_2")
+    bms, by = bound(6.0 * n, 0.0, INT8_OPS_PER_S)
+    timed = {"n": n, "multiplier": "mul8x8_2",
+             "ms": cuda_ms(lambda: approx_mul_eltwise(x, y, multiplier="mul8x8_2")),
+             "plain_ms": cuda_ms(lambda: approx_mul_eltwise_plain(x, y, "mul8x8_2")),
+             "bound_ms": bms, "bound_by": by}
+    timed["gb_per_s"] = 6.0 * n / (timed["ms"] * 1e-3) / 1e9
+    log(f"K3 timed {json.dumps(timed)}")
+    return {"launches": launches, "lut_mismatches": mismatches, "checked": checked,
+            "max_abs_err": 0, "timed": timed}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train
+# ---------------------------------------------------------------------------
+
+
+def _profile_step(fn):
+    """Device time of one call of ``fn`` under torch.profiler: K1's ms, all
+    kernels' ms and the top kernels by device time (empty if the profiler
+    records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
+    if not rows:
+        return {"note": "the profiler recorded no device time"}
+    return {"k1_device_ms": sum(us for us, _, k in rows if "approx_matmul_kernel" in k) / 1e3,
+            "device_ms": sum(us for us, _, _ in rows) / 1e3,
+            "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                           for us, c, k in rows[:10]]}
+
+
+def train_phase(dev, seed):
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import as_batch, init_state, make_train_step, train_loop
+    from repro_torch.train.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(ARCH), approx=ApproxConfig(
+        multiplier="mul8x8_2", mode="kernel", band_reg=1e-4))
+    opt = O.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS)          # as launch/train.py
+    out = {"layers": cfg.num_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "k1_M": TRAIN_BATCH * TRAIN_SEQ, "remat": cfg.remat}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in leaves(state["params"]))
+    batches = token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+
+    approx_matmul.launches = 0
+    state, hist = train_loop(cfg, opt, batches, steps=TRAIN_STEPS, state=state)
+    torch.cuda.synchronize()
+    out["launches"] = approx_matmul.launches
+    out["losses"], out["step_s"] = hist["loss"], hist["step_time"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {json.dumps(out)}")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"training losses not finite: {hist['loss']}")
+    if out["launches"] <= 0:
+        raise AssertionError("approx_matmul was never launched on the training path")
+
+    # where a step's time goes: one more step, profiled
+    step = make_train_step(cfg, opt)
+    batch = as_batch(next(batches), dev)
+    holder = {}
+
+    def one():
+        holder["state"], holder["m"] = step(state, batch)
+    out["profiled_step"] = {**_profile_step(one),
+                            "k1_launches_per_step": out["launches"] // TRAIN_STEPS}
+    state = holder.pop("state")
+    log(f"[train] profiled step: {json.dumps(out['profiled_step'])}")
+
+    # remat off: the same step keeps each layer's activations (about 76 GB
+    # at the peak: return the allocator's cached blocks first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_nr = dataclasses.replace(cfg, remat=False)
+    step_nr = make_train_step(cfg_nr, opt)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    n0 = approx_matmul.launches
+    for _ in range(2):
+        batch = as_batch(next(batches), dev)
+        t0 = time.perf_counter()
+        state, m = step_nr(state, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    out["remat_off"] = {"step_s": times, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "k1_launches_per_step": (approx_matmul.launches - n0) // 2}
+    log(f"[train] remat off: {json.dumps(out['remat_off'])}")
+    del state, holder, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # oracle: one 4-layer step through K1 and through its plain version
+    cfg4 = dataclasses.replace(cfg, num_layers=ORACLE_LAYERS)
+    s_k = init_state(cfg4, opt, seed + 1, device=dev)
+    s_l = tree_map(lambda t: t.detach().clone(), s_k)
+    batch = as_batch(next(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                        seed=seed + 1)), dev)
+    n0 = approx_matmul.launches
+    s_k, m_k = make_train_step(cfg4, opt)(s_k, batch)
+    torch.cuda.synchronize()
+    n_k = approx_matmul.launches - n0
+    cfg4l = dataclasses.replace(cfg4, approx=dataclasses.replace(cfg4.approx, mode="lowrank"))
+    s_l, m_l = make_train_step(cfg4l, opt)(s_l, batch)
+    torch.cuda.synchronize()
+    if approx_matmul.launches != n0 + n_k or n_k <= 0:
+        raise AssertionError(f"oracle launches: kernel step {n_k}, plain step "
+                             f"{approx_matmul.launches - n0 - n_k}")
+    la, lb = leaves(s_k), leaves(s_l)
+    diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(la, lb))
+    same = all(torch.equal(x, y) for x, y in zip(la, lb))
+    out["oracle"] = {"layers": ORACLE_LAYERS, "loss_kernel": m_k["loss"].item(),
+                     "loss_plain": m_l["loss"].item(), "state_identical": same,
+                     "max_abs_state_diff": diff, "k1_launches": n_k}
+    log(f"[train] oracle: {json.dumps(out['oracle'])}")
+    if m_k["loss"].item() != m_l["loss"].item() or not same:
+        raise AssertionError("a training step through K1 differs from one through its "
+                             f"plain version: {out['oracle']}")
+    del s_k, s_l, la, lb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher at reduced size, then resumed from its checkpoint
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
+    try:
+        common = ["--reduced", "--ckpt", tmp, "--ckpt-every", "2", "--seed", str(seed)]
+        first = launch_train.main(common + ["--steps", "2"])
+        second = launch_train.main(common + ["--steps", "4"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launcher"] = {"first_losses": first["losses"], "resumed_at": second["start"],
+                       "second_losses": second["losses"]}
+    log(f"[train] launcher: {json.dumps(out['launcher'])}")
+    if first["start"] != 0 or second["start"] != 2 or len(second["losses"]) != 2 or not all(
+            math.isfinite(x) for x in first["losses"] + second["losses"]):
+        raise AssertionError(f"the launcher did not resume from its checkpoint: "
+                             f"{out['launcher']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -519,11 +757,26 @@ def main(argv=None) -> int:
         report["profile"] = profile_decode(cfg, params, trace, dev, args.seed)
         log(f"[profile] {json.dumps(report['profile'])}")
 
+    # -- 6. K3 ---------------------------------------------------------------
+    report["k3"] = k3_phase(dev, gen)
+
+    # -- 7. train ------------------------------------------------------------
+    # free the serving weights, sessions and pools first: full-width f32
+    # params, grads and Adam moments take about 42 GB of the card's 80
+    del params, sess, results, oracle, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"] = train_phase(dev, args.seed)
+    train = report["train"]
+
+    k3 = report["k3"]
     kernels = [
         {"name": "approx_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
          "replaces": "src/repro/kernels/approx_matmul/kernel.py:85",
-         "launches": launches["approx_matmul"], "max_abs_err": k1_err,
+         "launches": launches["approx_matmul"] + train["launches"],
+         "launches_by_path": {"serve": launches["approx_matmul"], "train": train["launches"]},
+         "max_abs_err": k1_err,
          "ms": k1_step["ms"], "plain_ms": k1_step["plain_ms"],
          "bound_ms": k1_step["bound_ms"], "bound_by": k1_step["bound_by"],
          "library_ms": None,
@@ -536,6 +789,14 @@ def main(argv=None) -> int:
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],
          "library_ms": k2_step["library_ms"],
          "per": f"decode step: {k2_step['calls']} calls at B={NUM_SLOTS}"},
+        {"name": "approx_mul_eltwise", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/approx_mul_eltwise.cu",
+         "replaces": "src/repro/kernels/approx_mul_eltwise/kernel.py:34",
+         "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["timed"]["ms"], "plain_ms": k3["timed"]["plain_ms"],
+         "bound_ms": k3["timed"]["bound_ms"], "bound_by": k3["timed"]["bound_by"],
+         "library_ms": None,
+         "per": f"one call of {k3['timed']['n']} elements"},
     ]
     report["kernels"] = kernels
     if args.out:

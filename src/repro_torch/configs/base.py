@@ -38,6 +38,7 @@ class ModelConfig:
     approx: ApproxConfig = ApproxConfig(mode="float")
     # --- numerics ---
     dtype: str = "bfloat16"           # activation dtype
+    remat: bool = True                # recompute each layer in the backward
     source: str = ""                  # citation tag
 
     def __post_init__(self):
@@ -81,7 +82,7 @@ def get_config(name: str) -> ModelConfig:
 def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
     """Tiny same-family variant for CPU tests (the JAX package's
     ``reduced_config`` widths: 2 layers, d 128, 4 heads, <= 2 KV heads,
-    head_dim 32, d_ff 256, vocab <= 512, float32)."""
+    head_dim 32, d_ff 256, vocab <= 512, float32, no remat)."""
     kw = dict(
         num_layers=min(cfg.num_layers, 2),
         d_model=128,
@@ -91,6 +92,7 @@ def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
         d_ff=256,
         vocab_size=min(cfg.vocab_size, 512),
         dtype="float32",
+        remat=False,
     )
     kw.update(over)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)

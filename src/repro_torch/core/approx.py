@@ -9,9 +9,13 @@ Modes (every quantized one bit-exact to the multiplier's LUT semantics):
   kernel      the CUDA approximate-matmul kernel (kernels/approx_matmul) for
               CUDA tensors, its plain version for CPU tensors
 
-The JAX package's ``lut`` mode (a LUT gather per MAC) and the QAT
-straight-through estimator are not part of this port yet; ``approx_dense``
-here is forward-only.
+On a float weight ``approx_dense`` is the QAT layer of the paper's
+retraining: its value is the integer simulation and its gradient flows
+through a straight-through estimator (STE), written as ``.detach()``
+algebra as the JAX package writes it with ``stop_gradient``.  The integer
+matmul takes codes and records no graph, so no ``autograd.Function`` is
+needed.  The JAX package's ``lut`` mode (a LUT gather per MAC) is not part
+of this port.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 from repro_torch.core import multipliers as mul
 from repro_torch.kernels.approx_matmul.ops import approx_matmul
 from repro_torch.kernels.approx_matmul.ref import approx_matmul_plain
-from repro_torch.quant.affine import calibrate, quantize
+from repro_torch.quant.affine import calibrate, dequantize, quantize
 
 __all__ = [
     "ApproxConfig",
@@ -48,6 +52,7 @@ class ApproxConfig:
     act_qmax: int = 255                # activation code band
     w_qmax: int = 255                  # weight code band (co-optimized: 31)
     w_per_channel: bool = True         # per-output-channel weight scales
+    band_reg: float = 0.0              # weight band-regularizer strength (retraining)
     act_per_row: bool = False          # per-row (per-token) activation scales:
     #   each flattened (M, K) row calibrates independently, so a row's codes
     #   (and its outputs) do not depend on which other rows share the batch
@@ -101,10 +106,6 @@ class QWeight(NamedTuple):
     scale: torch.Tensor        # per-channel (..., 1, N) or scalar, f32
     zero_point: torch.Tensor   # int32, same shape as scale
     col_sum: torch.Tensor      # (..., 1, N) f32: sum_k codes (zero-point term)
-
-    def layer(self, i: int) -> "QWeight":
-        """Layer ``i`` of a stacked QWeight."""
-        return QWeight(*(t[i] if t.dim() > 0 else t for t in self))
 
 
 _PREQUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
@@ -176,27 +177,47 @@ def _zero_point_correct(raw, qx, zx, zw, col_w, K):
 
 
 def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
-    """y = x @ w computed through the approximate-multiplier pipeline
-    (forward only).
+    """y = x @ w computed through the approximate-multiplier pipeline.
 
     x: (..., K) float; w: (K, N) float or a frozen ``QWeight``.  Quantizes
     both operands to unsigned codes (dynamic activation scale, per-channel
     weight scales), runs the configured integer multiplier, applies the
-    zero-point corrections and dequantizes.  A float ``w`` returns float32
-    (the JAX package's STE sum is float32); a QWeight returns ``x.dtype``."""
+    zero-point corrections and dequantizes.
+
+    On a float ``w`` the result is the JAX package's straight-through sum
+
+        y = y_lin + (y_int - y_lin).detach(),   y_lin = fq(x) @ fq(w)
+
+    in float32: its value is the integer simulation ``y_int`` (to f32
+    roundoff) and its gradient is that of ``y_lin``, the product of the
+    bf16-rounded fake-quantized operands.  The cotangents pass back through
+    the bf16 casts, so the weight gradient is bf16-rounded as in JAX.  A
+    QWeight (serving) returns ``x.dtype`` and records no graph."""
     if isinstance(w, QWeight):
         return _approx_dense_frozen(x, w, cfg)
     if cfg.mode == "float":
         return (x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)).to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
-    qp_x, qx = _act_codes(x2, cfg)
-    qp_w = calibrate(w, axis=(0,) if cfg.w_per_channel else None, qmax=cfg.w_qmax)
-    qw = quantize(w, qp_w)
+    xd, wd = x2.detach(), w.detach()
+    qp_x, qx = _act_codes(xd, cfg)
+    qp_w = calibrate(wd, axis=(0,) if cfg.w_per_channel else None, qmax=cfg.w_qmax)
+    qw = quantize(wd, qp_w)
+
+    # differentiable STE path: an f32 product of bf16-exact operands equals
+    # the bf16 x bf16 -> f32 product up to summation order
+    x_fq = x2 + (dequantize(qx, qp_x).to(x2.dtype) - x2).detach()
+    w_fq = w + (dequantize(qw, qp_w).to(w.dtype) - w).detach()
+    bf = torch.bfloat16
+    y_lin = x_fq.to(bf).to(torch.float32) @ w_fq.to(bf).to(torch.float32)
+
+    # integer simulation (value path, gradient-free)
     raw = quantized_matmul(qx, qw, cfg).to(torch.float32)
     col_w = qw.to(torch.float32).sum(dim=0, keepdim=True)
     acc = _zero_point_correct(raw, qx, qp_x.zero_point.to(torch.float32),
                               qp_w.zero_point.to(torch.float32), col_w, x2.shape[-1])
-    y = acc * (qp_x.scale * qp_w.scale)
+    y_int = acc * (qp_x.scale * qp_w.scale)
+
+    y = y_lin + (y_int - y_lin).detach()
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

@@ -1,9 +1,11 @@
-"""Dense decoder stack (pre-RMSNorm GQA + SwiGLU FFN) with fused prefill
-and paged decode.
+"""Dense decoder stack (pre-RMSNorm GQA + SwiGLU FFN): the training and
+prefill forward, and paged decode.
 
 Parameters are a dict with the JAX package's tree shape: layer weights are
 stacked on a leading layer axis under ``params["layers"]`` and the loop
-below walks them (the JAX package scans them).  The paged decode step
+below walks them (the JAX package scans them).  Under autograd with
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, as the JAX
+package wraps its scan body in ``jax.checkpoint``.  The paged decode step
 updates the KV pool in place.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import ApproxConfig, QWeight
@@ -69,17 +72,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict[str, An
     }
 
 
-def _layer(node, i: int):
-    """Layer ``i`` of the stacked layer tree."""
+def _layers(node, n: int):
+    """The stacked layer tree as a list of ``n`` per-layer trees (views).
+    Under autograd the backward of ``unbind`` stacks the per-layer weight
+    gradients once, where indexing would add one zero-padded full-size
+    gradient per layer."""
     if isinstance(node, dict):
-        return {k: _layer(v, i) for k, v in node.items()}
+        per = {k: _layers(v, n) for k, v in node.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
     if isinstance(node, QWeight):
-        return node.layer(i)
-    return node[i]
+        fields = [t.unbind(0) if t.dim() > 0 else (t,) * n for t in node]
+        return [QWeight(*(f[i] for f in fields)) for i in range(n)]
+    return list(node.unbind(0))
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (training and prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -94,15 +102,24 @@ def _attn_block(cfg: ModelConfig, x, layer):
     return x, kv
 
 
+def _block_out(cfg: ModelConfig, x, layer):
+    return _attn_block(cfg, x, layer)[0]
+
+
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
             return_kv: bool = False):
     """tokens (B, S) -> logits (B, S, Vp) float32, plus with ``return_kv``
     the stacked (L, B, S, Hkv, hd) post-rope K and V — the fused-prefill
-    cache seed."""
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    cache seed.  Differentiable in float parameters; the dense family has
+    no auxiliary loss (the JAX package's ``aux`` is 0 here)."""
+    x = F.embedding(tokens.long(), params["embed"]).to(getattr(torch, cfg.dtype))
+    remat = cfg.remat and torch.is_grad_enabled() and not return_kv
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _attn_block(cfg, x, _layer(params["layers"], i))
+    for layer in _layers(params["layers"], cfg.num_layers):
+        if remat:
+            x = checkpoint(_block_out, cfg, x, layer, use_reentrant=False)
+            continue
+        x, (k, v) = _attn_block(cfg, x, layer)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -150,8 +167,7 @@ def paged_decode_step(
     float32."""
     x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
     a = cfg.approx
-    for i in range(cfg.num_layers):
-        layer = _layer(params["layers"], i)
+    for i, layer in enumerate(_layers(params["layers"], cfg.num_layers)):
         h = paged_decode_attention(
             L.rms_norm(x, layer["ln1"]), layer["attn"],
             cache["k"][i], cache["v"][i], block_tables, cur_len,

@@ -24,11 +24,14 @@ def test_port_files_exist():
                 "kernels/paged_attention/ref.py", "configs/base.py", "configs/granite_3_2b.py",
                 "models/layers.py", "models/attention.py", "models/transformer.py",
                 "serve/engine.py", "serve/cache.py", "serve/scheduler.py", "bridge.py",
-                "launch/serve.py"):
+                "launch/serve.py", "core/logic.py", "kernels/approx_mul_eltwise/ops.py",
+                "kernels/approx_mul_eltwise/ref.py", "quant/qat.py", "train/optim.py",
+                "train/loop.py", "train/compression.py", "train/checkpoint.py",
+                "train/fault.py", "train/tree.py", "data/synthetic.py", "launch/train.py"):
         assert f"repro_torch/{mod}" in names, mod
     assert (ROOT / "chip_smoke.py").is_file()
     srcs = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}
-    assert srcs == {"approx_matmul.cu", "paged_attention.cu"}
+    assert srcs == {"approx_matmul.cu", "paged_attention.cu", "approx_mul_eltwise.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -53,8 +56,11 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.device import NoCudaDeviceError, resolve_device
     from repro_torch.launch import serve as launch
+    from repro_torch.launch import train as launch_train
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServeSession
+    from repro_torch.train.loop import init_state, train_loop
+    from repro_torch.train.optim import OptConfig
 
     _no_cuda(monkeypatch)
     cfg = reduced_config(get_config("granite-3-2b"))
@@ -67,6 +73,12 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         ServeSession(cfg, params)
     with pytest.raises(NoCudaDeviceError):
         launch.main(["--reduced", "--requests", "1"])
+    with pytest.raises(NoCudaDeviceError):
+        launch_train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(NoCudaDeviceError):
+        init_state(cfg, OptConfig())
+    with pytest.raises(NoCudaDeviceError):
+        train_loop(cfg, OptConfig(), iter(()), steps=1)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

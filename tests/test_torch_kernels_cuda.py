@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.multipliers import MULTIPLIERS
+from repro_torch.core.multipliers import MULTIPLIERS, mul8x8_table
 from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+from repro_torch.kernels.approx_mul_eltwise import approx_mul_eltwise, approx_mul_eltwise_plain
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -57,3 +58,38 @@ def test_paged_attention_kernel_within_1e4_of_plain(dev, B, W, bs, n_kv, g, hd):
     ref = paged_attention_plain(*args, block_size=bs)
     assert (out - ref).abs().max().item() <= 1e-4
     assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+
+
+@pytest.mark.parametrize("multiplier", ["mul8x8_1", "mul8x8_2", "mul8x8_3"])
+def test_approx_mul_eltwise_kernel_equals_plain_and_table_on_all_pairs(dev, multiplier):
+    a = torch.arange(256, device=dev, dtype=torch.uint8).repeat_interleave(256)
+    b = torch.arange(256, device=dev, dtype=torch.uint8).repeat(256)
+    before = approx_mul_eltwise.launches
+    out = approx_mul_eltwise(a, b, multiplier=multiplier)
+    torch.cuda.synchronize()
+    assert approx_mul_eltwise.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (65536,)
+    assert torch.equal(out, approx_mul_eltwise_plain(a, b, multiplier))
+    table = torch.from_numpy(mul8x8_table(multiplier).reshape(-1).copy()).to(dev)
+    assert torch.equal(out, table)
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (1_000_003,), (2, 3, 5, 7), (64, 1, 129)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_approx_mul_eltwise_kernel_ragged_and_nd(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    a = torch.randint(0, 256, shape, generator=g, device=dev, dtype=dtype)
+    b = torch.randint(0, 256, shape, generator=g, device=dev, dtype=dtype)
+    out = approx_mul_eltwise(a, b, multiplier="mul8x8_3")
+    torch.cuda.synchronize()
+    assert out.shape == shape
+    assert torch.equal(out, approx_mul_eltwise_plain(a, b, "mul8x8_3"))
+
+
+def test_approx_mul_eltwise_kernel_takes_unaligned_views(dev):
+    a = torch.randint(0, 256, (4099,), device=dev, dtype=torch.uint8)
+    b = torch.randint(0, 256, (4099,), device=dev, dtype=torch.uint8)
+    av, bv = a[1:4097], b[3:4099]               # 1 and 3 bytes past an aligned start
+    out = approx_mul_eltwise(av, bv, multiplier="mul8x8_1")
+    torch.cuda.synchronize()
+    assert torch.equal(out, approx_mul_eltwise_plain(av, bv, "mul8x8_1"))
