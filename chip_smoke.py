@@ -11,8 +11,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
            sm_90a; prints build seconds and the card's name and power limit.
 2. K1      approx_matmul (CUDA) equals its plain version bit for bit at every
            (K, N) of granite-3-2b's projections with M = num_slots and
-           M = one full prefill admission, for every registered multiplier
-           at one mid shape with rhs_max 255 and 31, and on ragged shapes.
+           M = one full prefill admission (timed, beside ``torch._int_mm`` on
+           int8 views of the same codes: the exact product's cost alone), at
+           M = 16, 32, 63, 64, 65 (both sides of the operand swap), for every
+           registered multiplier at one mid shape with rhs_max 255 and 31,
+           and on ragged shapes; then one decode step's K1 work, and the
+           bound of one training step's 521 calls.
 3. K2      paged_attention (CUDA) within 1e-4 of its plain version at the
            served shapes (H 32, Hkv 8, hd 64, block 16) and the test shapes,
            with sentinel holes, all-sentinel rows, cur_len on a block
@@ -26,16 +30,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
            greedy tokens must be identical.
 6. K3      approx_mul_eltwise (CUDA, bit logic) on all 65,536 code pairs of
            mul8x8_1/2/3: equal to its plain version, to ``mul8x8_table`` and
-           to the LUT K1 uploads (``lut_mismatches``, the path K3 serves,
-           counted with its launches zeroed just before); ragged 1-D
-           (10**6 + 3) and 4-D cases; one 64 M-element call timed.
+           to the table K1 computes in one K = 1 call (``lut_mismatches``,
+           the path K3 serves, counted with its launches zeroed just
+           before); ragged 1-D (10**6 + 3) and 4-D cases; one 64 M-element
+           call timed.
 7. train   QAT retraining of granite-3-2b at full width (40 layers),
            mul8x8_2 through K1 (``mode="kernel"``), band_reg 1e-4, AdamW as
            ``launch/train.py`` sets it, batch 8 x seq 64 (every K1 call at
            M = 512): 3 steps through ``train_loop`` on ``token_batches`` with
            ``remat`` on (the config's default), each loss finite and K1's
            launch count (zeroed just before) > 0; step time, peak memory, a
-           profiled step (K1's device share) and a step with ``remat`` off.
+           profiled step (K1's device share; K1 must show device time, so a
+           renamed kernel symbol cannot hide) and steps with ``remat`` off.
            Oracle: one step at full width and 4 layers from identical
            state and batch with ``mode="kernel"`` and ``mode="lowrank"``
            (K1's plain version): bit-identical loss, parameters and
@@ -139,6 +145,17 @@ def bound(nbytes: float, ops: float, peak: float):
 # ---------------------------------------------------------------------------
 
 
+def exact_int8_ms(a, b):
+    """CUDA-event ms of ``torch._int_mm`` on int8 views of the codes: the
+    cost of the exact product alone, a yardstick that nothing in the port
+    calls; (None, the reason) where the call refuses the shape."""
+    a8, b8 = a.view(torch.int8), b.view(torch.int8)
+    try:
+        return cuda_ms(lambda: torch._int_mm(a8, b8)), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:120]
+
+
 def k1_phase(cfg, params, gen, dev, prefill_rows):
     from repro_torch.core.approx import QWeight
     from repro_torch.core.multipliers import MULTIPLIERS
@@ -163,6 +180,10 @@ def k1_phase(cfg, params, gen, dev, prefill_rows):
             row["plain_ms"] = cuda_ms(lambda: approx_matmul_plain(a, b, multiplier=mult))
             row["bound_ms"], row["bound_by"] = bound(M * K + K * N + 4 * M * N,
                                                      2.0 * M * N * K, INT8_OPS_PER_S)
+            if M > 16:
+                row["exact_int8_ms"], why = exact_int8_ms(a, b)
+                if why:
+                    row["exact_int8_refused"] = why
         log("K1 equal", json.dumps(row))
         return row
 
@@ -175,6 +196,24 @@ def k1_phase(cfg, params, gen, dev, prefill_rows):
                         for mult in MULTIPLIERS for rhs_max in (255, 31)]
     checked += [check(M, K, N, "mul8x8_3", 255)
                 for M, K, N in ((1, 33, 5), (5, 300, 77), (13, 1000, 130), (70, 257, 1000))]
+    checked += [check(M, 2048, 512, "mul8x8_2", 255) for M in (16, 32, 63, 64, 65)]
+
+    # one training step's K1 calls at M = batch x seq: each layer's seven
+    # projections, again but for w_down in the remat recompute (it stops
+    # once the last saved tensor is rebuilt), and the lm_head
+    by_kn = {(r["K"], r["N"]): r for r in shapes if r["M"] == prefill_rows}
+    layer = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, ff), (d, ff), (ff, d)]
+    calls = [kn for _ in range(cfg.num_layers) for kn in layer]
+    if cfg.remat:
+        calls += [kn for _ in range(cfg.num_layers) for kn in layer[:-1]]
+    calls.append((d, vp))
+    train_step = {"calls": len(calls), "M": prefill_rows,
+                  "bound_ms": sum(by_kn[kn]["bound_ms"] for kn in calls),
+                  "events_ms": sum(by_kn[kn]["ms"] for kn in calls),
+                  "plain_ms": sum(by_kn[kn]["plain_ms"] for kn in calls)}
+    ops_ms = sum(by_kn[kn]["bound_ms"] for kn in calls if by_kn[kn]["bound_by"] == "operations")
+    train_step["bound_by"] = "operations" if 2 * ops_ms >= train_step["bound_ms"] else "bytes"
+    log("K1 training step (per-call times at M=%d summed)" % prefill_rows, json.dumps(train_step))
 
     # one decode step's K1 work on the served model's frozen weights
     lay = params["layers"]
@@ -196,8 +235,11 @@ def k1_phase(cfg, params, gen, dev, prefill_rows):
     per_step = {"calls": len(ws), "M": NUM_SLOTS, "ms": cuda_ms(step(approx_matmul)),
                 "plain_ms": cuda_ms(step(approx_matmul_plain)), "bound_ms": bms,
                 "bound_by": by}
+    # "ms" above includes the host's issue rate (281 wrapper calls); the
+    # kernels' own device time under the profiler:
+    per_step["device_ms"] = _profile_step(step(approx_matmul)).get("k1_device_ms")
     log("K1 decode step", json.dumps(per_step))
-    return shapes, checked, per_step
+    return shapes, checked, per_step, train_step
 
 
 # ---------------------------------------------------------------------------
@@ -431,18 +473,19 @@ def decode_step_diff(cfg, params, trace, toks, dev):
 
 def k3_phase(dev, gen):
     from repro_torch.core.multipliers import mul8x8_table
-    from repro_torch.kernels.approx_matmul.ops import _lut
+    from repro_torch.kernels.approx_matmul import approx_matmul
     from repro_torch.kernels.approx_mul_eltwise import (approx_mul_eltwise,
                                                         approx_mul_eltwise_plain,
                                                         lut_mismatches)
 
-    # the path: K1's LUT checked against the bit logic, one launch per design
+    # the path: K1's all-pairs table checked against the bit logic, one
+    # launch per design
     approx_mul_eltwise.launches = 0
     mismatches = {m: lut_mismatches(m, device=dev) for m in K3_DESIGNS}
     torch.cuda.synchronize()
     launches = approx_mul_eltwise.launches
     if any(mismatches.values()) or launches != len(K3_DESIGNS):
-        raise AssertionError(f"K3: K1's LUT differs from the bit logic {mismatches} "
+        raise AssertionError(f"K3: K1's table differs from the bit logic {mismatches} "
                              f"({launches} launches)")
 
     codes = torch.arange(256, device=dev, dtype=torch.uint8)
@@ -463,8 +506,8 @@ def k3_phase(dev, gen):
 
     for m in K3_DESIGNS:
         table = torch.from_numpy(mul8x8_table(m).reshape(-1).copy()).to(dev)
-        k1_lut = _lut(m, dev).to(torch.int32) & 0xFFFF
-        check("all pairs vs plain, table and K1's LUT", a, b, m, table, k1_lut)
+        k1_table = approx_matmul(codes[:, None], codes[None, :], multiplier=m).reshape(-1)
+        check("all pairs vs plain, table and K1's table", a, b, m, table, k1_table)
         for dtype in (torch.uint8, torch.int32):
             n = 10**6 + 3
             x = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=dtype)
@@ -564,6 +607,9 @@ def train_phase(dev, seed):
                             "k1_launches_per_step": out["launches"] // TRAIN_STEPS}
     state = holder.pop("state")
     log(f"[train] profiled step: {json.dumps(out['profiled_step'])}")
+    if not out["profiled_step"].get("k1_device_ms", 0) > 0:
+        raise AssertionError("the profiled step shows no device time for approx_matmul_kernel "
+                             f"though K1 launched {out['launches']} times")
 
     # remat off: the same step keeps each layer's activations (about 76 GB
     # at the peak: return the allocator's cached blocks first)
@@ -686,10 +732,11 @@ def main(argv=None) -> int:
     warm_up(dev)
 
     # -- 2. K1 ---------------------------------------------------------------
-    k1_shapes, k1_checked, k1_step = k1_phase(cfg, params, gen, dev, NUM_SLOTS * BUCKETS[-1])
+    k1_shapes, k1_checked, k1_step, k1_train = k1_phase(cfg, params, gen, dev,
+                                                        NUM_SLOTS * BUCKETS[-1])
     k1_err = max(r["max_abs_err"] for r in k1_checked)
     report["k1"] = {"shapes": k1_shapes, "checked": len(k1_checked), "max_abs_err": k1_err,
-                    "decode_step": k1_step}
+                    "decode_step": k1_step, "train_step": k1_train}
 
     # -- 3. K2 ---------------------------------------------------------------
     k2_err, k2_step = k2_phase(cfg, dev, args.seed)
@@ -780,7 +827,13 @@ def main(argv=None) -> int:
          "ms": k1_step["ms"], "plain_ms": k1_step["plain_ms"],
          "bound_ms": k1_step["bound_ms"], "bound_by": k1_step["bound_by"],
          "library_ms": None,
-         "per": f"decode step: {k1_step['calls']} calls at M={NUM_SLOTS}"},
+         "per": f"decode step: {k1_step['calls']} calls at M={NUM_SLOTS}",
+         "decode_step": {k: k1_step[k] for k in ("calls", "M", "ms", "device_ms", "plain_ms",
+                                                 "bound_ms", "bound_by")},
+         "train_step": {"calls": k1_train["calls"], "M": k1_train["M"],
+                        "device_ms": train["profiled_step"]["k1_device_ms"],
+                        "events_ms": k1_train["events_ms"], "plain_ms": k1_train["plain_ms"],
+                        "bound_ms": k1_train["bound_ms"], "bound_by": k1_train["bound_by"]}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:141",

@@ -5,8 +5,8 @@ launches the kernel in ``kernels/csrc/approx_mul_eltwise.cu`` or raises.
 ``approx_mul_eltwise.launches`` counts kernel launches.
 
 The kernel evaluates the multiplier's bit logic (``core/logic.py``), never
-its LUT, so on the card it is an independent cross-check of the table that
-the approximate matmul (K1) loads.  Only the three designs with a bitwise
+its LUT, so on the card it is an independent cross-check of the products
+that the approximate matmul (K1) computes.  Only the three designs with a bitwise
 form exist here: mul8x8_1, mul8x8_2 and mul8x8_3.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels._build import KernelLaunchError, library
-from repro_torch.kernels.approx_matmul.ops import _lut
+from repro_torch.kernels.approx_matmul.ops import approx_matmul
 from repro_torch.kernels.approx_mul_eltwise.ref import approx_mul_eltwise_plain
 
 __all__ = ["DESIGNS", "UnsupportedMultiplierError", "approx_mul_eltwise", "lut_mismatches"]
@@ -87,12 +87,13 @@ approx_mul_eltwise.launches = 0
 def lut_mismatches(multiplier: str, device=None) -> int:
     """How many of the 65,536 code pairs (a, b) have a product under the
     multiplier's bit logic (the kernel, on a CUDA device) other than the
-    LUT entry that the approximate matmul (K1) loads on that device: 0
-    when K1's table is right.  ``device`` defaults to the CUDA device
-    (raising without one)."""
+    table K1 computes on that device: one approximate matmul with K = 1,
+    the codes 0..255 as a column times the codes 0..255 as a row.  0 when
+    K1 is right.  ``device`` defaults to the CUDA device (raising without
+    one)."""
     dev = resolve_device(device)
     codes = torch.arange(256, device=dev, dtype=torch.uint8)
     got = approx_mul_eltwise(codes.repeat_interleave(256), codes.repeat(256),
                              multiplier=multiplier)
-    lut = _lut(multiplier.lower(), dev).to(torch.int32) & 0xFFFF
-    return int((got != lut).sum())
+    table = approx_matmul(codes[:, None], codes[None, :], multiplier=multiplier)
+    return int((got != table.reshape(-1)).sum())

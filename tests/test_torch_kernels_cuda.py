@@ -37,6 +37,45 @@ def test_approx_matmul_kernel_equals_plain(dev, multiplier, M, K, N):
     assert torch.equal(out, approx_matmul_plain(a, b, multiplier=multiplier))
 
 
+def _k1_case(dev, M, K, N, multiplier="mul8x8_2", rhs_max=255):
+    g = torch.Generator(device=dev).manual_seed(M * 7919 + K * 31 + N)
+    a = torch.randint(0, 256, (M, K), generator=g, device=dev, dtype=torch.uint8)
+    b = torch.randint(0, rhs_max + 1, (K, N), generator=g, device=dev, dtype=torch.uint8)
+    before = approx_matmul.launches
+    out = approx_matmul(a, b, multiplier=multiplier, rhs_max=rhs_max)
+    torch.cuda.synchronize()
+    assert approx_matmul.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (M, N)
+    assert torch.equal(out, approx_matmul_plain(a, b, multiplier=multiplier, rhs_max=rhs_max))
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 63, 64, 65, 512])
+def test_approx_matmul_kernel_both_paths_ragged_k(dev, M):
+    """M < 64 swaps the operands, M >= 64 does not; K = 1000 is a multiple
+    of no tile (the wrapper pads it to 1008) and N = 300 of no block."""
+    _k1_case(dev, M, 1000, 300)
+
+
+@pytest.mark.parametrize("M", [4, 512])
+def test_approx_matmul_kernel_lm_head_width(dev, M):
+    _k1_case(dev, M, 2048, 49664)
+
+
+@pytest.mark.parametrize("multiplier", MULTIPLIERS)
+def test_approx_matmul_kernel_rhs_max_31(dev, multiplier):
+    """The co-optimized band: codes <= 31 under the pruned factorization."""
+    _k1_case(dev, 70, 520, 200, multiplier, rhs_max=31)
+    _k1_case(dev, 4, 520, 200, multiplier, rhs_max=31)
+
+
+@pytest.mark.parametrize("multiplier", MULTIPLIERS)
+def test_approx_matmul_kernel_all_pairs_table_is_the_lut(dev, multiplier):
+    codes = torch.arange(256, device=dev, dtype=torch.uint8)
+    out = approx_matmul(codes[:, None], codes[None, :], multiplier=multiplier)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), torch.from_numpy(mul8x8_table(multiplier)).to(torch.int32))
+
+
 @pytest.mark.parametrize("B,W,bs,n_kv,g,hd", [(4, 10, 16, 8, 4, 64), (3, 5, 4, 2, 2, 32),
                                               (2, 6, 1, 1, 3, 16)])
 def test_paged_attention_kernel_within_1e4_of_plain(dev, B, W, bs, n_kv, g, hd):
