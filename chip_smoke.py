@@ -20,14 +20,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K2      paged_attention (CUDA) within 1e-4 of its plain version at the
            served shapes (H 32, Hkv 8, hd 64, block 16) and the test shapes,
            with sentinel holes, all-sentinel rows, cur_len on a block
-           boundary and cur_len past the table.
+           boundary and cur_len past the table, each on a float32 and on a
+           bfloat16 pool; then one served decode step (40 calls, bf16 q as
+           served) and one call at 4,096 positions (W = 256), each on both
+           pool dtypes, timed by CUDA events and by the profiler's device
+           time, beside the bound, the plain version and SDPA over blocks
+           gathered beforehand.
 4. serve   8 seeded requests (prompts 16-128 tokens, 16-32 new tokens)
            through ServeSession(--exec approx, attn_impl="kernel") on the
            card, 4 slots, 16-row blocks; both kernels' launch counts, zeroed
            just before, must be > 0.
 5. oracle  the first 2 requests again through a session on the plain
            versions (approx_lowrank, attn_impl="gather") on the card; the
-           greedy tokens must be identical.
+           greedy tokens must be identical.  One decode step through K2 and
+           through its plain version picks the same tokens, on a float32
+           and on a bfloat16 pool.
 6. K3      approx_mul_eltwise (CUDA, bit logic) on all 65,536 code pairs of
            mul8x8_1/2/3: equal to its plain version, to ``mul8x8_table`` and
            to the table K1 computes in one K = 1 call (``lut_mismatches``,
@@ -55,7 +62,7 @@ replay a subset of the trace.  The weights are random, from ``--seed``.
 Timings are CUDA-event means over repeated launches; a bound is the larger
 of the bytes the call must move over 3.35 TB/s and its operations over the
 peak rate of their type (int8 1979 TOP/s for the uint8 codes of K1, f32
-67 TFLOP/s for K2; K3 moves 2 bytes in and 4 out per element and its
+67 TFLOP/s for K2, which computes in f32 from either pool dtype; K3 moves 2 bytes in and 4 out per element and its
 integer logic has no rate in the data sheet), the H100 SXM data-sheet
 rates at 700 W.  The line
 before the last is {"kernels": [...]}; the last line is
@@ -93,6 +100,8 @@ MAX_NEW = 32
 REQUESTS = 8
 MAX_LEN = 160                        # largest bucket + MAX_NEW, whole blocks
 K2_TOL = 1e-4
+K2_POOLS = {"f32": torch.float32, "bf16": torch.bfloat16}
+LONG_CONTEXT = 4096                  # granite-3.0-2b's context length
 K3_DESIGNS = ("mul8x8_1", "mul8x8_2", "mul8x8_3")
 K3_TIMED_N = 1 << 26                 # 64 M elements
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 3
@@ -247,16 +256,18 @@ def k1_phase(cfg, params, gen, dev, prefill_rows):
 # ---------------------------------------------------------------------------
 
 
-def paged_case(rng, dev, B, W, bs, n_kv, g, hd, *, holes=False):
+def paged_case(rng, dev, B, W, bs, n_kv, g, hd, *, holes=False, pool_dtype=torch.float32):
     """Random paged decode inputs: each row holds a random number of
     distinct blocks (possibly none: an all-sentinel row) and its cur_len
     lands in its last block (offset 0 included); ``holes`` knocks an
-    allocated middle block back to the sentinel."""
+    allocated middle block back to the sentinel.  The pools and the new
+    token's K/V are in ``pool_dtype``, q in float32."""
     H = n_kv * g
     nb = B * W + 1
     f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
-    q, kn, vn = f(B, H, hd), f(B, n_kv, hd), f(B, n_kv, hd)
-    kp, vp = f(nb, bs, n_kv, hd), f(nb, bs, n_kv, hd)
+    q = f(B, H, hd)
+    kn, vn = f(B, n_kv, hd).to(pool_dtype), f(B, n_kv, hd).to(pool_dtype)
+    kp, vp = f(nb, bs, n_kv, hd).to(pool_dtype), f(nb, bs, n_kv, hd).to(pool_dtype)
     tbl = np.full((B, W), nb, np.int32)
     cur = np.zeros((B,), np.int32)
     free = list(rng.permutation(nb))
@@ -279,6 +290,74 @@ def k2_valid_positions(tbl, cur, num_blocks, bs):
     for row, c in zip(tbl.tolist(), cur.tolist()):
         n += sum(min(bs, max(0, c - w * bs)) for w, e in enumerate(row) if e < num_blocks)
     return n
+
+
+def k2_bound(B, H, hkv, hd, W, valid, qsize, esize, calls=1):
+    """(ms, by) of ``calls`` K2 calls: q read and out written in q's dtype,
+    the new token's K/V, the table and lengths, and the K/V rows of the
+    ``valid`` pool positions the rows hold (each read once, in the pool
+    dtype); 4 * hd f32 operations per query head and attended position."""
+    nbytes = B * (2 * H * hd * qsize + 2 * hkv * hd * esize + 4 * (W + 1)) \
+        + 2 * esize * valid * hkv * hd
+    ops = 4.0 * H * hd * (valid + B)
+    return bound(calls * nbytes, calls * ops, F32_FLOPS_PER_S)
+
+
+def k2_timed(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
+    """Time ``calls`` K2 calls, each on its own pool (as the layers of one
+    decode step are), with a bf16 query as served: CUDA events around
+    back-to-back steps (the wrapper's host time included), the kernel's
+    device time under the profiler, the plain version, and SDPA over the
+    blocks gathered beforehand (the library yardstick; it never runs in
+    the port)."""
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+    nb, H = B * W, hkv * g
+    kp = torch.randn(calls, nb, BLOCK_SIZE, hkv, hd, device=dev).to(pool_dtype)
+    vp = torch.randn(calls, nb, BLOCK_SIZE, hkv, hd, device=dev).to(pool_dtype)
+    q = torch.randn(calls, B, H, hd, device=dev).to(torch.bfloat16)
+    kn = torch.randn(calls, B, hkv, hd, device=dev).to(pool_dtype)
+    vn = torch.randn(calls, B, hkv, hd, device=dev).to(pool_dtype)
+    cur = np.asarray(cur, np.int32)
+    tbl = np.full((B, W), nb, np.int32)
+    perm = list(rng.permutation(nb))
+    for b in range(B):
+        n = min(W, int(cur[b]) // BLOCK_SIZE + 1)
+        tbl[b, :n] = [perm.pop() for _ in range(n)]
+    tbl_t = torch.as_tensor(tbl, device=dev)
+    cur_t = torch.as_tensor(cur, device=dev)
+
+    def step(fn):
+        return lambda: [fn(q[i], kn[i], vn[i], kp[i], vp[i], tbl_t, cur_t, block_size=BLOCK_SIZE)
+                        for i in range(calls)]
+
+    S = W * BLOCK_SIZE
+    idx = tbl_t.clamp(max=nb - 1).long()
+    kg = torch.stack([kp[i][idx].reshape(B, S, hkv, hd) for i in range(calls)]).transpose(2, 3)
+    vg = torch.stack([vp[i][idx].reshape(B, S, hkv, hd) for i in range(calls)]).transpose(2, 3)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= cur_t[:, None].long())[:, None, None, :]
+    q4 = q.to(pool_dtype)[:, :, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library_step():
+        return [sdpa(q4[i], kg[i], vg[i], attn_mask=mask, enable_gqa=True) for i in range(calls)]
+
+    valid = k2_valid_positions(tbl, cur, nb, BLOCK_SIZE)
+    esize = pool_dtype.itemsize
+    bms, by = k2_bound(B, H, hkv, hd, W, valid, 2, esize, calls)
+    prof = _profile_step(step(paged_attention), match="paged_attention_kernel",
+                         key="device_ms_k2")
+    row = {"calls": calls, "B": B, "W": W, "pool": str(pool_dtype).replace("torch.", ""),
+           "q": "bfloat16", "cur_len": cur.tolist(), "valid_positions": valid,
+           "ms": cuda_ms(step(paged_attention)), "device_ms": prof.get("device_ms_k2"),
+           "plain_ms": cuda_ms(step(paged_attention_plain)), "bound_ms": bms, "bound_by": by,
+           "library_ms": cuda_ms(library_step)}
+    for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
+        if row[k] is not None:
+            row[k + "_per_call"] = row[k] / calls
+    return row
 
 
 def k2_phase(cfg, dev, seed):
@@ -305,67 +384,40 @@ def k2_phase(cfg, dev, seed):
 
     shapes = [("served", NUM_SLOTS, W, BLOCK_SIZE, hkv, g, hd), ("test", 3, 5, 4, 2, 2, 32),
               ("block1", 2, 6, 1, 2, 3, 16), ("block8", 4, 3, 8, 1, 2, 4)]
-    for name, B, Wc, bs, n_kv, gg, d in shapes:
-        for holes in (False, True):
-            args = paged_case(rng, dev, B, Wc, bs, n_kv, gg, d, holes=holes)
-            check(f"{name} holes={holes}", args, bs)
-        args = paged_case(rng, dev, B, Wc, bs, n_kv, gg, d)
-        nb = args[3].shape[0]
-        args[5][1:] = nb                                      # rows 1.. all sentinel
-        check(f"{name} all-sentinel rows", args, bs, zero_rows=range(1, B))
-        args = paged_case(rng, dev, B, Wc, bs, n_kv, gg, d)
-        args[5] = torch.as_tensor(rng.permutation(nb)[:B * Wc].reshape(B, Wc),
-                                  dtype=torch.int32, device=dev)
-        args[6] = torch.as_tensor(bs * rng.integers(0, Wc, B), dtype=torch.int32, device=dev)
-        check(f"{name} cur_len on a block boundary", args, bs)
-        args[6] = torch.as_tensor(Wc * bs + rng.integers(0, bs + 1, B), dtype=torch.int32,
-                                  device=dev)
-        check(f"{name} cur_len past the table", args, bs)
+    for pool, pool_dtype in K2_POOLS.items():
+        for name, B, Wc, bs, n_kv, gg, d in shapes:
+            case = lambda **kw: paged_case(rng, dev, B, Wc, bs, n_kv, gg, d,
+                                           pool_dtype=pool_dtype, **kw)
+            for holes in (False, True):
+                check(f"{name} {pool} holes={holes}", case(holes=holes), bs)
+            args = case()
+            nb = args[3].shape[0]
+            args[5][1:] = nb                                      # rows 1.. all sentinel
+            check(f"{name} {pool} all-sentinel rows", args, bs, zero_rows=range(1, B))
+            args = case()
+            args[5] = torch.as_tensor(rng.permutation(nb)[:B * Wc].reshape(B, Wc),
+                                      dtype=torch.int32, device=dev)
+            args[6] = torch.as_tensor(bs * rng.integers(0, Wc, B), dtype=torch.int32, device=dev)
+            check(f"{name} {pool} cur_len on a block boundary", args, bs)
+            args[6] = torch.as_tensor(Wc * bs + rng.integers(0, bs + 1, B), dtype=torch.int32,
+                                      device=dev)
+            check(f"{name} {pool} cur_len past the table", args, bs)
 
-    # one decode step's K2 work: one call per layer on its own pool, rows at
-    # served lengths (a quarter to all of the table)
-    L, nb = cfg.num_layers, NUM_SLOTS * W
-    f = lambda *s: torch.randn(*s, device=dev)
-    kp, vp = f(L, nb, BLOCK_SIZE, hkv, hd), f(L, nb, BLOCK_SIZE, hkv, hd)
-    q, kn, vn = f(L, NUM_SLOTS, hkv * g, hd), f(L, NUM_SLOTS, hkv, hd), f(L, NUM_SLOTS, hkv, hd)
-    cur = rng.integers(MAX_LEN // 4, MAX_LEN, NUM_SLOTS).astype(np.int32)
-    tbl = np.full((NUM_SLOTS, W), nb, np.int32)
-    perm = list(rng.permutation(nb))
-    for b in range(NUM_SLOTS):
-        n = int(cur[b]) // BLOCK_SIZE + 1
-        tbl[b, :n] = [perm.pop() for _ in range(n)]
-    tbl_t = torch.as_tensor(tbl, device=dev)
-    cur_t = torch.as_tensor(cur, device=dev)
-
-    def step(fn):
-        return lambda: [fn(q[i], kn[i], vn[i], kp[i], vp[i], tbl_t, cur_t, block_size=BLOCK_SIZE)
-                        for i in range(L)]
-
-    # the library yardstick: SDPA over the blocks gathered beforehand
-    S = W * BLOCK_SIZE
-    kg = torch.stack([kp[i][tbl_t.clamp(max=nb - 1).long()].reshape(NUM_SLOTS, S, hkv, hd)
-                      for i in range(L)]).transpose(2, 3).contiguous()
-    vg = torch.stack([vp[i][tbl_t.clamp(max=nb - 1).long()].reshape(NUM_SLOTS, S, hkv, hd)
-                      for i in range(L)]).transpose(2, 3).contiguous()
-    pos = torch.arange(S, device=dev)
-    mask = (pos[None, :] <= cur_t[:, None].long())[:, None, None, :]
-    q4 = q[:, :, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def library_step():
-        return [sdpa(q4[i], kg[i], vg[i], attn_mask=mask, enable_gqa=True) for i in range(L)]
-
-    valid = k2_valid_positions(tbl, cur, nb, BLOCK_SIZE)
-    per_layer_bytes = (4 * NUM_SLOTS * (2 * hkv * g * hd + 2 * hkv * hd + W + 1)
-                       + 2 * 4 * valid * hkv * hd)
-    per_layer_ops = 4.0 * hkv * g * hd * (valid + NUM_SLOTS)
-    bms, by = bound(L * per_layer_bytes, L * per_layer_ops, F32_FLOPS_PER_S)
-    per_step = {"calls": L, "B": NUM_SLOTS, "cur_len": cur.tolist(),
-                "ms": cuda_ms(step(paged_attention)),
-                "plain_ms": cuda_ms(step(paged_attention_plain)), "bound_ms": bms,
-                "bound_by": by, "library_ms": cuda_ms(library_step)}
-    log("K2 decode step", json.dumps(per_step))
-    return worst, per_step
+    # one decode step's K2 work (one call per layer on its own pool, rows at
+    # served lengths: a quarter to all of the table), and one call at
+    # granite-3.0-2b's context length (four pools, so no call finds its
+    # blocks in L2), on each pool dtype
+    cur = rng.integers(MAX_LEN // 4, MAX_LEN, NUM_SLOTS)
+    step = {pool: k2_timed(dev, rng, calls=cfg.num_layers, B=NUM_SLOTS, W=W, hkv=hkv, g=g,
+                           hd=hd, cur=cur, pool_dtype=dt) for pool, dt in K2_POOLS.items()}
+    for pool, row in step.items():
+        log(f"K2 decode step, {pool} pool", json.dumps(row))
+    long = {pool: k2_timed(dev, rng, calls=4, B=NUM_SLOTS, W=LONG_CONTEXT // BLOCK_SIZE,
+                           hkv=hkv, g=g, hd=hd, cur=[LONG_CONTEXT - 1] * NUM_SLOTS,
+                           pool_dtype=dt) for pool, dt in K2_POOLS.items()}
+    for pool, row in long.items():
+        log(f"K2 at {LONG_CONTEXT} positions, {pool} pool", json.dumps(row))
+    return worst, step, long
 
 
 # ---------------------------------------------------------------------------
@@ -437,16 +489,17 @@ def profile_decode(cfg, params, trace, dev, seed, ticks=6):
     return out
 
 
-def decode_step_diff(cfg, params, trace, toks, dev):
-    """Prefill the first two prompts into a fresh pool, then run one decode
-    step on copies of it through K2 and through its plain version (K1 in
-    both): the logits' largest difference and whether the argmax agrees."""
+def decode_step_diff(cfg, params, trace, toks, dev, cache_dtype=torch.float32):
+    """Prefill the first two prompts into a fresh pool of ``cache_dtype``,
+    then run one decode step on copies of it through K2 and through its
+    plain version (K1 in both): the logits' largest difference and whether
+    the argmax agrees."""
     from repro_torch.models.transformer import forward, init_paged_cache, paged_decode_step
     from repro_torch.serve.cache import scatter_prompt_blocks
 
     W, nbk = MAX_LEN // BLOCK_SIZE, BUCKETS[-1] // BLOCK_SIZE
     with torch.no_grad():
-        cache = init_paged_cache(cfg, 2 * W, BLOCK_SIZE, device=dev)
+        cache = init_paged_cache(cfg, 2 * W, BLOCK_SIZE, cache_dtype, device=dev)
         logits, kvs = forward(cfg, params, toks, return_kv=True)
         ids = torch.arange(2 * (nbk + 1), dtype=torch.int32, device=dev).reshape(2, nbk + 1)
         scatter_prompt_blocks(cache, kvs, ids[:, :nbk], BLOCK_SIZE)
@@ -458,7 +511,8 @@ def decode_step_diff(cfg, params, trace, toks, dev):
                                        nxt, lens, tables, block_size=BLOCK_SIZE,
                                        attn_impl=impl)[:, 0, :cfg.vocab_size]
                for impl in ("kernel", "gather")}
-    res = {"max_abs_diff": (out["kernel"] - out["gather"]).abs().max().item(),
+    res = {"pool": str(cache_dtype).replace("torch.", ""),
+           "max_abs_diff": (out["kernel"] - out["gather"]).abs().max().item(),
            "max_abs_logit": out["gather"].abs().max().item(),
            "argmax_equal": bool(torch.equal(out["kernel"].argmax(-1), out["gather"].argmax(-1)))}
     if not res["argmax_equal"]:
@@ -539,10 +593,11 @@ def k3_phase(dev, gen):
 # ---------------------------------------------------------------------------
 
 
-def _profile_step(fn):
-    """Device time of one call of ``fn`` under torch.profiler: K1's ms, all
-    kernels' ms and the top kernels by device time (empty if the profiler
-    records no device time)."""
+def _profile_step(fn, match="approx_matmul_kernel", key="k1_device_ms"):
+    """Device time of one call of ``fn`` under torch.profiler: the ms of the
+    kernels whose name holds ``match`` (under ``key``; K1's by default),
+    all kernels' ms and the top kernels by device time (empty if the
+    profiler records no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -555,7 +610,7 @@ def _profile_step(fn):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
     if not rows:
         return {"note": "the profiler recorded no device time"}
-    return {"k1_device_ms": sum(us for us, _, k in rows if "approx_matmul_kernel" in k) / 1e3,
+    return {key: sum(us for us, _, k in rows if match in k) / 1e3,
             "device_ms": sum(us for us, _, _ in rows) / 1e3,
             "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": c}
                            for us, c, k in rows[:10]]}
@@ -739,8 +794,9 @@ def main(argv=None) -> int:
                     "decode_step": k1_step, "train_step": k1_train}
 
     # -- 3. K2 ---------------------------------------------------------------
-    k2_err, k2_step = k2_phase(cfg, dev, args.seed)
-    report["k2"] = {"max_abs_err": k2_err, "decode_step": k2_step}
+    k2_err, k2_steps, k2_long = k2_phase(cfg, dev, args.seed)
+    k2_step = k2_steps["f32"]
+    report["k2"] = {"max_abs_err": k2_err, "decode_step": k2_steps, "long_context": k2_long}
 
     # -- 4. serve ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -793,8 +849,9 @@ def main(argv=None) -> int:
         same_prefill = torch.equal(forward(cfg, params, toks), forward(ocfg, params, toks))
     if not same_prefill:
         raise AssertionError("prefill logits through K1 differ from the plain version's")
-    decode_diff = decode_step_diff(cfg, params, trace, toks, dev)
-    log(f"[oracle] one decode step, K2 vs its plain version: {json.dumps(decode_diff)}")
+    decode_diff = [decode_step_diff(cfg, params, trace, toks, dev, dt) for dt in K2_POOLS.values()]
+    for d in decode_diff:
+        log(f"[oracle] one decode step, K2 vs its plain version: {json.dumps(d)}")
     distinct = len({t for r in results.values() for t in r.tokens.tolist()})
     log(f"[oracle] prefill logits bit-identical; {distinct} distinct tokens served")
     report["oracle"] = {"requests": 2, "identical": True, "prefill_logits_identical": True,
@@ -840,8 +897,13 @@ def main(argv=None) -> int:
          "launches": launches["paged_attention"], "max_abs_err": k2_err,
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],
-         "library_ms": k2_step["library_ms"],
-         "per": f"decode step: {k2_step['calls']} calls at B={NUM_SLOTS}"},
+         "library_ms": k2_step["library_ms"], "device_ms": k2_step["device_ms"],
+         "per": f"decode step: {k2_step['calls']} calls at B={NUM_SLOTS}, f32 pool, bf16 q",
+         "bf16_pool_decode_step": {k: k2_steps["bf16"][k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "long_context_per_call": {pool: {k: row.get(k + "_per_call") for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+             for pool, row in k2_long.items()}},
         {"name": "approx_mul_eltwise", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/approx_mul_eltwise.cu",
          "replaces": "src/repro/kernels/approx_mul_eltwise/kernel.py:34",

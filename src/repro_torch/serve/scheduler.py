@@ -206,8 +206,11 @@ class ServeSession:
     within a class), ``"fifo"``, or ``"sjf"`` (shortest ``max_new +
     bucketed prompt len`` first).  ``attn_impl`` picks the decode
     attention: ``"kernel"`` (K2) or ``"gather"`` (its plain version, the
-    oracle).  ``params`` may be float or ``freeze_params`` trees; they move
-    to ``device`` (default: the CUDA device; without one, this raises).
+    oracle).  ``cache_dtype`` is the paged pool's dtype (float32, as in the
+    JAX package, or bfloat16, which halves the pool's bytes and K2's
+    reads; K2 takes both).  ``params`` may be float or ``freeze_params``
+    trees; they move to ``device`` (default: the CUDA device; without one,
+    this raises).
     """
 
     def __init__(
@@ -225,6 +228,7 @@ class ServeSession:
         policy: str = "priority",
         attn_impl: str = "kernel",
         pad_id: int = 0,
+        cache_dtype: torch.dtype = torch.float32,
         device=None,
     ):
         if policy not in ADMISSION_POLICIES:
@@ -260,7 +264,7 @@ class ServeSession:
             num_blocks = num_slots * self.table_width
         self.blocks = C.BlockPool(num_blocks)
         self.num_blocks = int(num_blocks)
-        self.cache = init_paged_cache(cfg, self.num_blocks, self.block_size,
+        self.cache = init_paged_cache(cfg, self.num_blocks, self.block_size, cache_dtype,
                                       device=self.device)
         # per-slot block table (sentinel == num_blocks), held blocks, and the
         # not-yet-held part of each row's worst-case reservation

@@ -62,6 +62,38 @@ def test_bitwise_8x8_equals_jax_over_the_whole_domain(design, removed, name):
     assert DESIGNS[name] == (design, removed)
 
 
+def _k3_corr(x, y, design):
+    """The CUDA kernel's correction of one 3x3 block (approx_mul_eltwise.cu,
+    ``corr``): a step function of P = (x & 3) * (y & 3), gated on bit 2 of
+    both fields."""
+    P = ((x & y) >> 2 & 1) * ((x & 3) * (y & 3))
+    ge3, ge4, ge9 = (P >= 3).astype(np.int32), (P >= 4).astype(np.int32), (P >= 9).astype(np.int32)
+    return 4 * (2 * ge3 + ge4 + 2 * ge9) if design == 1 else 4 * (2 * ge3 - 3 * ge4 + 2 * ge9)
+
+
+@pytest.mark.parametrize("design,removed,name", CASES)
+def test_cuda_kernels_four_corrections_equal_jax_bit_logic(design, removed, name):
+    """K3 on the card computes a*b minus the four corrections that can be
+    non-zero ((alo,blo), (alo,bmid), (amid,blo), (amid,bmid)) and, for
+    mul8x8_3, minus (alo*bhi) << 6.  Its arithmetic, emulated here over the
+    whole 8-bit domain, equals the JAX package's bit logic and the LUT."""
+    a, b = _grid(256)
+    alo, amid, blo, bmid = a & 7, (a >> 3) & 7, b & 7, (b >> 3) & 7
+    got = (a * b - _k3_corr(alo, blo, design)
+           - ((_k3_corr(alo, bmid, design) + _k3_corr(amid, blo, design)) << 3)
+           - (_k3_corr(amid, bmid, design) << 6))
+    if removed:
+        got = got - ((alo * (b >> 6)) << 6)
+    want = np.asarray(jlogic.approx_mul8x8_bitwise(jnp.asarray(a), jnp.asarray(b),
+                                                   design, removed))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, M.mul8x8_table(name))
+    # every block with an operand <= 4, or with a field of ahi / bhi, is exact
+    x, y = _grid(8)
+    zero = (x < 5) | (y < 5)
+    assert (_k3_corr(x, y, design)[zero] == 0).all()
+
+
 @pytest.mark.parametrize("name", [c[2] for c in CASES])
 def test_plain_and_wrapper_equal_jax_kernel_over_the_whole_domain(name):
     a, b = _grid(256)

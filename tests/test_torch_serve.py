@@ -84,6 +84,29 @@ def test_greedy_tokens_match_jax_session_approx_kernels():
     assert tsess.stats.peak_blocks_in_use > 0
 
 
+def test_bf16_cache_dtype_session_runs_clean():
+    """A bf16 paged pool (``cache_dtype``, as the JAX session's): decode
+    attends the pool-rounded fused token through K2's CPU route.  Token
+    parity with a float32 pool is not a contract (the pool rounds K/V), so
+    this pins shapes, token ranges and a clean pool, as the JAX package's
+    own bf16-pool test does."""
+    _, _, tcfg, tp = _models("approx")
+    assert ServeSession(tcfg, tp, device="cpu", **KW).cache["k"].dtype == torch.float32
+    sess = ServeSession(tcfg, tp, attn_impl="kernel", cache_dtype=torch.bfloat16,
+                        device="cpu", **dict(KW, num_slots=2))
+    assert sess.cache["k"].dtype == sess.cache["v"].dtype == torch.bfloat16
+    ids = [sess.submit(np.arange(1, 4 + i, dtype=np.int32), max_new=3) for i in range(3)]
+    res = sess.run(max_steps=10_000)
+    for rid in ids:
+        toks = res[rid].tokens
+        assert toks.shape == (3,)
+        assert 0 <= int(toks.min()) and int(toks.max()) < tcfg.vocab_size
+    assert sess.blocks.free_count == sess.num_blocks and sess.blocks.busy_count == 0
+    assert sess._reserved_total == 0 and (sess._future == 0).all()
+    assert (sess._tables == sess.num_blocks).all() and all(not h for h in sess._held)
+    assert sess.cache["k"].abs().sum() > 0            # the pool was written
+
+
 @pytest.mark.parametrize("policy", ["priority", "sjf"])
 def test_admission_policies_and_eos_match_jax(policy):
     """Float execution with the gather oracle, an eos id and an undersized
