@@ -21,9 +21,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
            served shapes (H 32, Hkv 8, hd 64, block 16) and the test shapes,
            with sentinel holes, all-sentinel rows, cur_len on a block
            boundary and cur_len past the table, each on a float32 and on a
-           bfloat16 pool; then one served decode step (40 calls, bf16 q as
-           served) and one call at 4,096 positions (W = 256), each on both
-           pool dtypes, timed by CUDA events and by the profiler's device
+           bfloat16 pool and each with a float32 and a bfloat16 query (the
+           bf16-query output within 1e-4 plus bf16 rounding, and bit-equal
+           to the f32 result rounded to bf16); then one served decode step
+           (40 calls, bf16 q as served) and one call at 4,096 positions
+           (W = 256), each on both pool dtypes, every call checked the
+           same way, then timed by CUDA events and by the profiler's device
            time, beside the bound, the plain version and SDPA over blocks
            gathered beforehand.
 4. serve   8 seeded requests (prompts 16-128 tokens, 16-32 new tokens)
@@ -149,6 +152,29 @@ def bound(nbytes: float, ops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def profile_step(fn, match="approx_matmul_kernel", key="k1_device_ms"):
+    """Device time of one call of ``fn`` under torch.profiler: the ms of the
+    kernels whose name holds ``match`` (under ``key``; K1's by default),
+    all kernels' ms and the top kernels by device time (empty if the
+    profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
+    if not rows:
+        return {"note": "the profiler recorded no device time"}
+    return {key: sum(us for us, _, k in rows if match in k) / 1e3,
+            "device_ms": sum(us for us, _, _ in rows) / 1e3,
+            "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                           for us, c, k in rows[:10]]}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: K1
 # ---------------------------------------------------------------------------
@@ -246,7 +272,7 @@ def k1_phase(cfg, params, gen, dev, prefill_rows):
                 "bound_by": by}
     # "ms" above includes the host's issue rate (281 wrapper calls); the
     # kernels' own device time under the profiler:
-    per_step["device_ms"] = _profile_step(step(approx_matmul)).get("k1_device_ms")
+    per_step["device_ms"] = profile_step(step(approx_matmul)).get("k1_device_ms")
     log("K1 decode step", json.dumps(per_step))
     return shapes, checked, per_step, train_step
 
@@ -303,34 +329,83 @@ def k2_bound(B, H, hkv, hd, W, valid, qsize, esize, calls=1):
     return bound(calls * nbytes, calls * ops, F32_FLOPS_PER_S)
 
 
-def k2_timed(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
-    """Time ``calls`` K2 calls, each on its own pool (as the layers of one
-    decode step are), with a bf16 query as served: CUDA events around
-    back-to-back steps (the wrapper's host time included), the kernel's
-    device time under the profiler, the plain version, and SDPA over the
-    blocks gathered beforehand (the library yardstick; it never runs in
-    the port)."""
+def k2_check(name, args, bs, zero_rows=()):
+    """K2 against its plain version on one case, with the query as given
+    (if f32) and rounded to bf16 (as served); returns (the worst f32-query
+    error, the bf16-query error).  Each f32-query output is within K2_TOL
+    of the plain version's.  The bf16-query output is within K2_TOL plus
+    bf16's rounding of |ref|, and bit-equal to the output for the same
+    query upcast to f32 (exact) rounded to bf16: a kernel that reads a bf16
+    q or rounds its output wrongly fails.  All-sentinel rows are exactly 0."""
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 
+    q, rest = args[0], args[1:]
+    q16 = q.to(torch.bfloat16)
+    qs = ([q] if q.dtype == torch.float32 else []) + [q16.float()]
+    outs = [paged_attention(x, *rest, block_size=bs) for x in qs]
+    refs = [paged_attention_plain(x, *rest, block_size=bs) for x in qs]
+    out16 = paged_attention(q16, *rest, block_size=bs)
+    torch.cuda.synchronize()
+    err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+    if not err <= K2_TOL:
+        raise AssertionError(f"K2 {name}: max abs err {err} > {K2_TOL}")
+    dev16 = (out16.float() - refs[-1]).abs()
+    err16 = dev16.max().item()
+    if out16.dtype != torch.bfloat16 or not bool(
+            (dev16 <= K2_TOL + refs[-1].abs() * 2.0 ** -8).all()):
+        raise AssertionError(f"K2 {name}, bf16 q: {out16.dtype} output, max abs err {err16} "
+                             f"beyond {K2_TOL} plus bf16 rounding")
+    if not torch.equal(out16, outs[-1].to(torch.bfloat16)):
+        raise AssertionError(f"K2 {name}: the bf16-query output is not the f32 result "
+                             "rounded to bf16")
+    for o in outs + [out16]:
+        for b in zero_rows:
+            if not torch.equal(o[b], torch.zeros_like(o[b])):
+                raise AssertionError(f"K2 {name}: all-sentinel row {b} is not exactly 0")
+    return err, err16
+
+
+def k2_step_inputs(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
+    """Operands of ``calls`` K2 calls, each on its own pool (as the layers
+    of one decode step are), with a bf16 query as served and rows holding
+    the blocks their ``cur`` needs: ([q, kn, vn, kp, vp] stacked by call,
+    table and lengths on the card, table and lengths in numpy)."""
     nb, H = B * W, hkv * g
-    kp = torch.randn(calls, nb, BLOCK_SIZE, hkv, hd, device=dev).to(pool_dtype)
-    vp = torch.randn(calls, nb, BLOCK_SIZE, hkv, hd, device=dev).to(pool_dtype)
-    q = torch.randn(calls, B, H, hd, device=dev).to(torch.bfloat16)
-    kn = torch.randn(calls, B, hkv, hd, device=dev).to(pool_dtype)
-    vn = torch.randn(calls, B, hkv, hd, device=dev).to(pool_dtype)
+    ops = [torch.randn(calls, B, H, hd, device=dev).to(torch.bfloat16)]
+    ops += [torch.randn(calls, *s, device=dev).to(pool_dtype)
+            for s in ((B, hkv, hd), (B, hkv, hd), (nb, BLOCK_SIZE, hkv, hd),
+                      (nb, BLOCK_SIZE, hkv, hd))]
     cur = np.asarray(cur, np.int32)
     tbl = np.full((B, W), nb, np.int32)
     perm = list(rng.permutation(nb))
     for b in range(B):
         n = min(W, int(cur[b]) // BLOCK_SIZE + 1)
         tbl[b, :n] = [perm.pop() for _ in range(n)]
-    tbl_t = torch.as_tensor(tbl, device=dev)
-    cur_t = torch.as_tensor(cur, device=dev)
+    return ops, torch.as_tensor(tbl, device=dev), torch.as_tensor(cur, device=dev), tbl, cur
 
-    def step(fn):
-        return lambda: [fn(q[i], kn[i], vn[i], kp[i], vp[i], tbl_t, cur_t, block_size=BLOCK_SIZE)
-                        for i in range(calls)]
 
+def k2_step_of(fn, ops, tbl_t, cur_t):
+    """One step of ``fn`` over every call's operands."""
+    return lambda: [fn(*(t[i] for t in ops), tbl_t, cur_t, block_size=BLOCK_SIZE)
+                    for i in range(ops[0].shape[0])]
+
+
+def k2_timed(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
+    """Check and time ``calls`` K2 calls (``k2_step_inputs``): every call
+    held to its plain version as ``k2_check`` does, then CUDA events around
+    back-to-back steps (the wrapper's host time included), the kernel's
+    device time under the profiler, the plain version, and SDPA over the
+    blocks gathered beforehand (the library yardstick; it never runs in
+    the port)."""
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+    ops, tbl_t, cur_t, tbl, cur = k2_step_inputs(dev, rng, calls=calls, B=B, W=W, hkv=hkv, g=g,
+                                                 hd=hd, cur=cur, pool_dtype=pool_dtype)
+    q, kp, vp = ops[0], ops[3], ops[4]
+    pool = str(pool_dtype).replace("torch.", "")
+    errs = [k2_check(f"{pool} pool, W={W}, call {i}", [t[i] for t in ops] + [tbl_t, cur_t],
+                     BLOCK_SIZE) for i in range(calls)]
+    nb, H = B * W, hkv * g
     S = W * BLOCK_SIZE
     idx = tbl_t.clamp(max=nb - 1).long()
     kg = torch.stack([kp[i][idx].reshape(B, S, hkv, hd) for i in range(calls)]).transpose(2, 3)
@@ -347,10 +422,13 @@ def k2_timed(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
     valid = k2_valid_positions(tbl, cur, nb, BLOCK_SIZE)
     esize = pool_dtype.itemsize
     bms, by = k2_bound(B, H, hkv, hd, W, valid, 2, esize, calls)
-    prof = _profile_step(step(paged_attention), match="paged_attention_kernel",
-                         key="device_ms_k2")
-    row = {"calls": calls, "B": B, "W": W, "pool": str(pool_dtype).replace("torch.", ""),
+    step = lambda fn: k2_step_of(fn, ops, tbl_t, cur_t)
+    prof = profile_step(step(paged_attention), match="paged_attention_kernel",
+                        key="device_ms_k2")
+    row = {"calls": calls, "B": B, "W": W, "pool": pool,
            "q": "bfloat16", "cur_len": cur.tolist(), "valid_positions": valid,
+           "max_abs_err_f32_q": max(e for e, _ in errs),
+           "max_abs_err_bf16_q": max(e for _, e in errs),
            "ms": cuda_ms(step(paged_attention)), "device_ms": prof.get("device_ms_k2"),
            "plain_ms": cuda_ms(step(paged_attention_plain)), "bound_ms": bms, "bound_by": by,
            "library_ms": cuda_ms(library_step)}
@@ -361,26 +439,15 @@ def k2_timed(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
 
 
 def k2_phase(cfg, dev, seed):
-    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
-
     rng = np.random.default_rng(seed)
     hkv, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
     W = MAX_LEN // BLOCK_SIZE
-    worst = 0.0
+    worst = [0.0, 0.0]
 
     def check(name, args, bs, zero_rows=()):
-        nonlocal worst
-        out = paged_attention(*args, block_size=bs)
-        ref = paged_attention_plain(*args, block_size=bs)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not err <= K2_TOL:
-            raise AssertionError(f"K2 {name}: max abs err {err} > {K2_TOL}")
-        for b in zero_rows:
-            if not torch.equal(out[b], torch.zeros_like(out[b])):
-                raise AssertionError(f"K2 {name}: all-sentinel row {b} is not exactly 0")
-        worst = max(worst, err)
-        log(f"K2 {name}: max abs err {err:.3g}")
+        errs = k2_check(name, args, bs, zero_rows)
+        worst[:] = [max(a, b) for a, b in zip(worst, errs)]
+        log(f"K2 {name}: max abs err {errs[0]:.3g} (f32 q), {errs[1]:.3g} (bf16 q)")
 
     shapes = [("served", NUM_SLOTS, W, BLOCK_SIZE, hkv, g, hd), ("test", 3, 5, 4, 2, 2, 32),
               ("block1", 2, 6, 1, 2, 3, 16), ("block8", 4, 3, 8, 1, 2, 4)]
@@ -406,7 +473,7 @@ def k2_phase(cfg, dev, seed):
     # one decode step's K2 work (one call per layer on its own pool, rows at
     # served lengths: a quarter to all of the table), and one call at
     # granite-3.0-2b's context length (four pools, so no call finds its
-    # blocks in L2), on each pool dtype
+    # blocks in L2), on each pool dtype; every call checked as above
     cur = rng.integers(MAX_LEN // 4, MAX_LEN, NUM_SLOTS)
     step = {pool: k2_timed(dev, rng, calls=cfg.num_layers, B=NUM_SLOTS, W=W, hkv=hkv, g=g,
                            hd=hd, cur=cur, pool_dtype=dt) for pool, dt in K2_POOLS.items()}
@@ -417,6 +484,8 @@ def k2_phase(cfg, dev, seed):
                            pool_dtype=dt) for pool, dt in K2_POOLS.items()}
     for pool, row in long.items():
         log(f"K2 at {LONG_CONTEXT} positions, {pool} pool", json.dumps(row))
+    for row in (*step.values(), *long.values()):
+        worst = [max(worst[0], row["max_abs_err_f32_q"]), max(worst[1], row["max_abs_err_bf16_q"])]
     return worst, step, long
 
 
@@ -593,29 +662,6 @@ def k3_phase(dev, gen):
 # ---------------------------------------------------------------------------
 
 
-def _profile_step(fn, match="approx_matmul_kernel", key="k1_device_ms"):
-    """Device time of one call of ``fn`` under torch.profiler: the ms of the
-    kernels whose name holds ``match`` (under ``key``; K1's by default),
-    all kernels' ms and the top kernels by device time (empty if the
-    profiler records no device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
-    if not rows:
-        return {"note": "the profiler recorded no device time"}
-    return {key: sum(us for us, _, k in rows if match in k) / 1e3,
-            "device_ms": sum(us for us, _, _ in rows) / 1e3,
-            "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": c}
-                           for us, c, k in rows[:10]]}
-
-
 def train_phase(dev, seed):
     from repro_torch.configs import get_config
     from repro_torch.core.approx import ApproxConfig
@@ -658,7 +704,7 @@ def train_phase(dev, seed):
 
     def one():
         holder["state"], holder["m"] = step(state, batch)
-    out["profiled_step"] = {**_profile_step(one),
+    out["profiled_step"] = {**profile_step(one),
                             "k1_launches_per_step": out["launches"] // TRAIN_STEPS}
     state = holder.pop("state")
     log(f"[train] profiled step: {json.dumps(out['profiled_step'])}")
@@ -794,9 +840,10 @@ def main(argv=None) -> int:
                     "decode_step": k1_step, "train_step": k1_train}
 
     # -- 3. K2 ---------------------------------------------------------------
-    k2_err, k2_steps, k2_long = k2_phase(cfg, dev, args.seed)
+    (k2_err, k2_err16), k2_steps, k2_long = k2_phase(cfg, dev, args.seed)
     k2_step = k2_steps["f32"]
-    report["k2"] = {"max_abs_err": k2_err, "decode_step": k2_steps, "long_context": k2_long}
+    report["k2"] = {"max_abs_err": k2_err, "max_abs_err_bf16_q": k2_err16,
+                    "decode_step": k2_steps, "long_context": k2_long}
 
     # -- 4. serve ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -895,6 +942,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:141",
          "launches": launches["paged_attention"], "max_abs_err": k2_err,
+         "max_abs_err_bf16_q": k2_err16,
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],
          "library_ms": k2_step["library_ms"], "device_ms": k2_step["device_ms"],

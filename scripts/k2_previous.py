@@ -113,7 +113,7 @@ def main(argv=None) -> int:
                 fn = previous if which == "previous" else paged_attention
                 row[f"{which}_ms"].append(cs.cuda_ms(step(fn)))
             for which, fn in (("previous", previous), ("current", paged_attention)):
-                prof = cs._profile_step(step(fn), match="paged_attention_kernel", key="k2")
+                prof = cs.profile_step(step(fn), match="paged_attention_kernel", key="k2")
                 row[f"{which}_device_ms"] = prof.get("k2")
             valid = cs.k2_valid_positions(tbl, cur, B * W, 16)
             row["bound_ms"], row["bound_by"] = cs.k2_bound(B, 32, 8, 64, W, valid, 4, 4, calls)

@@ -21,30 +21,26 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+from repro_torch.kernels._build import ARCH_FLAGS, _nvcc  # noqa: E402
+
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([A-Z][A-Z0-9_.]*|@!?U?P\w+\s+[A-Z][A-Z0-9_.]*)")
 
 
-def _tool(name: str) -> str:
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
-    return path if os.path.exists(path) else (shutil.which(name) or name)
-
-
 def count(src: Path) -> dict:
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         cubin = Path(tmp) / "k.cubin"
-        ptxas = subprocess.run([_tool("nvcc"), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+        ptxas = subprocess.run([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
                                 "-cubin", "-o", str(cubin), str(src)],
                                capture_output=True, text=True, check=True).stderr
-        sass = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)],
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
                               capture_output=True, text=True, check=True).stdout
     kernels, name = {}, None
     for line in sass.splitlines():

@@ -83,10 +83,6 @@ def _smem_bytes(g, hd, bs, esize, R, nslot, splits, chunk) -> int:
     return sum(up16(x) for x in sizes[:-1]) + sizes[-1] + 16
 
 
-def _check_kernel_shapes(q, k_pool, block_size):
-    _check(q.dtype, k_pool.dtype, q.shape[1], q.shape[2], k_pool.shape[2], block_size)
-
-
 def _check(q_dtype, pool_dtype, H, hd, n_kv, block_size):
     """Raise ``PagedAttentionShapeError`` for what the kernel does not take."""
     g = H // n_kv

@@ -118,18 +118,16 @@ def test_wrapper_validates_like_jax():
 
 def test_kernel_shape_limits_raise_named_error():
     """What the CUDA kernel does not take is refused by name before any
-    launch (checked here on meta tensors: no card needed)."""
-    def args(B=2, H=4, n_kv=2, hd=32, bs=4, nb=5, dtype=torch.float32):
-        q = torch.empty((B, H, hd), device="meta")
-        pool = torch.empty((nb, bs, n_kv, hd), dtype=dtype, device="meta")
-        return q, pool, bs
+    launch (the wrapper's check, called with shapes only: no card needed)."""
+    def check(H=4, n_kv=2, hd=32, bs=4, dtype=torch.float32, q_dtype=torch.float32):
+        k2_ops._check(q_dtype, dtype, H, hd, n_kv, bs)
 
-    k2_ops._check_kernel_shapes(*args())
-    k2_ops._check_kernel_shapes(*args(dtype=torch.bfloat16))   # bf16 pools are taken
-    for bad in (dict(hd=256), dict(H=66, n_kv=1), dict(dtype=torch.float16),
-                dict(bs=256, hd=64)):
+    check()
+    check(dtype=torch.bfloat16, q_dtype=torch.bfloat16)   # bf16 pools and queries are taken
+    for bad in (dict(hd=256), dict(hd=30), dict(H=66, n_kv=1), dict(dtype=torch.float16),
+                dict(q_dtype=torch.float16), dict(bs=256, hd=64)):
         with pytest.raises(PagedAttentionShapeError):
-            k2_ops._check_kernel_shapes(*args(**bad))
+            check(**bad)
 
 
 def test_plain_version_is_the_wrappers_cpu_path():
