@@ -8,8 +8,11 @@ named tuples of weights become dicts keyed by field name, and a frozen
 weight becomes the port's ``QWeight``.  ``state_from_numpy`` does the same
 for a whole training state (``{"params", "opt": {"step", "m", "v"}}`` and
 ``grad_err``), so a test can start the port's step from the JAX step's
-exact parameters and optimizer state.  Nothing here imports JAX; the tests
-do the ``np.asarray`` conversion.
+exact parameters and optimizer state.  ``cnn_from_numpy`` takes the JAX
+``init_cnn`` model (``{"name", "layers": [per-layer dicts], "defs"}``) and
+returns the port's ``models/cnn.py`` model, conv weights in HWIO as they
+are.  Nothing here imports JAX; the tests do the ``np.asarray``
+conversion.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from repro_torch.core.approx import QWeight
 from repro_torch.train.tree import leaves
 
-__all__ = ["params_from_numpy", "state_from_numpy"]
+__all__ = ["cnn_from_numpy", "params_from_numpy", "state_from_numpy"]
 
 _QWEIGHT_FIELDS = ("codes", "scale", "zero_point", "col_sum")
 
@@ -48,3 +51,11 @@ def state_from_numpy(state: Any, device="cpu") -> Any:
     for leaf in leaves(out["params"]):
         leaf.requires_grad_(True)
     return out
+
+
+def cnn_from_numpy(model: Any, device="cpu") -> Any:
+    """A JAX ``init_cnn`` model with numpy leaves as the port's CNN model:
+    the same name and layer defs, every per-layer dict's arrays as float32
+    tensors on ``device``."""
+    return {"name": model["name"], "defs": [tuple(d) for d in model["defs"]],
+            "layers": [params_from_numpy(dict(layer), device) for layer in model["layers"]]}

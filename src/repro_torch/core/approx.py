@@ -4,6 +4,10 @@ dense layer every projection routes through.
 Modes (every quantized one bit-exact to the multiplier's LUT semantics):
   float       no quantization at all (fp baseline)
   exact_quant uint8 affine quantization with an exact integer matmul
+  lut         the paper-faithful simulation: one gather of the multiplier's
+              LUT per MAC (kernels/approx_matmul/ref.py), on either device;
+              as in the JAX package it is a plain gather, not a kernel, and
+              a caller picks it, it is no fallback
   lowrank     the plain exact form A@B - U(A)@V(B) (core/lowrank.py) in
               float64 — K1's plain version, on any device
   kernel      the CUDA approximate-matmul kernel (kernels/approx_matmul) for
@@ -14,19 +18,20 @@ retraining: its value is the integer simulation and its gradient flows
 through a straight-through estimator (STE), written as ``.detach()``
 algebra as the JAX package writes it with ``stop_gradient``.  The integer
 matmul takes codes and records no graph, so no ``autograd.Function`` is
-needed.  The JAX package's ``lut`` mode (a LUT gather per MAC) is not part
-of this port.
+needed.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import multipliers as mul
 from repro_torch.kernels.approx_matmul.ops import approx_matmul
-from repro_torch.kernels.approx_matmul.ref import approx_matmul_plain
+from repro_torch.kernels.approx_matmul.ref import approx_matmul_lut, approx_matmul_plain
 from repro_torch.quant.affine import calibrate, dequantize, quantize
 
 __all__ = [
@@ -40,7 +45,7 @@ __all__ = [
     "w_dim",
 ]
 
-Modes = ("float", "exact_quant", "lowrank", "kernel")
+Modes = ("float", "exact_quant", "lut", "lowrank", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +65,7 @@ class ApproxConfig:
     def __post_init__(self):
         if self.mode not in Modes:
             raise ValueError(f"mode {self.mode!r} not in {Modes}")
-        if self.mode in ("lowrank", "kernel"):
+        if self.mode in ("lut", "lowrank", "kernel"):
             mul.mul8x8_table(self.multiplier)  # validate name
 
     @property
@@ -76,6 +81,12 @@ def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _lut(multiplier: str, device: torch.device) -> torch.Tensor:
+    """The multiplier's 256 x 256 LUT as int32 on ``device``, cached."""
+    return torch.from_numpy(mul.mul8x8_table(multiplier).astype(np.int32)).to(device)
+
+
 def quantized_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor, cfg: ApproxConfig) -> torch.Tensor:
     """Integer matmul of uint8 codes under the configured multiplier.
 
@@ -83,6 +94,8 @@ def quantized_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor, cfg: ApproxCo
     Returns (..., M, N) int32 equal (bit-exactly) to ``sum_k LUT[a, b]``."""
     if cfg.mode == "exact_quant" or cfg.multiplier == "exact":
         return _int_dot(a_codes, b_codes)
+    if cfg.mode == "lut":
+        return approx_matmul_lut(a_codes, b_codes, _lut(cfg.multiplier, a_codes.device))
     if cfg.mode == "lowrank":
         return approx_matmul_plain(a_codes, b_codes, multiplier=cfg.multiplier,
                                    lhs_max=cfg.act_qmax, rhs_max=cfg.w_qmax)

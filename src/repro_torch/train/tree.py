@@ -7,7 +7,9 @@ tuples as dicts in field order (``bridge.params_from_numpy`` and
 exactly such a field tuple is walked in that order and named ``.field`` as
 ``jax.tree_util.keystr`` names a named-tuple field.  Sums over leaves
 (global norms, the band regularizer) therefore add in the JAX package's
-order, and checkpoint keys match its keys.
+order, and checkpoint keys match its keys.  A list (the CNNs' per-layer
+parameter dicts) is walked in index order and named ``[i]``, as
+``keystr`` names a list entry.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ def leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tenso
         for k in _keys(tree):
             out += leaves_with_path(tree[k], prefix + (f".{k}" if attr else f"[{k!r}]"))
         return out
+    if isinstance(tree, list):
+        return [x for i, node in enumerate(tree) for x in leaves_with_path(node, f"{prefix}[{i}]")]
     return [(prefix, tree)]
 
 
@@ -49,6 +53,8 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """``fn`` over corresponding leaves of trees of one structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -60,4 +66,6 @@ def unflatten(tree: Any, new_leaves: Iterator[Any]) -> Any:
         for k in _keys(tree):
             out[k] = unflatten(tree[k], it)
         return {k: out[k] for k in tree}
+    if isinstance(tree, list):
+        return [unflatten(node, it) for node in tree]
     return next(it)

@@ -27,7 +27,11 @@ def test_port_files_exist():
                 "launch/serve.py", "core/logic.py", "kernels/approx_mul_eltwise/ops.py",
                 "kernels/approx_mul_eltwise/ref.py", "quant/qat.py", "train/optim.py",
                 "train/loop.py", "train/compression.py", "train/checkpoint.py",
-                "train/fault.py", "train/tree.py", "data/synthetic.py", "launch/train.py"):
+                "train/fault.py", "train/tree.py", "data/synthetic.py", "launch/train.py",
+                "configs/paper_cnns.py", "data/loader.py", "core/metrics.py", "core/hwcost.py",
+                "models/cnn.py", "paper/table_v.py", "paper/table_vi_vii.py",
+                "paper/table_viii.py", "paper/kernel_bench.py", "examples/quickstart.py",
+                "examples/lenet_mnist_qat.py"):
         assert f"repro_torch/{mod}" in names, mod
     assert (ROOT / "chip_smoke.py").is_file()
     srcs = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}

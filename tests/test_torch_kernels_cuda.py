@@ -54,6 +54,36 @@ def _k1_case(dev, M, K, N, multiplier="mul8x8_2", rhs_max=255):
     assert torch.equal(out, approx_matmul_plain(a, b, multiplier=multiplier, rhs_max=rhs_max))
 
 
+# the CNNs' im2col shapes: ragged K (LeNet's 5x5 convs on 1 and 3 channels,
+# 3x3 on 3, 5x5 on 6), narrow N (6, 10, 16), and ResNet-19's stage-1 conv at
+# batch 64 (M = 65,536) and its widest one (K = 4,608)
+@pytest.mark.parametrize("M,K,N", [(50176, 25, 6), (65536, 75, 6), (6400, 150, 16),
+                                   (65536, 27, 128), (64, 400, 120), (64, 84, 10),
+                                   (256, 256, 10), (65536, 1152, 128), (1024, 4608, 512)])
+@pytest.mark.parametrize("multiplier", ["mul8x8_1", "mul8x8_2", "mul8x8_3", "pkm"])
+def test_approx_matmul_kernel_cnn_im2col_shapes(dev, multiplier, M, K, N):
+    _k1_case(dev, M, K, N, multiplier=multiplier)
+
+
+def test_resnet19_kernel_forward_equals_lowrank(dev):
+    """ResNet-19 at full width through K1 and through its plain version:
+    bit-identical logits, 21 launches per forward."""
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.models.cnn import cnn_forward, init_cnn
+
+    model = init_cnn("resnet19", 0, device=dev)
+    x = torch.rand(16, 32, 32, 3, generator=torch.Generator(device=dev).manual_seed(1),
+                   device=dev)
+    with torch.no_grad():
+        before = approx_matmul.launches
+        k = cnn_forward(model, x, ApproxConfig(multiplier="mul8x8_2", mode="kernel"))
+        assert approx_matmul.launches == before + 21
+        ref = cnn_forward(model, x, ApproxConfig(multiplier="mul8x8_2", mode="lowrank"))
+        assert approx_matmul.launches == before + 21
+    assert k.shape == (16, 10) and torch.isfinite(k).all()
+    assert torch.equal(k, ref)
+
+
 @pytest.mark.parametrize("M", [1, 4, 16, 63, 64, 65, 512])
 def test_approx_matmul_kernel_both_paths_ragged_k(dev, M):
     """M < 64 swaps the operands, M >= 64 does not; K = 1000 is a multiple
