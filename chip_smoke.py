@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-Hopper GPU: granite-3-2b at full width served and retrained, and the
-paper's CNNs (ResNet-19 at full width) trained and QAT-retrained, through
-the hand-written CUDA kernels, each held against its plain PyTorch version.
+Hopper GPU: granite-3-2b at full width served (on the paged pool and on
+per-slot stripes) and retrained, and the paper's CNNs (ResNet-19 at full
+width) trained and QAT-retrained, through the hand-written CUDA kernels,
+each held against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed S] [--out report.json] [--profile]
 
@@ -76,6 +77,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
            test images and one QAT step through K1 and through its plain
            version from identical state, bit-identical logits, loss and
            parameters.
+9. slots   the slot layout at full width through K1 (``approx``, per-row
+           scales, a float32 stripe of MAX_LEN per row): (a) ``generate``
+           at batch 4 (prompts of 64 tokens, 32 new), through K1 and
+           through its plain version (``approx_lowrank``), with the fused
+           and with the teacher-forced prefill: identical greedy tokens in
+           each mode, K1's count (zeroed just before) > 0; (b)
+           ``greedy_generate_legacy`` identical to ``generate(prefill_mode=
+           "decode")``, and the share of tokens on which the two prefills
+           agree, with the first divergence and its logit gap; (c) phase
+           4's trace through ``ServeSession(cache_layout="slots")``: every
+           request's tokens equal those of a paged session attending
+           through K2's plain version (the slot layout's own attention
+           arithmetic; the tokens that differ from phase 4's K2 session,
+           whose online softmax rounds otherwise, are printed), and the
+           first two requests equal ``generate`` of each prompt alone; (d) timings:
+           ``kernel_bench._decode_bench`` at full width (legacy and
+           generate tok/s), the slot session's tok/s and TTFT, and with
+           --profile its steady decode tick beside phase 4's.
 
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
@@ -121,6 +140,7 @@ BUCKETS = (16, 32, 64, 128)
 MAX_NEW = 32
 REQUESTS = 8
 MAX_LEN = 160                        # largest bucket + MAX_NEW, whole blocks
+SLOT_PROMPT = 64                     # phase 9's generate prompts
 K2_TOL = 1e-4
 K2_POOLS = {"f32": torch.float32, "bf16": torch.bfloat16}
 LONG_CONTEXT = 4096                  # granite-3.0-2b's context length
@@ -523,12 +543,13 @@ def make_trace(rng, vocab, n):
             for i in range(n)]
 
 
-def serve(cfg, params, trace, dev, attn_impl, seed):
+def serve(cfg, params, trace, dev, attn_impl, seed, cache_layout="paged"):
     from repro_torch.serve import ServeSession
 
     sess = ServeSession(cfg, params, num_slots=NUM_SLOTS, max_len=MAX_LEN,
                         prompt_buckets=BUCKETS, block_size=BLOCK_SIZE, policy="fifo",
-                        attn_impl=attn_impl, seed=seed, device=dev)
+                        attn_impl=attn_impl, seed=seed, cache_layout=cache_layout,
+                        device=dev)
     for i, (p, n, a) in enumerate(trace):
         sess.submit(p, max_new=n, arrival=a, req_id=i)
     t0 = time.perf_counter()
@@ -537,7 +558,7 @@ def serve(cfg, params, trace, dev, attn_impl, seed):
     return sess, results, time.perf_counter() - t0
 
 
-def profile_decode(cfg, params, trace, dev, seed, ticks=6):
+def profile_decode(cfg, params, trace, dev, seed, ticks=6, cache_layout="paged"):
     """Where a decode tick's time goes: host-clock ms per tick without the
     profiler, and the kernels' device ms per tick under torch.profiler
     (first four requests resident, no admission in the window)."""
@@ -548,7 +569,7 @@ def profile_decode(cfg, params, trace, dev, seed, ticks=6):
 
     sess = ServeSession(cfg, params, num_slots=NUM_SLOTS, max_len=MAX_LEN,
                         prompt_buckets=BUCKETS, block_size=BLOCK_SIZE, policy="fifo",
-                        attn_impl="kernel", seed=seed, device=dev)
+                        cache_layout=cache_layout, seed=seed, device=dev)
     for i, (p, n, _) in enumerate(trace[:NUM_SLOTS]):
         sess.submit(p, max_new=n, req_id=i)
     for _ in range(3):                      # admission, then two warm decode ticks
@@ -569,7 +590,8 @@ def profile_decode(cfg, params, trace, dev, seed, ticks=6):
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / ticks
-    out = {"ticks": ticks, "n_active": sess.n_active, "wall_ms_per_tick": wall_ms,
+    out = {"layout": cache_layout, "ticks": ticks, "n_active": sess.n_active,
+           "wall_ms_per_tick": wall_ms,
            "device_ms_per_tick": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
            "top_device": [{"name": k[:80], "ms_per_tick": us / 1e3 / ticks,
@@ -1023,6 +1045,141 @@ def paper_phase(dev, gen, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: slots
+# ---------------------------------------------------------------------------
+
+
+def first_divergence(cfg, params, a, b, S0):
+    """Where two (B, S0 + n) token runs first part (earliest new position,
+    lowest row): the position, both tokens, and the logit gap there in a
+    full-sequence forward over ``a``'s prefix (``a``'s token minus ``b``'s)."""
+    from repro_torch.models.transformer import forward
+
+    diff = (a[:, S0:] != b[:, S0:]).cpu()
+    if not diff.any():
+        return None
+    pos = int(diff.any(0).nonzero()[0])
+    row = int(diff[:, pos].nonzero()[0])
+    with torch.no_grad():
+        logits = forward(cfg, params, a[row:row + 1, :S0 + pos])[0, -1]
+    ta, tb = int(a[row, S0 + pos]), int(b[row, S0 + pos])
+    return {"row": row, "new_token_index": pos, "tokens": [ta, tb],
+            "logit_gap": (logits[ta] - logits[tb]).item()}
+
+
+def slots_phase(cfg, ocfg, dev, seed, trace, paged_tokens, smi, profile_paged=None,
+                profile=False):
+    """Phase 9: the slot layout at full width through K1 (see the module
+    text).  ``paged_tokens`` are phase 4's results, by request id."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.models.transformer import init_params
+    from repro_torch.paper.kernel_bench import _decode_bench
+    from repro_torch.serve import freeze_params, generate, greedy_generate_legacy
+
+    t_phase = time.perf_counter()
+    params = freeze_params(cfg, init_params(cfg, seed=seed, device=dev))
+    prompts = np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab_size, (NUM_SLOTS, SLOT_PROMPT)).astype(np.int32)
+    run = dict(max_new=MAX_NEW, max_len=MAX_LEN, device=dev)
+    out, toks, launches = {"batch": NUM_SLOTS, "prompt_len": SLOT_PROMPT,
+                           "max_new": MAX_NEW, "max_len": MAX_LEN}, {}, 0
+
+    # (a) generate through K1 and through its plain version, both prefills
+    for mode in ("fused", "decode"):
+        approx_matmul.launches = 0
+        t0 = time.perf_counter()
+        toks[mode] = generate(cfg, params, prompts, prefill_mode=mode, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = approx_matmul.launches
+        launches += n
+        plain = generate(ocfg, params, prompts, prefill_mode=mode, **run)
+        same = torch.equal(toks[mode], plain)
+        out[f"generate_{mode}"] = {"k1_launches": n, "wall_s": wall, "identical_to_plain": same}
+        log(f"[slots] generate prefill={mode}: K1 launches {n}, {wall:.2f}s, tokens "
+            f"identical to the plain version's: {same}")
+        if not same or n <= 0:
+            raise AssertionError(f"generate prefill={mode}: K1 {toks[mode][:, SLOT_PROMPT:]}"
+                                 f" vs plain {plain[:, SLOT_PROMPT:]}; K1 launches {n}")
+
+    # (b) legacy against generate's teacher-forced prefill; fused vs decode
+    legacy = greedy_generate_legacy(cfg, params, prompts, max_new=MAX_NEW, max_len=MAX_LEN,
+                                    device=dev)
+    agree = (toks["fused"] == toks["decode"])[:, SLOT_PROMPT:]
+    out["legacy_identical_to_decode"] = torch.equal(legacy, toks["decode"])
+    out["fused_vs_decode"] = {"share_equal": agree.float().mean().item(),
+                              "first_divergence": first_divergence(
+                                  cfg, params, toks["fused"], toks["decode"], SLOT_PROMPT)}
+    log(f"[slots] legacy identical to generate(prefill_mode='decode'): "
+        f"{out['legacy_identical_to_decode']}; fused vs decode prefill: "
+        f"{json.dumps(out['fused_vs_decode'])}")
+    if not out["legacy_identical_to_decode"]:
+        raise AssertionError("greedy_generate_legacy differs from generate(prefill_mode='decode')")
+
+    # (c) phase 4's trace on the slot layout; the first two requests alone
+    approx_matmul.launches = 0
+    sess, results, wall = serve(cfg, params, trace, dev, None, seed, cache_layout="slots")
+    n = approx_matmul.launches
+    launches += n
+    st = sess.stats
+    generated = sum(len(r.tokens) for r in results.values())
+    out["session"] = {"requests": len(results), "generated_tokens": generated, "wall_s": wall,
+                      "tok_per_s": generated / wall, "ttft_p50_s": st.ttft_s_p50,
+                      "ttft_p50_ticks": st.ttft_p50, "ticks": st.ticks, "k1_launches": n,
+                      "attn_impl": st.attn_impl}
+    log(f"[slots] session on the slot layout ({smi}): {json.dumps(out['session'])}")
+    if n <= 0:
+        raise AssertionError("approx_matmul was never launched by the slot session")
+    # the layouts held against each other with one attention arithmetic:
+    # the slot layout attends with the plain attention_core, so the paged
+    # session attends through K2's plain version here.  Against phase 4
+    # (K2), whose f32 online softmax sums in another order, a token may
+    # flip where two logits tie to a bf16 step; those are reported, and
+    # phase 5 holds K2 against its plain version
+    _, gathered, _ = serve(cfg, params, trace, dev, "gather", seed)
+    for rid, r in gathered.items():
+        got, want = results[rid].tokens.tolist(), r.tokens.tolist()
+        if got != want:
+            raise AssertionError(f"request {rid}: slots {got} vs paged (plain attention) {want}")
+    vs_k2 = {rid: [i for i, (a, b) in enumerate(zip(results[rid].tokens.tolist(), want))
+                   if a != b] for rid, want in paged_tokens.items()}
+    out["session"]["differ_from_phase4_k2"] = {rid: ix for rid, ix in vs_k2.items() if ix}
+    log(f"[slots] identical to the paged session through K2's plain version (all "
+        f"{len(gathered)} requests); new-token indices that differ from phase 4's K2 "
+        f"session: {json.dumps(out['session']['differ_from_phase4_k2'])}")
+    for rid in (0, 1):
+        p, m, _ = trace[rid]
+        alone = generate(cfg, params, p[None, :].astype(np.int32), max_new=m, max_len=MAX_LEN,
+                         device=dev)[0, p.size:].tolist()
+        log(f"[slots] request {rid}: session {results[rid].tokens.tolist()}")
+        log(f"[slots] request {rid}: alone   {alone}")
+        if alone != results[rid].tokens.tolist():
+            raise AssertionError(f"request {rid}: the slot session differs from generate alone")
+    out["session"]["identical_to_paged_plain"] = True
+    out["session"]["first_two_equal_generate_alone"] = True
+
+    # (d) the decode engines at full width (both ran above, so no warm-up)
+    rows = _decode_bench(dev, cfg=cfg, params=params, batch=NUM_SLOTS,
+                         prompt_len=SLOT_PROMPT, max_new=MAX_NEW, iters=1, warm=False)
+    out["decode_bench"] = [{"name": name, "s": us / 1e6, "text": text} for name, us, text in rows]
+    for name, us, text in rows:
+        log(f"[slots] {name}: {us / 1e6:.3f}s, {text} ({smi})")
+    if profile:
+        prof = profile_decode(cfg, params, trace, dev, seed, cache_layout="slots")
+        out["profile"] = prof
+        log(f"[slots] steady decode tick ({smi}): slots {prof['wall_ms_per_tick']:.2f} host ms, "
+            f"idle {prof['device_idle_share']}; paged (phase 4) "
+            f"{profile_paged['wall_ms_per_tick']:.2f} host ms, idle "
+            f"{profile_paged['device_idle_share']}")
+    del params, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k1_launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1149,6 +1306,8 @@ def main(argv=None) -> int:
         report["profile"] = profile_decode(cfg, params, trace, dev, args.seed)
         log(f"[profile] {json.dumps(report['profile'])}")
 
+    paged_tokens = {rid: r.tokens.tolist() for rid, r in results.items()}
+
     # -- 6. K3 ---------------------------------------------------------------
     report["k3"] = k3_phase(dev, gen)
 
@@ -1166,15 +1325,22 @@ def main(argv=None) -> int:
     paper = report["paper"]
     log(f"[paper] phase 8 took {paper['seconds']:.1f}s")
 
+    # -- 9. slots ------------------------------------------------------------
+    report["slots"] = slots_phase(cfg, ocfg, dev, args.seed, trace, paged_tokens, smi,
+                                  report.get("profile"), args.profile)
+    slots = report["slots"]
+    log(f"[slots] phase 9 took {slots['seconds']:.1f}s")
+
     k3 = report["k3"]
     kernels = [
         {"name": "approx_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
          "replaces": "src/repro/kernels/approx_matmul/kernel.py:85",
          "launches": launches["approx_matmul"] + train["launches"]
-         + paper["k1_launches_table_viii"],
+         + paper["k1_launches_table_viii"] + slots["k1_launches"],
          "launches_by_path": {"serve": launches["approx_matmul"], "train": train["launches"],
                               "table_viii": paper["k1_launches_table_viii"],
+                              "slots": slots["k1_launches"],
                               "table_viii_by_net": {f"{r['net']}-{r['dataset']}": r["k1_launches"]
                                                     for r in paper["table_viii"]}},
          "max_abs_err": max(k1_err, paper["k1"]["max_abs_err"]),

@@ -39,6 +39,7 @@ class ModelConfig:
     # --- numerics ---
     dtype: str = "bfloat16"           # activation dtype
     remat: bool = True                # recompute each layer in the backward
+    embed_input: bool = True          # token inputs (the JAX package's vlm/audio stubs take embeddings)
     source: str = ""                  # citation tag
 
     def __post_init__(self):

@@ -1,20 +1,31 @@
-"""Serving launcher: a synthetic mixed-length trace through the continuous-
-batching ``ServeSession`` over the paged KV pool.
+"""Serving launcher: batched generation on the slot layout, or a synthetic
+mixed-length trace through the continuous-batching ``ServeSession``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --engine continuous --cache-layout paged --loop sync --exec approx \
         --attn-impl kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --reduced --device cpu --requests 6 --new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --engine scan --batch 4 --new 8            # generate; --engine legacy
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --engine continuous --cache-layout slots --requests 6
 
-This is the continuous/paged branch of the JAX package's launcher.  The
+The JAX package's launcher less the flags of the slices not yet ported.
+``--engine scan`` is ``generate`` (fused prefill, then a loop of decode
+steps over per-row ``max_len`` stripes), ``--engine legacy`` the per-token
+``greedy_generate_legacy`` loop, and ``--engine continuous`` (the port's
+default; the JAX launcher's is ``scan``) a ``ServeSession`` on the paged
+pool (default) or on per-slot stripes (``--cache-layout slots``).  The
 weights are random (``init_params`` from ``--seed``) at the registered
 widths and are frozen to uint8 ``QWeight``s for every quantized ``--exec``
 mode.  ``--exec approx`` runs every projection through the CUDA
-approximate-matmul kernel and ``--attn-impl kernel`` the decode attention
-through the CUDA paged-attention kernel; on ``--device cpu`` both take
-their plain PyTorch versions.  Without ``--device`` the run needs a CUDA
-device and raises without one.
+approximate-matmul kernel and, on the paged layout, ``--attn-impl kernel``
+(its default there) the decode attention through the CUDA paged-attention
+kernel; the slot layout attends with the plain ``attention_core``, as the
+JAX package does.  On ``--device cpu`` the kernels take their plain
+PyTorch versions.  Without ``--device`` the run needs a CUDA device and
+raises without one.
 """
 from __future__ import annotations
 
@@ -32,10 +43,13 @@ from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import (
     ADMISSION_POLICIES,
+    CACHE_LAYOUTS,
     EXECUTION_MODES,
     SamplingConfig,
     ServeSession,
     freeze_params,
+    generate,
+    greedy_generate_legacy,
     resolve_execution_mode,
 )
 
@@ -44,12 +58,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="scan/legacy engines: rows generated together")
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--new", type=int, default=8)
     ap.add_argument("--multiplier", default="mul8x8_2")
     ap.add_argument("--exec", dest="exec_mode", default="approx", choices=EXECUTION_MODES)
-    ap.add_argument("--engine", default="continuous", choices=("continuous",))
-    ap.add_argument("--cache-layout", default="paged", choices=("paged",))
+    ap.add_argument("--engine", default="continuous",
+                    choices=("scan", "legacy", "continuous"),
+                    help="generate, the per-token legacy loop, or the "
+                         "continuous-batching ServeSession")
+    ap.add_argument("--cache-layout", default="paged", choices=CACHE_LAYOUTS,
+                    help="continuous engine: the paged block pool, or a "
+                         "max_len stripe per slot")
     ap.add_argument("--loop", default="sync", choices=("sync",))
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -59,9 +80,10 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
-    ap.add_argument("--attn-impl", default="kernel", choices=ATTN_IMPLS,
-                    help="paged decode attention: the CUDA kernel, or its "
-                         "plain clamp-gather version (the oracle)")
+    ap.add_argument("--attn-impl", default=None, choices=ATTN_IMPLS,
+                    help="decode attention: the CUDA kernel (paged only; the "
+                         "paged default), or its plain version (the oracle; "
+                         "the slot layout's default)")
     ap.add_argument("--policy", default="priority", choices=ADMISSION_POLICIES)
     ap.add_argument("--pad-id", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -79,18 +101,21 @@ def main(argv=None):
     params = freeze_params(cfg, init_params(cfg, seed=args.seed, device=device))
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               eos_id=args.eos_id)
+    if args.engine != "continuous":
+        return _batched(args, cfg, params, sampling, device)
 
     buckets = [8]
     while buckets[-1] < args.prompt_len:
         buckets.append(buckets[-1] * 2)
     max_len = max(args.max_len, buckets[-1] + args.new)
-    max_len += -max_len % args.block_size
+    if args.cache_layout == "paged":
+        max_len += -max_len % args.block_size
     sess = ServeSession(
         cfg, params, num_slots=args.num_slots, max_len=max_len,
         prompt_buckets=tuple(buckets), sampling=sampling, seed=args.seed,
         block_size=args.block_size, num_blocks=args.num_blocks,
         policy=args.policy, attn_impl=args.attn_impl, pad_id=args.pad_id,
-        device=device,
+        cache_layout=args.cache_layout, device=device,
     )
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -104,7 +129,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     generated = sum(len(r.tokens) for r in results.values())
     st = sess.stats
-    print(f"[continuous/{args.exec_mode}/paged/sync on {device}] {len(results)} "
+    print(f"[continuous/{args.exec_mode}/{args.cache_layout}/sync on {device}] {len(results)} "
           f"requests, {generated} tokens in {dt:.3f}s ({generated / dt:.1f} tok/s), "
           f"slot utilization {st.slot_utilization * 100:.1f}% over {st.ticks} "
           f"ticks x {args.num_slots} slots")
@@ -112,13 +137,46 @@ def main(argv=None):
           f"(p50 {st.ttft_s_p50:.3f}s), latency p50/p95 = "
           f"{st.latency_p50:.0f}/{st.latency_p95:.0f} ticks, peak concurrency "
           f"{st.peak_active}")
-    print(f"  KV pool: {sess.num_blocks} x {args.block_size}-row blocks, peak in "
-          f"use {st.peak_blocks_in_use}, attention impl {st.attn_impl}")
+    if args.cache_layout == "paged":
+        print(f"  KV pool: {sess.num_blocks} x {args.block_size}-row blocks, peak "
+              f"in use {st.peak_blocks_in_use}, attention impl {st.attn_impl}")
+    else:
+        print(f"  KV stripes: {args.num_slots} x {max_len} positions, attention "
+              f"impl {st.attn_impl}")
     print(f"  kernel launches: approx_matmul {approx_matmul.launches}, "
           f"paged_attention {paged_attention.launches}")
     first = results[min(results)]
     print("sample:", first.full_sequence.tolist())
     return results
+
+
+def _batched(args, cfg, params, sampling, device):
+    """``--engine scan|legacy``: one batch of seeded prompts, run once to
+    warm up (kernel builds, table caches) and once timed."""
+    if args.engine == "legacy" and sampling != SamplingConfig():
+        print("warning: --engine legacy is greedy-only; "
+              "--temperature/--top-k/--eos-id are ignored")
+    rng = np.random.default_rng(args.seed + 1)
+    prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+
+    def run():
+        if args.engine == "legacy":
+            return greedy_generate_legacy(cfg, params, prompt, max_new=args.new,
+                                          device=device)
+        return generate(cfg, params, prompt, max_new=args.new, sampling=sampling,
+                        seed=args.seed, device=device)
+
+    run()
+    approx_matmul.launches = 0
+    t0 = time.perf_counter()
+    out = run().cpu()
+    dt = time.perf_counter() - t0
+    print(f"[{args.engine}/{args.exec_mode} on {device}] generated "
+          f"{args.batch}x{args.new} tokens in {dt:.3f}s "
+          f"({args.batch * args.new / dt:.1f} tok/s, after one warm-up run)")
+    print(f"  kernel launches: approx_matmul {approx_matmul.launches}")
+    print("sample:", out[0].tolist())
+    return out
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-"""Grouped-query attention: exact causal attention for prefill and one
-decode step against the paged KV pool.
+"""Grouped-query attention: exact causal attention for prefill, and one
+decode step against either KV layout: the slot layout's per-row
+``max_len`` stripe (``decode_attention``) or the paged pool
+(``paged_decode_attention``).
 
 K/V are never head-repeated: scores use grouped einsums (q reshaped to
 (B, S, Hkv, group, hd)).  All projections route through ``layers.dense``;
@@ -20,6 +22,8 @@ __all__ = [
     "ATTN_IMPLS",
     "attention_core",
     "self_attention",
+    "seed_kv_cache",
+    "decode_attention",
     "paged_decode_attention",
 ]
 
@@ -92,6 +96,59 @@ def _decode_qkv(x, p, cur_len, *, n_heads, n_kv, cfg, rope_theta):
     v = L.dense(x, p["wv"], cfg).reshape(B, 1, n_kv, hd)
     q, k = L.apply_rope(q, k, cur_len[:, None], theta=rope_theta)
     return q, k, v
+
+
+def seed_kv_cache(
+    k_cache: torch.Tensor,           # (B, Smax + 1, Hkv, hd) one layer
+    v_cache: torch.Tensor,
+    k: torch.Tensor,                 # (B, S0, Hkv, hd) prefill keys (post-rope)
+    v: torch.Tensor,
+) -> None:
+    """Write one layer's prefill K/V into positions [0, S0) of its decode
+    stripe IN PLACE.  The K that ``self_attention`` returns is already
+    rotated at positions 0..S0-1, which is what ``decode_attention`` would
+    have written step by step, so the fused and the teacher-forced prefill
+    seed the same stripe."""
+    S0 = k.shape[1]
+    k_cache[:, :S0] = k.to(k_cache.dtype)
+    v_cache[:, :S0] = v.to(v_cache.dtype)
+
+
+def decode_attention(
+    x: torch.Tensor,                 # (B, 1, d)
+    p: Dict[str, object],
+    k_cache: torch.Tensor,           # (B, Smax + 1, Hkv, hd) one layer
+    v_cache: torch.Tensor,
+    cur_len: torch.Tensor,           # (B,) current lengths (new token index)
+    *,
+    n_heads: int,
+    n_kv: int,
+    cfg: ApproxConfig,
+    rope_theta: float = 10000.0,
+) -> torch.Tensor:
+    """One decode step on the slot layout: write the new K/V at each row's
+    ``cur_len`` IN PLACE, then attend over the stripe with ``kv_len =
+    cur_len + 1`` (the plain ``attention_core``, as the JAX package leaves
+    this step to XLA).
+
+    The stripe's last position (index ``Smax``, see
+    ``transformer.init_cache``) is a trash column: a row whose ``cur_len``
+    is at or past ``Smax`` writes there, which is what the JAX package's
+    scatter does with such a write (it drops it), where torch would refuse
+    the index.  Attention reads only the first ``Smax`` positions, all of
+    them valid for such a row, as in the JAX package."""
+    B = x.shape[0]
+    q, k, v = _decode_qkv(x, p, cur_len, n_heads=n_heads, n_kv=n_kv, cfg=cfg,
+                          rope_theta=rope_theta)
+    hd = q.shape[3]
+    smax = k_cache.shape[1] - 1
+    rows = torch.arange(B, device=x.device)
+    pos = cur_len.long().clamp(max=smax)
+    k_cache[rows, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, pos] = v[:, 0].to(v_cache.dtype)
+    out = attention_core(q, k_cache[:, :smax], v_cache[:, :smax], causal=False,
+                         kv_len=cur_len + 1)
+    return L.dense(out.reshape(B, 1, n_heads * hd), p["wo"], cfg)
 
 
 def paged_decode_attention(

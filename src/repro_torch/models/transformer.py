@@ -1,12 +1,14 @@
 """Dense decoder stack (pre-RMSNorm GQA + SwiGLU FFN): the training and
-prefill forward, and paged decode.
+prefill forward, and one-token decode on the slot layout (a per-row
+``max_len`` stripe) and on the paged pool.
 
 Parameters are a dict with the JAX package's tree shape: layer weights are
 stacked on a leading layer axis under ``params["layers"]`` and the loop
 below walks them (the JAX package scans them).  Under autograd with
 ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, as the JAX
-package wraps its scan body in ``jax.checkpoint``.  The paged decode step
-updates the KV pool in place.
+package wraps its scan body in ``jax.checkpoint``.  Both decode steps
+update their cache in place and return the logits only (the JAX package
+returns a new cache).
 """
 from __future__ import annotations
 
@@ -20,11 +22,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import ApproxConfig, QWeight
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.attention import paged_decode_attention, self_attention
+from repro_torch.models.attention import (
+    decode_attention,
+    paged_decode_attention,
+    seed_kv_cache,
+    self_attention,
+)
 
 __all__ = [
     "init_params",
     "forward",
+    "init_cache",
+    "seed_cache",
+    "decode_step",
+    "cache_max_len",
     "init_paged_cache",
     "paged_decode_step",
     "params_to",
@@ -127,6 +138,70 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Slot-layout decode
+# ---------------------------------------------------------------------------
+
+
+def _dense_family_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{what} for the {cfg.family} family: its conv/ssm decode state "
+            "arrives with the MoE, SSM and hybrid slice of the port (ROADMAP "
+            "section 1, item 9)"
+        )
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Slot-layout KV cache: one ``max_len`` stripe per batch row, plus one
+    trash position at index ``max_len`` that absorbs the writes the JAX
+    package's scatter drops (a ``cur_len`` at or past ``max_len``).  Leaves
+    are (L, batch, max_len + 1, Hkv, hd); attention never reads the trash
+    position."""
+    _dense_family_only(cfg, "init_cache")
+    shape = (cfg.num_layers, batch, max_len + 1, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_max_len(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> int:
+    """The positions an ``init_cache`` stripe holds (its trash position aside)."""
+    return cache["k"].shape[2] - 1
+
+
+def seed_cache(cfg: ModelConfig, cache: Dict[str, torch.Tensor], kvs) -> None:
+    """Write fused-prefill K/V (from ``forward(..., return_kv=True)``, each
+    (L, B, S0, Hkv, hd)) into positions [0, S0) of every layer IN PLACE."""
+    k, v = kvs
+    for i in range(cfg.num_layers):
+        seed_kv_cache(cache["k"][i], cache["v"][i], k[i], v[i])
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,               # (B, 1)
+    cur_len: torch.Tensor,              # (B,)
+) -> torch.Tensor:
+    """One-token decode against an ``init_cache`` stripe: each row writes
+    its new K/V at its ``cur_len`` and attends over positions
+    ``[0, cur_len]``.  Writes the cache in place; returns logits (B, 1, Vp)
+    float32."""
+    _dense_family_only(cfg, "decode_step")
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    a = cfg.approx
+    for i, layer in enumerate(_layers(params["layers"], cfg.num_layers)):
+        h = decode_attention(
+            L.rms_norm(x, layer["ln1"]), layer["attn"], cache["k"][i], cache["v"][i],
+            cur_len, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=a,
+            rope_theta=cfg.rope_theta,
+        )
+        x = _decode_mlp(cfg, x + h, layer, a)
+    return _head(cfg, params, x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,33 @@
 """The approximate matmul's execution modes side by side: the paper-faithful
 LUT gather (``lut``), the exact form with its error decomposition in float64
 (``lowrank``, K1's plain version), the exact integer product (``exact_quant``)
-and K1 (``kernel``).  The matmul half of the JAX package's
+and K1 (``kernel``); then the decode engines, ``greedy_generate_legacy``
+against ``generate`` (``_decode_bench``).  The JAX package's
 ``benchmarks/kernel_bench.py``, on the card.
 
     python -m repro_torch.paper.kernel_bench [--device D]
 
 Every mode's output must equal the LUT oracle's (``exact_quant`` aside: it
 is the exact product, the yardstick of the cost of the integer matmul
-alone).  Times are CUDA-event means on the card, host-clock means on the
-CPU; each row names the device.
+alone).  Matmul times are CUDA-event means on the card, host-clock means on
+the CPU; decode times are host-clock seconds per run, ending when the
+tokens are on the device; each row names the device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.approx import ApproxConfig, quantized_matmul
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_params
+from repro_torch.serve.engine import generate, greedy_generate_legacy
 
 __all__ = ["MODES", "run"]
 
@@ -83,6 +89,46 @@ def run(device=None, shape: Tuple[int, int, int] = (256, 512, 256),
     for mode in ("lowrank", "kernel"):
         if not torch.equal(pruned[mode], pruned["lut"]):
             raise AssertionError(f"pruned {mode} differs from the LUT oracle at {shape}")
+
+    rows.extend(_decode_bench(dev, iters=iters))
+    return rows
+
+
+def _decode_bench(device=None, *, cfg=None, params=None, batch: int = 8,
+                  prompt_len: int = 8, max_new: int = 32, iters: int = 3,
+                  warm: bool = True) -> List[Tuple[str, float, str]]:
+    """Decode throughput: the legacy per-token loop against ``generate``
+    (fused prefill, then the decode loop).  By default the JAX benchmark's
+    model: reduced granite-3-2b in float mode, which isolates the engines'
+    dispatch cost; ``cfg``/``params`` time another model (``chip_smoke.py``
+    passes granite-3-2b at full width through K1).  ``warm=False`` skips
+    the warm-up run (the caller has run both engines already)."""
+    dev = resolve_device(device)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if cfg is None:
+        cfg = dataclasses.replace(reduced_config(get_config("granite-3-2b")),
+                                  approx=ApproxConfig(mode="float"))
+        params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    engines = (("legacy_loop", lambda: greedy_generate_legacy(
+                   cfg, params, prompt, max_new=max_new, device=dev)),
+               ("scan_engine", lambda: generate(cfg, params, prompt, max_new=max_new,
+                                                device=dev)))
+    rows = []
+    for name, fn in engines:
+        if warm:
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = (time.perf_counter() - t0) / iters
+        rows.append((f"serve/decode_{name}_b{batch}_n{max_new}", dt * 1e6,
+                     f"{batch * max_new / dt:.1f} tok/s on {where}"))
     return rows
 
 
@@ -90,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, float, str]]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    rows = run(resolve_device(args.device))
+    rows = run(args.device)
     for name, us, text in rows:
         print(f"{name:44s} {us:12.1f} us  {text}")
     return rows

@@ -1,6 +1,16 @@
-"""Paged KV-cache management: host-side pools and the prompt-block scatter.
+"""KV-cache management: the slot layout's row ops, the paged layout's
+prompt-block scatter, and the host-side pools.
 
-K/V live in a global pool of fixed-size blocks (``transformer.
+Slot layout (``transformer.init_cache`` leaves ``(L, num_slots, max_len +
+1, Hkv, hd)``): every request owns one batch row's stripe for its
+lifetime.  ``insert_slot`` / ``slot_view`` / ``evict_slot`` move one row,
+``scatter_rows`` writes a batched admission's rows and
+``insert_prefill_kv`` one prompt's fused-prefill K/V.  Each writes IN
+PLACE (the JAX package's ops return new trees).  Correctness never needs
+``evict_slot``: a stripe re-enters attention only up to its next owner's
+``cur_len``, and every position below that is rewritten first.
+
+Paged layout: K/V live in a global pool of fixed-size blocks (``transformer.
 init_paged_cache`` leaves ``(L, num_blocks + 1, block_size, Hkv, hd)``,
 the last block a write-only trash row) handed out by ``BlockPool``; each
 request holds only the blocks its actual context occupies, recorded in a
@@ -22,11 +32,73 @@ import numpy as np
 import torch
 
 __all__ = [
+    "insert_slot",
+    "slot_view",
+    "evict_slot",
+    "scatter_rows",
+    "insert_prefill_kv",
     "scatter_prompt_blocks",
     "PromptBuckets",
     "SlotPool",
     "BlockPool",
 ]
+
+
+def insert_slot(cache: Dict[str, torch.Tensor], slot_cache: Dict[str, torch.Tensor],
+                slot: int) -> None:
+    """Write a batch-1 cache (leaves (L, 1, ...)) into row ``slot`` of the
+    pooled cache (leaves (L, B, ...))."""
+    for name, one in slot_cache.items():
+        full = cache[name]
+        full[:, slot:slot + 1] = one.to(full.dtype)
+
+
+def slot_view(cache: Dict[str, torch.Tensor], slot: int) -> Dict[str, torch.Tensor]:
+    """Batch-1 view of one row (leaves (L, 1, ...); views, not copies)."""
+    return {name: a[:, slot:slot + 1] for name, a in cache.items()}
+
+
+def evict_slot(cache: Dict[str, torch.Tensor], slot: int) -> None:
+    """Zero one row of every leaf.  Hygiene only (see the module
+    docstring); ``ServeSession(zero_on_evict=True)`` calls it."""
+    for a in cache.values():
+        a[:, slot] = 0
+
+
+def scatter_rows(
+    full: torch.Tensor,
+    part: torch.Tensor,
+    slots: torch.Tensor,
+    valid: torch.Tensor,
+    s_cap: Optional[int] = None,
+) -> None:
+    """Write ``part`` (lead, A, [S,] ...) into batch rows ``slots`` of
+    ``full`` (lead, B, [Smax,] ...) IN PLACE: the batched-admission write.
+
+    ``slots`` must hold distinct row ids (the session passes its acquired
+    slots followed by other, unused ones); rows with ``valid == False``
+    rewrite the values they gathered, an exact no-op, so one admission
+    width serves any number <= A of requests, as in the JAX package.
+    ``s_cap`` restricts the write to sequence positions [0, s_cap) (fused
+    prefill K/V, where ``part`` covers only the prompt bucket): positions a
+    valid row holds past its prompt then carry the K/V of pad tokens, which
+    decode overwrites before it reads them."""
+    vb = valid.reshape((1, -1) + (1,) * (full.ndim - 2))
+    idx = slots.long()
+    if s_cap is None:
+        full[:, idx] = torch.where(vb, part.to(full.dtype), full[:, idx])
+    else:
+        full[:, idx, :s_cap] = torch.where(vb, part.to(full.dtype), full[:, idx, :s_cap])
+
+
+def insert_prefill_kv(cache: Dict[str, torch.Tensor],
+                      kvs: Tuple[torch.Tensor, torch.Tensor], slot: int) -> None:
+    """Write fused-prefill K/V stacks (each (L, 1, S_bucket, Hkv, hd), from
+    ``forward(..., return_kv=True)`` on one prompt) into positions
+    [0, S_bucket) of row ``slot``."""
+    for name, part in zip(("k", "v"), kvs):
+        full = cache[name]
+        full[:, slot:slot + 1, :part.shape[2]] = part.to(full.dtype)
 
 
 def scatter_prompt_blocks(

@@ -1,5 +1,14 @@
-"""Serving-level names for the multiplier pipeline, weight freezing, and
-token selection.
+"""Batched generation on the slot layout, serving-level names for the
+multiplier pipeline, weight freezing, and token selection.
+
+``generate`` seeds a ``max_len`` KV stripe per row with a fused prefill
+(one ``forward(return_kv=True)`` pass) or a teacher-forced one (the
+prompt through ``decode_step``), then decodes ``max_new - 1`` more tokens.
+The JAX package compiles all of it into one program (a ``lax.scan`` over
+the decode steps); the port runs the same steps as a Python loop of
+``decode_step`` calls on the device, with no host synchronisation inside
+the loop.  ``greedy_generate_legacy`` keeps the JAX package's original
+per-token loop as the parity oracle and baseline.
 
 Sampling: greedy (``temperature <= 0``) is argmax with the first index on
 ties, as in the JAX package — the cross-framework contract.  Temperature
@@ -14,21 +23,35 @@ this contract within the port only.)
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import ApproxConfig, prequantize_tree
 from repro_torch.core.multipliers import MSR_SPECS
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import (
+    decode_step,
+    forward,
+    init_cache,
+    params_to,
+    seed_cache,
+)
 
 __all__ = [
     "EXECUTION_MODES",
+    "GenerationState",
     "SamplingConfig",
     "freeze_params",
+    "generate",
+    "greedy_generate",
+    "greedy_generate_legacy",
     "philox_uniform",
+    "prefill_step",
     "resolve_execution_mode",
     "select_token",
+    "serve_step",
 ]
 
 EXECUTION_MODES = ("exact", "exact_quant", "approx", "approx_lowrank", "approx_msr")
@@ -133,3 +156,154 @@ def select_token(
     )
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(scaled.to(torch.float64) + gumbel, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Generation on the slot layout
+# ---------------------------------------------------------------------------
+
+
+def prefill_step(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward: (B, S) tokens -> (B, S, Vp) logits."""
+    return forward(cfg, params, tokens)
+
+
+def serve_step(cfg: ModelConfig, params, cache: Dict[str, torch.Tensor],
+               tokens: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
+    """One decode step: (B, 1) tokens -> (B, 1, Vp) logits; the cache is
+    written in place."""
+    return decode_step(cfg, params, cache, tokens, cur_len)
+
+
+class GenerationState(NamedTuple):
+    """What one decode step carries to the next (the JAX package's scan
+    carry, less its PRNG key: the port's sampling keys are positional)."""
+
+    cache: Dict[str, torch.Tensor]   # transformer.init_cache leaves, written in place
+    cur_len: torch.Tensor            # (B,) next cache write position
+    last_token: torch.Tensor         # (B,) token to feed next step
+    done: torch.Tensor               # (B,) bool: row hit eos (masking, not exit)
+
+
+def _prefill_fused(cfg: ModelConfig, params, prompt: torch.Tensor, cache) -> torch.Tensor:
+    """One full-sequence pass: last-position logits, and the cache seeded."""
+    logits, kvs = forward(cfg, params, prompt, return_kv=True)
+    seed_cache(cfg, cache, kvs)
+    return logits[:, -1, :]
+
+
+def _prefill_decode(cfg: ModelConfig, params, prompt: torch.Tensor, cache) -> torch.Tensor:
+    """Teacher-forced prefill: the prompt one position at a time through
+    ``decode_step`` (bit-identical to step-wise decode)."""
+    B, S0 = prompt.shape
+    cur = torch.zeros((B,), dtype=torch.long, device=prompt.device)
+    last = None
+    for i in range(S0):
+        last = decode_step(cfg, params, cache, prompt[:, i:i + 1], cur)[:, 0, :]
+        cur = cur + 1
+    return last
+
+
+def _sample(logits, sampling: SamplingConfig, seed: int, positions) -> torch.Tensor:
+    """Row ``b``'s token at ``positions[b]``, keyed by (seed, b, position)."""
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return select_token(logits, sampling, seed=seed, req_ids=rows, positions=positions)
+
+
+@torch.no_grad()
+def generate(
+    cfg: ModelConfig,
+    params,
+    prompt_tokens,                   # (B, S0) int token ids
+    *,
+    max_new: int = 16,
+    sampling: Optional[SamplingConfig] = None,
+    max_len: Optional[int] = None,
+    cache_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    prefill_mode: str = "fused",     # fused | decode
+    device=None,
+) -> torch.Tensor:
+    """Batched generation on the slot layout.
+
+    Returns (B, S0 + max_new) int64 tokens on ``device`` (prompt included);
+    rows that hit ``sampling.eos_id`` are padded with it.
+    ``prefill_mode="decode"`` teacher-forces the prompt through the decode
+    path; ``"fused"`` seeds the cache in one full-sequence pass.  The JAX
+    package compiles this into one program; here it is a Python loop of
+    ``decode_step`` calls, issued without waiting on the device.  Temperature
+    sampling draws row ``b``'s token at position ``p`` from the positional
+    Philox schedule keyed by (``seed``, ``b``, ``p``), not from
+    ``jax.random.split``, so it is held to the JAX package in distribution
+    only.  ``params`` move to ``device`` (default: the CUDA device; without
+    one, this raises)."""
+    if not cfg.embed_input:
+        raise ValueError(f"{cfg.name}: token generation requires an embed-input arch")
+    if prefill_mode not in ("fused", "decode"):
+        raise ValueError(f"prefill_mode {prefill_mode!r} not in ('fused', 'decode')")
+    sampling = sampling if sampling is not None else SamplingConfig()
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt_tokens, device=dev).long()
+    B, S0 = prompt.shape
+    max_len = max_len or (S0 + max_new)
+    if max_len < S0 + max_new:
+        raise ValueError(f"max_len={max_len} < prompt_len + max_new = {S0 + max_new}")
+    params = params_to(params, dev)
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=dev)
+    prefill = _prefill_fused if prefill_mode == "fused" else _prefill_decode
+    last_logits = prefill(cfg, params, prompt, cache)
+
+    eos = sampling.eos_id
+    cur = torch.full((B,), S0, dtype=torch.long, device=dev)
+    tok0 = _sample(last_logits, sampling, seed, cur)
+    state = GenerationState(cache, cur, tok0, tok0 == eos if eos >= 0 else
+                            torch.zeros((B,), dtype=torch.bool, device=dev))
+    new_tokens = [tok0]
+    for _ in range(max_new - 1):
+        logits = decode_step(cfg, params, state.cache, state.last_token[:, None],
+                             state.cur_len)
+        # the sampled token lands at position cur_len + 1
+        tok = _sample(logits[:, 0, :], sampling, seed, state.cur_len + 1)
+        done = state.done
+        if eos >= 0:
+            tok = torch.where(done, torch.full_like(tok, eos), tok)
+            done = done | (tok == eos)
+        state = GenerationState(state.cache, state.cur_len + 1, tok, done)
+        new_tokens.append(tok)
+    return torch.cat([prompt, torch.stack(new_tokens, dim=1)], dim=1)
+
+
+def greedy_generate(cfg: ModelConfig, params, prompt_tokens, *, max_new: int = 16,
+                    max_len: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                    device=None) -> torch.Tensor:
+    """Historical entry point: batched greedy decoding through ``generate``."""
+    return generate(cfg, params, prompt_tokens, max_new=max_new, max_len=max_len,
+                    cache_dtype=dtype, device=device)
+
+
+@torch.no_grad()
+def greedy_generate_legacy(cfg: ModelConfig, params, prompt_tokens, *, max_new: int = 16,
+                           max_len: Optional[int] = None,
+                           dtype: torch.dtype = torch.float32,
+                           device=None) -> torch.Tensor:
+    """The JAX package's original per-token loop: one ``serve_step`` per
+    prompt position (teacher-forced prefill), then one per new token,
+    greedy.  Kept as the parity oracle and baseline of ``generate``."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt_tokens, device=dev).long()
+    B, S0 = prompt.shape
+    max_len = max_len or (S0 + max_new)
+    params = params_to(params, dev)
+    cache = init_cache(cfg, B, max_len, dtype, device=dev)
+    tok = torch.argmax(_prefill_decode(cfg, params, prompt, cache), dim=-1)[:, None]
+    cur = torch.full((B,), S0, dtype=torch.long, device=dev)
+    out = [prompt]
+    for _ in range(max_new - 1):
+        out.append(tok)
+        last = serve_step(cfg, params, cache, tok, cur)
+        cur = cur + 1
+        tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+    out.append(tok)
+    return torch.cat(out, dim=1)

@@ -1,12 +1,18 @@
-"""Continuous-batching serve session over the paged KV pool (sync loop).
+"""Continuous-batching serve session (sync loop) over either KV layout.
 
 ``ServeSession`` keeps ``num_slots`` decode slots hot and refills each slot
 from a request queue the moment its occupant finishes (eos or max-token).
-K/V live in a global ``BlockPool`` of fixed-size blocks; each request holds
-only the blocks its context occupies, recorded in a fixed-width per-slot
-block table.  Admission reserves each request's worst case
-(``ceil((prompt_len + max_new - 1) / block_size)`` blocks) against the
-pool, which makes every mid-decode block append infallible.
+Two cache layouts (``cache_layout=``):
+
+* ``"paged"`` (the port's default): K/V live in a global ``BlockPool`` of
+  fixed-size blocks; each request holds only the blocks its context
+  occupies, recorded in a fixed-width per-slot block table.  Admission
+  reserves each request's worst case (``ceil((prompt_len + max_new - 1) /
+  block_size)`` blocks) against the pool, which makes every mid-decode
+  block append infallible.  Decode attention runs through K2.
+* ``"slots"`` (the JAX package's default): every slot owns a ``max_len``
+  KV stripe (``transformer.init_cache``) and decode attends over it with
+  the plain ``attention_core``, as the JAX package does.
 
 Each ``step()``:
 
@@ -15,13 +21,18 @@ Each ``step()``:
   batch and rows pad to a power-of-two admission width, as in the JAX
   package — under per-tensor activation scales the padding rows share the
   quantization of the real ones, so the same padding gives the same codes;
-* runs one decode step across all slots (``paged_decode_step``) and blocks
-  on its tokens before any bookkeeping.
+* runs one decode step across all slots (``paged_decode_step`` or
+  ``decode_step``) and blocks on its tokens before any bookkeeping.
 
-This is the JAX package's ``ServeSession`` restricted to its paged layout,
-sync loop and ``steps_per_tick=1``; the async loop, prefix sharing,
-preemption, speculative decoding, quality tiers, chunked prefill, the slot
-layout and meshes arrive with later slices of the port.  Greedy tokens are
+A freed slot keeps decoding its stale carry (last token, ``cur_len``)
+into its own stripe or the trash block, as in the JAX package; under
+per-tensor activation scales those rows flow into every row's
+quantization, so the carry is kept exactly as the JAX session keeps it.
+
+This is the JAX package's ``ServeSession`` restricted to its sync loop and
+``steps_per_tick=1``; the async loop, prefix sharing, preemption,
+speculative decoding, quality tiers, chunked prefill and meshes arrive
+with later slices of the port.  Greedy tokens are
 the cross-framework contract; temperature sampling follows the port's own
 positional Philox schedule (``serve.engine``), so a request's tokens never
 depend on its slot.
@@ -40,7 +51,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.transformer import (
+    decode_step,
     forward,
+    init_cache,
     init_paged_cache,
     paged_decode_step,
     params_to,
@@ -54,9 +67,11 @@ __all__ = [
     "SchedulerStats",
     "ServeSession",
     "ADMISSION_POLICIES",
+    "CACHE_LAYOUTS",
 ]
 
 ADMISSION_POLICIES = ("priority", "fifo", "sjf")
+CACHE_LAYOUTS = ("slots", "paged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,8 +138,9 @@ class SchedulerStats:
         "host_block_s": "wall seconds the host spent blocked on device "
                         "results (first tokens and decode tokens)",
         "wall_s": "wall seconds spent inside step() in total",
-        "attn_impl": "paged decode-attention implementation: 'kernel' (the "
-                     "CUDA kernel) or 'gather' (its plain version)",
+        "attn_impl": "decode-attention implementation: 'kernel' (the CUDA "
+                     "kernel; paged layout only) or 'gather' (its plain "
+                     "version; the slot layout's attention_core)",
         "slot_utilization": "busy_slot_steps / (busy + idle)",
         "ttft_p50": "median time-to-first-token, scheduler ticks",
         "ttft_p95": "95th-percentile time-to-first-token, scheduler ticks",
@@ -194,23 +210,27 @@ class _ActiveSlot:
 
 
 class ServeSession:
-    """Continuous-batching serving over the paged KV pool.
+    """Continuous-batching serving over the paged KV pool or per-slot
+    stripes.
 
     >>> sess = ServeSession(cfg, params, num_slots=4, max_len=256)
     >>> sess.submit(prompt_ids, max_new=64)
     >>> results = sess.run()          # {req_id: CompletedRequest}
 
+    ``cache_layout`` is ``"paged"`` (default) or ``"slots"``.  Paged:
     ``num_blocks`` defaults to ``num_slots * max_len / block_size`` (every
-    slot's worst case); lower it to oversubscribe.  ``policy`` orders the
-    ready queue: ``"priority"`` (lower ``Request.priority`` first, FIFO
-    within a class), ``"fifo"``, or ``"sjf"`` (shortest ``max_new +
-    bucketed prompt len`` first).  ``attn_impl`` picks the decode
-    attention: ``"kernel"`` (K2) or ``"gather"`` (its plain version, the
-    oracle).  ``cache_dtype`` is the paged pool's dtype (float32, as in the
-    JAX package, or bfloat16, which halves the pool's bytes and K2's
-    reads; K2 takes both).  ``params`` may be float or ``freeze_params``
-    trees; they move to ``device`` (default: the CUDA device; without one,
-    this raises).
+    slot's worst case); lower it to oversubscribe.  Slots: each slot holds a
+    ``max_len`` stripe; ``zero_on_evict`` zeroes a slot's stripe when its
+    request finishes (hygiene; slots only, as in the JAX package).
+    ``policy`` orders the ready queue: ``"priority"`` (lower
+    ``Request.priority`` first, FIFO within a class), ``"fifo"``, or
+    ``"sjf"`` (shortest ``max_new + bucketed prompt len`` first).
+    ``attn_impl`` picks the decode attention: ``"kernel"`` (K2, the paged
+    default) or ``"gather"`` (its plain version, the oracle; the only one
+    on slots).  ``cache_dtype`` is the cache's dtype (float32, as in the
+    JAX package, or bfloat16, which halves the cache's bytes; K2 takes
+    both).  ``params`` may be float or ``freeze_params`` trees; they move
+    to ``device`` (default: the CUDA device; without one, this raises).
     """
 
     def __init__(
@@ -226,22 +246,41 @@ class ServeSession:
         block_size: int = 16,
         num_blocks: Optional[int] = None,
         policy: str = "priority",
-        attn_impl: str = "kernel",
+        attn_impl: Optional[str] = None,
         pad_id: int = 0,
         cache_dtype: torch.dtype = torch.float32,
+        cache_layout: str = "paged",
+        zero_on_evict: bool = False,
         device=None,
     ):
+        if cache_layout not in CACHE_LAYOUTS:
+            raise ValueError(f"cache_layout {cache_layout!r} not in {CACHE_LAYOUTS}")
         if policy not in ADMISSION_POLICIES:
             raise ValueError(f"policy {policy!r} not in {ADMISSION_POLICIES}")
+        if attn_impl is None:
+            attn_impl = "kernel" if cache_layout == "paged" else "gather"
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-        if block_size < 1:
-            raise ValueError(f"block_size must be >= 1, got {block_size}")
-        if max_len % block_size:
+        if attn_impl != "gather" and cache_layout != "paged":
             raise ValueError(
-                f"max_len {max_len} must be a multiple of block_size {block_size} "
-                "(fixed-width block tables)"
+                f"attn_impl {attn_impl!r} requires cache_layout='paged' — "
+                "the slot layout has no block table to walk"
             )
+        if cache_layout == "paged":
+            if zero_on_evict:
+                raise ValueError(
+                    "zero_on_evict applies to the slot layout only (freed "
+                    "blocks are invisible until re-seeded by their next owner)"
+                )
+            if block_size < 1:
+                raise ValueError(f"block_size must be >= 1, got {block_size}")
+            if max_len % block_size:
+                raise ValueError(
+                    f"max_len {max_len} must be a multiple of block_size {block_size} "
+                    "(fixed-width block tables)"
+                )
+        self.layout = cache_layout
+        self.zero_on_evict = bool(zero_on_evict)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -258,20 +297,25 @@ class ServeSession:
             )
         self.pool = C.SlotPool(num_slots)
         self.num_slots = num_slots
-        self.block_size = int(block_size)
-        self.table_width = self.max_len // self.block_size
-        if num_blocks is None:
-            num_blocks = num_slots * self.table_width
-        self.blocks = C.BlockPool(num_blocks)
-        self.num_blocks = int(num_blocks)
-        self.cache = init_paged_cache(cfg, self.num_blocks, self.block_size, cache_dtype,
-                                      device=self.device)
-        # per-slot block table (sentinel == num_blocks), held blocks, and the
-        # not-yet-held part of each row's worst-case reservation
-        self._tables = np.full((num_slots, self.table_width), self.num_blocks, np.int32)
-        self._held: List[List[int]] = [[] for _ in range(num_slots)]
-        self._future = np.zeros((num_slots,), np.int64)
-        self._reserved_total = 0
+        if cache_layout == "paged":
+            self.block_size = int(block_size)
+            self.table_width = self.max_len // self.block_size
+            if num_blocks is None:
+                num_blocks = num_slots * self.table_width
+            self.blocks = C.BlockPool(num_blocks)
+            self.num_blocks = int(num_blocks)
+            self.cache = init_paged_cache(cfg, self.num_blocks, self.block_size,
+                                          cache_dtype, device=self.device)
+            # per-slot block table (sentinel == num_blocks), held blocks, and
+            # the not-yet-held part of each row's worst-case reservation
+            self._tables = np.full((num_slots, self.table_width), self.num_blocks,
+                                   np.int32)
+            self._held: List[List[int]] = [[] for _ in range(num_slots)]
+            self._future = np.zeros((num_slots,), np.int64)
+            self._reserved_total = 0
+        else:
+            self.cache = init_cache(cfg, num_slots, self.max_len, cache_dtype,
+                                    device=self.device)
 
         # decode carry, host side; a freed slot keeps its last values — they
         # still flow through the decode step (and, under per-tensor
@@ -317,12 +361,14 @@ class ServeSession:
                 f"request {rid}: prompt_len {prompt.size} + max_new {max_new} "
                 f"(bucket {bucket}) exceeds cache max_len {self.max_len}"
             )
-        worst = self._worst_blocks(prompt.size, max_new)
-        if worst > self.num_blocks:
-            raise ValueError(
-                f"request {rid}: worst-case context needs {worst} blocks but the "
-                f"pool only has {self.num_blocks} — it could never be admitted"
-            )
+        if self.layout == "paged":
+            worst = self._worst_blocks(prompt.size, max_new)
+            if worst > self.num_blocks:
+                raise ValueError(
+                    f"request {rid}: worst-case context needs {worst} blocks but "
+                    f"the pool only has {self.num_blocks} — it could never be "
+                    "admitted"
+                )
         if req_id is not None and (
             req_id in self._completed
             or any(r.req_id == req_id for _, _, r in self._pending)
@@ -367,32 +413,41 @@ class ServeSession:
         return min(w, self.num_slots)
 
     def _pop_admissible(self) -> List[Request]:
-        """Pop ready requests that fit the free slots and what the block pool
-        can still promise (``free - reserved``), reserving each one's worst
-        case.  The queue head blocks admission when it does not fit (no
-        skip-ahead), so policy order holds."""
+        """Pop ready requests that fit the free slots and (paged) what the
+        block pool can still promise (``free - reserved``), reserving each
+        one's worst case.  The queue head blocks admission when it does not
+        fit (no skip-ahead), so policy order holds."""
         batch: List[Request] = []
         while self._ready and len(batch) < self.pool.free_count:
             req = self._ready[0][2]
-            worst = self._worst_blocks(req.prompt.size, req.max_new)
-            if worst > self.blocks.free_count - self._reserved_total:
-                break
-            self._reserved_total += worst
+            if self.layout == "paged":
+                worst = self._worst_blocks(req.prompt.size, req.max_new)
+                if worst > self.blocks.free_count - self._reserved_total:
+                    break
+                self._reserved_total += worst
             heapq.heappop(self._ready)
             batch.append(req)
         return batch
 
     @torch.no_grad()
-    def _prefill(self, prompts, prompt_lens, block_ids, req_ids) -> np.ndarray:
-        """One fused prefill of an admission batch: seed each row's blocks
-        and sample its first token (at position ``prompt_len``)."""
+    def _prefill(self, prompts, prompt_lens, req_ids, seat) -> np.ndarray:
+        """One fused prefill of an admission batch: seed each row's cache
+        and sample its first token (at position ``prompt_len``).  ``seat``
+        is the paged layout's (A, nb) block ids, or the slot layout's
+        (slots, valid): rows to write and which of them are real (the
+        others rewrite what they hold, ``cache.scatter_rows``)."""
         dev = self.device
         logits, kvs = forward(self.cfg, self.params,
                               torch.as_tensor(prompts, device=dev), return_kv=True)
         lens = torch.as_tensor(prompt_lens, device=dev).long()
         last = logits[torch.arange(len(prompt_lens), device=dev), lens - 1]
-        C.scatter_prompt_blocks(self.cache, kvs,
-                                torch.as_tensor(block_ids, device=dev), self.block_size)
+        if self.layout == "paged":
+            C.scatter_prompt_blocks(self.cache, kvs, torch.as_tensor(seat, device=dev),
+                                    self.block_size)
+        else:
+            slots, valid = (torch.as_tensor(a, device=dev) for a in seat)
+            for name, part in zip(("k", "v"), kvs):
+                C.scatter_rows(self.cache[name], part, slots, valid, s_cap=prompts.shape[1])
         tok0s = select_token(last, self.sampling, seed=self.seed,
                              req_ids=torch.as_tensor(req_ids, device=dev),
                              positions=lens)
@@ -404,34 +459,42 @@ class ServeSession:
     def _admit_many(self, reqs: List[Request]) -> None:
         """Admit ``reqs`` with ONE prefill: prompts pad to the batch's largest
         bucket, rows to the admission width (padding rows: prompt of
-        ``pad_id``, length 1, every block id the sentinel, so their writes
-        go to the trash block).  Each request acquires its prompt's blocks,
-        converting that much of its reservation."""
+        ``pad_id``, length 1).  Paged: each request acquires its prompt's
+        blocks, converting that much of its reservation, and the padding
+        rows' block ids are all the sentinel, so their writes go to the
+        trash block.  Slots: the padding rows take distinct free slots and
+        rewrite what those hold."""
         A = self._admit_width(len(reqs))
         bucket = max(self.buckets.bucket(r.prompt.size) for r in reqs)
         prompts = np.full((A, bucket), self.pad_id, np.int32)
         prompt_lens = np.ones((A,), np.int32)
         req_ids = np.zeros((A,), np.int64)
         row_slot = [self.pool.acquire() for _ in reqs]
-        bs = self.block_size
-        block_ids = np.full((A, -(-bucket // bs)), self.num_blocks, np.int32)
         for i, req in enumerate(reqs):
-            plen = req.prompt.size
-            prompts[i, :plen] = req.prompt
-            prompt_lens[i] = plen
+            prompts[i, :req.prompt.size] = req.prompt
+            prompt_lens[i] = req.prompt.size
             req_ids[i] = req.req_id
-            slot = row_slot[i]
-            ninit = -(-plen // bs)
-            held = [self.blocks.acquire() for _ in range(ninit)]
-            block_ids[i, :ninit] = held
-            self._held[slot] = held
-            self._tables[slot, :] = self.num_blocks
-            self._tables[slot, :ninit] = held
-            self._future[slot] = self._worst_blocks(plen, req.max_new) - ninit
-            self._reserved_total -= ninit          # reservation -> held
-        tok0s = self._prefill(prompts, prompt_lens, block_ids, req_ids)
-        self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
-                                            self.blocks.busy_count)
+        if self.layout == "paged":
+            bs = self.block_size
+            seat = np.full((A, -(-bucket // bs)), self.num_blocks, np.int32)
+            for i, req in enumerate(reqs):
+                slot, plen = row_slot[i], req.prompt.size
+                ninit = -(-plen // bs)
+                held = [self.blocks.acquire() for _ in range(ninit)]
+                seat[i, :ninit] = held
+                self._held[slot] = held
+                self._tables[slot, :] = self.num_blocks
+                self._tables[slot, :ninit] = held
+                self._future[slot] = self._worst_blocks(plen, req.max_new) - ninit
+                self._reserved_total -= ninit      # reservation -> held
+        else:
+            rest = [s for s in range(self.num_slots) if s not in row_slot]
+            seat = (np.asarray((row_slot + rest)[:A], np.int64),
+                    np.arange(A) < len(reqs))
+        tok0s = self._prefill(prompts, prompt_lens, req_ids, seat)
+        if self.layout == "paged":
+            self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
+                                                self.blocks.busy_count)
         self.stats.admit_calls += 1
         tok_sum = 0
         for r in reqs:
@@ -463,18 +526,23 @@ class ServeSession:
                 self._active[slot] = state
 
     def _release_resources(self, state: _ActiveSlot) -> None:
-        """Free the slot, every held block and the unused remainder of the
-        worst-case reservation.  Stale pool contents are invisible: a block
-        re-enters attention only after its next owner's writes."""
+        """Free the slot and (paged) every held block and the unused
+        remainder of the worst-case reservation, or (slots, with
+        ``zero_on_evict``) zero the slot's stripe.  Stale cache contents are
+        invisible: a block or stripe re-enters attention only after its next
+        owner's writes."""
         slot = state.slot
         if self._active[slot] is state:
             self._active[slot] = None
         self.pool.release(slot)
-        self.blocks.release_many(self._held[slot])
-        self._held[slot] = []
-        self._tables[slot, :] = self.num_blocks
-        self._reserved_total -= int(self._future[slot])
-        self._future[slot] = 0
+        if self.layout == "paged":
+            self.blocks.release_many(self._held[slot])
+            self._held[slot] = []
+            self._tables[slot, :] = self.num_blocks
+            self._reserved_total -= int(self._future[slot])
+            self._future[slot] = 0
+        elif self.zero_on_evict:
+            C.evict_slot(self.cache, slot)
 
     def _finish(self, state: _ActiveSlot, reason: str) -> None:
         state.done = True
@@ -532,9 +600,12 @@ class ServeSession:
             self._admit_many(batch)
         self.stats.peak_active = max(self.stats.peak_active, self.n_active)
 
-    def _decode_inputs(self) -> Tuple[np.ndarray, np.ndarray]:
-        """The active-row mask and this step's block tables, grown to cover
-        the position each live row writes (its ``cur_len``)."""
+    def _decode_inputs(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """The active-row mask and (paged) this step's block tables, grown
+        to cover the position each live row writes (its ``cur_len``)."""
+        active = np.asarray([s is not None for s in self._active], bool)
+        if self.layout != "paged":
+            return active, None
         for slot, state in enumerate(self._active):
             if state is None:
                 continue
@@ -543,20 +614,22 @@ class ServeSession:
             self._ensure_blocks(slot, hi)
         self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
                                             self.blocks.busy_count)
-        active = np.asarray([s is not None for s in self._active], bool)
         return active, self._tables.copy()
 
     @torch.no_grad()
-    def _decode(self, active: np.ndarray, tables: np.ndarray) -> np.ndarray:
+    def _decode(self, active: np.ndarray, tables: Optional[np.ndarray]) -> np.ndarray:
         """One decode step over every slot; (N,) tokens, 0 on empty slots."""
         dev = self.device
         cur = torch.as_tensor(self._cur_len, device=dev)
-        logits = paged_decode_step(
-            self.cfg, self.params, self.cache,
-            torch.as_tensor(self._last_token, device=dev)[:, None], cur,
-            torch.as_tensor(tables, device=dev),
-            block_size=self.block_size, attn_impl=self.attn_impl,
-        )
+        last = torch.as_tensor(self._last_token, device=dev)[:, None]
+        if tables is None:
+            logits = decode_step(self.cfg, self.params, self.cache, last, cur)
+        else:
+            logits = paged_decode_step(
+                self.cfg, self.params, self.cache, last, cur,
+                torch.as_tensor(tables, device=dev),
+                block_size=self.block_size, attn_impl=self.attn_impl,
+            )
         # the sampled token lands at position cur_len + 1
         toks = select_token(logits[:, 0], self.sampling, seed=self.seed,
                             req_ids=torch.as_tensor(self._slot_req, device=dev),

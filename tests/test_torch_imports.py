@@ -31,7 +31,8 @@ def test_port_files_exist():
                 "configs/paper_cnns.py", "data/loader.py", "core/metrics.py", "core/hwcost.py",
                 "models/cnn.py", "paper/table_v.py", "paper/table_vi_vii.py",
                 "paper/table_viii.py", "paper/kernel_bench.py", "examples/quickstart.py",
-                "examples/lenet_mnist_qat.py"):
+                "examples/lenet_mnist_qat.py", "paper/ablation_removal.py",
+                "examples/approx_qat_lm.py"):
         assert f"repro_torch/{mod}" in names, mod
     assert (ROOT / "chip_smoke.py").is_file()
     srcs = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmarks import ablation_removal as jablation
 from benchmarks import table_v as jtable_v
 from benchmarks import table_vi_vii as jtable_vi_vii
 from repro.configs.paper_cnns import CNN_SPECS as J_CNN_SPECS
@@ -32,7 +33,7 @@ from repro_torch.data.loader import ShardedTokenLoader
 from repro_torch.data.synthetic import image_dataset
 from repro_torch.kernels.approx_matmul import approx_matmul_lut
 from repro_torch.kernels.approx_matmul import approx_mul_elementwise as t_elementwise
-from repro_torch.paper import kernel_bench, table_v, table_vi_vii, table_viii
+from repro_torch.paper import ablation_removal, kernel_bench, table_v, table_vi_vii, table_viii
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -110,8 +111,9 @@ def test_hwcost_equals_jax():
         jhw.PAPER_TABLE_VII["pkm"].improvement_over(jhw.PAPER_TABLE_VII["exact8x8"])
 
 
-@pytest.mark.parametrize("port,ref", [(table_v, jtable_v), (table_vi_vii, jtable_vi_vii)],
-                         ids=["table_v", "table_vi_vii"])
+@pytest.mark.parametrize("port,ref", [(table_v, jtable_v), (table_vi_vii, jtable_vi_vii),
+                                      (ablation_removal, jablation)],
+                         ids=["table_v", "table_vi_vii", "ablation_removal"])
 def test_table_rows_equal_jax(port, ref):
     got, want = port.run(), ref.run()
     assert [(n, t) for n, _, t in got] == [(n, t) for n, _, t in want]
@@ -179,6 +181,45 @@ def test_kernel_bench_modes_agree_on_cpu():
     assert ("kernel/kernel_bitexact_vs_lut", 0.0, "equal=True") in rows
     assert ("kernel/lowrank_bitexact_vs_lut", 0.0, "equal=True") in rows
     assert all("on cpu" in t for n, _, t in rows if "matmul" in n)
+
+
+def test_decode_bench_runs_on_cpu():
+    rows = kernel_bench._decode_bench("cpu", batch=2, prompt_len=4, max_new=4, iters=1)
+    assert [r[0] for r in rows] == ["serve/decode_legacy_loop_b2_n4",
+                                    "serve/decode_scan_engine_b2_n4"]
+    assert all(us > 0 and text.endswith("tok/s on cpu") for _, us, text in rows)
+
+
+def test_approx_qat_lm_trains_and_resumes_on_cpu(tmp_path, capsys):
+    """Two steps at the ``8m`` preset (batch and sequence cut), a checkpoint,
+    then a second run resumes from it for one more step."""
+    from repro_torch.examples import approx_qat_lm
+
+    argv = ["--device", "cpu", "--batch", "2", "--seq", "32", "--ckpt-every", "2",
+            "--ckpt", str(tmp_path / "ck")]
+    first = approx_qat_lm.main(argv + ["--steps", "2"])
+    assert first["start"] == 0 and len(first["losses"]) == 2
+    assert all(np.isfinite(first["losses"]))
+    again = approx_qat_lm.main(argv + ["--steps", "3"])
+    assert again["start"] == 2 and len(again["losses"]) == 1 and np.isfinite(again["losses"][0])
+    assert "resumed from checkpoint step 2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--engine", "scan"], ["--engine", "legacy"],
+                                  ["--engine", "continuous", "--cache-layout", "slots"]],
+                         ids=["scan", "legacy", "continuous-slots"])
+def test_serve_launcher_engines_on_cpu(argv, capsys):
+    from repro_torch.launch import serve as launch
+
+    out = launch.main(["--reduced", "--device", "cpu", "--exec", "approx", "--batch", "2",
+                       "--new", "4", "--requests", "3"] + argv)
+    text = capsys.readouterr().out
+    if argv[1] == "continuous":
+        assert len(out) == 3 and all(1 <= len(r.tokens) <= 4 for r in out.values())
+        assert "/slots/sync on cpu" in text and "attention impl gather" in text
+    else:
+        assert out.shape == (2, 8 + 4)
+        assert f"[{argv[1]}/approx on cpu] generated 2x4 tokens" in text
 
 
 def test_quickstart_runs_on_cpu(capsys):
@@ -261,5 +302,20 @@ def test_paper_entry_points_raise_without_cuda(monkeypatch):
                  lambda: table_viii.main([]), lambda: table_viii.run_net("lenet", "mnist", steps=1),
                  lambda: kernel_bench.main([]), lambda: quickstart.main([]),
                  lambda: lenet_mnist_qat.main(["--steps", "1"])):
+        with pytest.raises(NoCudaDeviceError):
+            call()
+
+
+def test_slice_six_entry_points_raise_without_cuda(monkeypatch):
+    """The decode bench, the LM QAT example and the launcher's batched
+    engines, asked for no device and given no CUDA device, raise."""
+    from repro_torch.device import NoCudaDeviceError
+    from repro_torch.examples import approx_qat_lm
+    from repro_torch.launch import serve as launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: kernel_bench._decode_bench(), lambda: approx_qat_lm.main(["--steps", "1"]),
+                 lambda: launch.main(["--reduced", "--engine", "scan"]),
+                 lambda: launch.main(["--reduced", "--engine", "legacy"])):
         with pytest.raises(NoCudaDeviceError):
             call()
