@@ -78,14 +78,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
            version from identical state, bit-identical logits, loss and
            parameters.
 9. slots   the slot layout at full width through K1 (``approx``, per-row
-           scales, a float32 stripe of MAX_LEN per row): (a) ``generate``
-           at batch 4 (prompts of 64 tokens, 32 new), through K1 and
-           through its plain version (``approx_lowrank``), with the fused
-           and with the teacher-forced prefill: identical greedy tokens in
-           each mode, K1's count (zeroed just before) > 0; (b)
-           ``greedy_generate_legacy`` identical to ``generate(prefill_mode=
-           "decode")``, and the share of tokens on which the two prefills
-           agree, with the first divergence and its logit gap; (c) phase
+           scales, a float32 stripe of MAX_LEN per row), batch 4, prompts
+           of 64 tokens, 32 new: (a) ``generate`` through K1 and through
+           its plain version (``approx_lowrank``), with the fused and with
+           the teacher-forced prefill, 4 layers deep: identical greedy
+           tokens in each mode, K1's count (zeroed just before) > 0; (b)
+           at 40 layers, ``greedy_generate_legacy`` identical to
+           ``generate(prefill_mode="decode")``, and the share of tokens on
+           which the two prefills agree, with the first divergence and its
+           logit gap; (c) phase
            4's trace through ``ServeSession(cache_layout="slots")``: every
            request's tokens equal those of a paged session attending
            through K2's plain version (the slot layout's own attention
@@ -93,8 +94,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            whose online softmax rounds otherwise, are printed), and the
            first two requests equal ``generate`` of each prompt alone; (d) timings:
            ``kernel_bench._decode_bench`` at full width (legacy and
-           generate tok/s), the slot session's tok/s and TTFT, and with
-           --profile its steady decode tick beside phase 4's.
+           generate tok/s; its two runs are (b)'s legacy and fused runs),
+           the slot session's tok/s and TTFT, and with --profile its
+           steady decode tick beside phase 4's.
 
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
@@ -1075,39 +1077,38 @@ def slots_phase(cfg, ocfg, dev, seed, trace, paged_tokens, smi, profile_paged=No
     from repro_torch.kernels.approx_matmul import approx_matmul
     from repro_torch.models.transformer import init_params
     from repro_torch.paper.kernel_bench import _decode_bench
-    from repro_torch.serve import freeze_params, generate, greedy_generate_legacy
+    from repro_torch.serve import freeze_params, generate
 
     t_phase = time.perf_counter()
     params = freeze_params(cfg, init_params(cfg, seed=seed, device=dev))
-    prompts = np.random.default_rng(seed + 9).integers(
-        0, cfg.vocab_size, (NUM_SLOTS, SLOT_PROMPT)).astype(np.int32)
     run = dict(max_new=MAX_NEW, max_len=MAX_LEN, device=dev)
-    out, toks, launches = {"batch": NUM_SLOTS, "prompt_len": SLOT_PROMPT,
-                           "max_new": MAX_NEW, "max_len": MAX_LEN}, {}, 0
+    out = {"batch": NUM_SLOTS, "prompt_len": SLOT_PROMPT, "max_new": MAX_NEW,
+           "max_len": MAX_LEN}
 
-    # (a) generate through K1 and through its plain version, both prefills
-    for mode in ("fused", "decode"):
-        approx_matmul.launches = 0
-        t0 = time.perf_counter()
-        toks[mode] = generate(cfg, params, prompts, prefill_mode=mode, **run)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n = approx_matmul.launches
-        launches += n
-        plain = generate(ocfg, params, prompts, prefill_mode=mode, **run)
-        same = torch.equal(toks[mode], plain)
-        out[f"generate_{mode}"] = {"k1_launches": n, "wall_s": wall, "identical_to_plain": same}
-        log(f"[slots] generate prefill={mode}: K1 launches {n}, {wall:.2f}s, tokens "
-            f"identical to the plain version's: {same}")
-        if not same or n <= 0:
-            raise AssertionError(f"generate prefill={mode}: K1 {toks[mode][:, SLOT_PROMPT:]}"
-                                 f" vs plain {plain[:, SLOT_PROMPT:]}; K1 launches {n}")
+    # (d) the decode engines at full width, which are also (b)'s legacy run
+    # and generate's fused run; every kernel and table is warm by now
+    approx_matmul.launches = 0
+    engines = {}
+    rows = _decode_bench(dev, cfg=cfg, params=params, batch=NUM_SLOTS,
+                         prompt_len=SLOT_PROMPT, max_len=MAX_LEN, max_new=MAX_NEW,
+                         iters=1, warm=False, outputs=engines)
+    launches = n = approx_matmul.launches
+    out["decode_bench"] = [{"name": name, "s": us / 1e6, "text": text} for name, us, text in rows]
+    for name, us, text in rows:
+        log(f"[slots] {name}: {us / 1e6:.3f}s, {text} ({smi})")
+    prompts = engines["scan_engine"][:, :SLOT_PROMPT]
+    approx_matmul.launches = 0
+    toks = {"fused": engines["scan_engine"],
+            "decode": generate(cfg, params, prompts, prefill_mode="decode", **run)}
+    n_decode = approx_matmul.launches
+    launches += n_decode
+    out["k1_launches_full_depth"] = {"legacy_and_fused": n, "decode": n_decode}
+    if n <= 0 or n_decode <= 0:
+        raise AssertionError(f"approx_matmul was never launched by the engines: {n}, {n_decode}")
 
     # (b) legacy against generate's teacher-forced prefill; fused vs decode
-    legacy = greedy_generate_legacy(cfg, params, prompts, max_new=MAX_NEW, max_len=MAX_LEN,
-                                    device=dev)
     agree = (toks["fused"] == toks["decode"])[:, SLOT_PROMPT:]
-    out["legacy_identical_to_decode"] = torch.equal(legacy, toks["decode"])
+    out["legacy_identical_to_decode"] = torch.equal(engines["legacy_loop"], toks["decode"])
     out["fused_vs_decode"] = {"share_equal": agree.float().mean().item(),
                               "first_divergence": first_divergence(
                                   cfg, params, toks["fused"], toks["decode"], SLOT_PROMPT)}
@@ -1116,6 +1117,28 @@ def slots_phase(cfg, ocfg, dev, seed, trace, paged_tokens, smi, profile_paged=No
         f"{json.dumps(out['fused_vs_decode'])}")
     if not out["legacy_identical_to_decode"]:
         raise AssertionError("greedy_generate_legacy differs from generate(prefill_mode='decode')")
+
+    # (a) generate through K1 and through its plain version, both prefills,
+    # at full width and ORACLE_LAYERS deep (the plain version's float64
+    # products make a 40-layer teacher-forced run cost minutes)
+    cfg4 = dataclasses.replace(cfg, num_layers=ORACLE_LAYERS)
+    ocfg4 = dataclasses.replace(ocfg, num_layers=ORACLE_LAYERS)
+    params4 = freeze_params(cfg4, init_params(cfg4, seed=seed + 1, device=dev))
+    for mode in ("fused", "decode"):
+        approx_matmul.launches = 0
+        got = generate(cfg4, params4, prompts, prefill_mode=mode, **run)
+        n = approx_matmul.launches
+        launches += n
+        plain = generate(ocfg4, params4, prompts, prefill_mode=mode, **run)
+        same = torch.equal(got, plain)
+        out[f"oracle_{mode}"] = {"layers": ORACLE_LAYERS, "k1_launches": n,
+                                 "identical_to_plain": same}
+        log(f"[slots] generate prefill={mode}, {ORACLE_LAYERS} layers: K1 launches {n}, "
+            f"tokens identical to the plain version's: {same}")
+        if not same or n <= 0:
+            raise AssertionError(f"generate prefill={mode}: K1 {got[:, SLOT_PROMPT:]} vs "
+                                 f"plain {plain[:, SLOT_PROMPT:]}; K1 launches {n}")
+    del params4
 
     # (c) phase 4's trace on the slot layout; the first two requests alone
     approx_matmul.launches = 0
@@ -1159,12 +1182,6 @@ def slots_phase(cfg, ocfg, dev, seed, trace, paged_tokens, smi, profile_paged=No
     out["session"]["identical_to_paged_plain"] = True
     out["session"]["first_two_equal_generate_alone"] = True
 
-    # (d) the decode engines at full width (both ran above, so no warm-up)
-    rows = _decode_bench(dev, cfg=cfg, params=params, batch=NUM_SLOTS,
-                         prompt_len=SLOT_PROMPT, max_new=MAX_NEW, iters=1, warm=False)
-    out["decode_bench"] = [{"name": name, "s": us / 1e6, "text": text} for name, us, text in rows]
-    for name, us, text in rows:
-        log(f"[slots] {name}: {us / 1e6:.3f}s, {text} ({smi})")
     if profile:
         prof = profile_decode(cfg, params, trace, dev, seed, cache_layout="slots")
         out["profile"] = prof

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,14 +95,18 @@ def run(device=None, shape: Tuple[int, int, int] = (256, 512, 256),
 
 
 def _decode_bench(device=None, *, cfg=None, params=None, batch: int = 8,
-                  prompt_len: int = 8, max_new: int = 32, iters: int = 3,
-                  warm: bool = True) -> List[Tuple[str, float, str]]:
+                  prompt_len: int = 8, max_new: int = 32, max_len: Optional[int] = None,
+                  iters: int = 3, warm: bool = True,
+                  outputs: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> List[Tuple[str, float, str]]:
     """Decode throughput: the legacy per-token loop against ``generate``
     (fused prefill, then the decode loop).  By default the JAX benchmark's
     model: reduced granite-3-2b in float mode, which isolates the engines'
-    dispatch cost; ``cfg``/``params`` time another model (``chip_smoke.py``
-    passes granite-3-2b at full width through K1).  ``warm=False`` skips
-    the warm-up run (the caller has run both engines already)."""
+    dispatch cost; ``cfg``/``params`` (and ``max_len``, the stripe) time
+    another model: ``chip_smoke.py`` passes granite-3-2b at full width
+    through K1, skips the warm-up (``warm=False``: every kernel and table
+    is warm by then) and takes each engine's last tokens in ``outputs``
+    (keyed by row name) to check them."""
     dev = resolve_device(device)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     if cfg is None:
@@ -111,10 +115,9 @@ def _decode_bench(device=None, *, cfg=None, params=None, batch: int = 8,
         params = init_params(cfg, 0, device=dev)
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
-    engines = (("legacy_loop", lambda: greedy_generate_legacy(
-                   cfg, params, prompt, max_new=max_new, device=dev)),
-               ("scan_engine", lambda: generate(cfg, params, prompt, max_new=max_new,
-                                                device=dev)))
+    run = dict(max_new=max_new, max_len=max_len, device=dev)
+    engines = (("legacy_loop", lambda: greedy_generate_legacy(cfg, params, prompt, **run)),
+               ("scan_engine", lambda: generate(cfg, params, prompt, **run)))
     rows = []
     for name, fn in engines:
         if warm:
@@ -123,10 +126,12 @@ def _decode_bench(device=None, *, cfg=None, params=None, batch: int = 8,
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for _ in range(iters):
-            fn()
+            out = fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = (time.perf_counter() - t0) / iters
+        if outputs is not None:
+            outputs[name] = out
         rows.append((f"serve/decode_{name}_b{batch}_n{max_new}", dt * 1e6,
                      f"{batch * max_new / dt:.1f} tok/s on {where}"))
     return rows
