@@ -32,9 +32,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            time, beside the bound, the plain version and SDPA over blocks
            gathered beforehand.
 4. serve   8 seeded requests (prompts 16-128 tokens, 16-32 new tokens)
-           through ServeSession(--exec approx, attn_impl="kernel") on the
-           card, 4 slots, 16-row blocks; both kernels' launch counts, zeroed
-           just before, must be > 0.
+           through ServeSession(--exec approx, attn_impl="kernel",
+           loop="sync") on the card, 4 slots, 16-row blocks; both kernels'
+           launch counts, zeroed just before, must be > 0.
 5. oracle  the first 2 requests again through a session on the plain
            versions (approx_lowrank, attn_impl="gather") on the card; the
            greedy tokens must be identical.  One decode step through K2 and
@@ -97,6 +97,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
            generate tok/s; its two runs are (b)'s legacy and fused runs),
            the slot session's tok/s and TTFT, and with --profile its
            steady decode tick beside phase 4's.
+10. async  the async double-buffered loop and the multi-token paged pass at
+           full width (phase 4's weights re-created from the seed): (a)
+           phase 4's trace through ServeSession(loop="async",
+           attn_impl="kernel"): every request's tokens and admission tick
+           and the session's ticks equal phase 4's sync run, each finish
+           tick equal or one tick later (the async loop finishes a request
+           at the harvest after its last chunk), and K1's and K2's launch
+           counts, zeroed just before, > 0; (b) the same with
+           steps_per_tick=4 and (c) with prefill_decode_ratio=1.0:
+           identical tokens, (c)'s decode gap within steps + ceil(R *
+           steps); (d) through K1: ``paged_verify_step`` over 5 tokens of
+           4 admitted requests bit-equal (logits and pool) to 5 sequential
+           ``paged_decode_step(attn_impl="gather")`` calls, and a 128-token
+           prompt in chunks of 32 through ``paged_chunk_prefill_step``
+           bit-equal to one verify pass over it (its gap to ``forward`` is
+           printed); (e) tok/s, TTFT, overlap_fraction and host_block_s of
+           the sync loop (run again), async, async x4 and the ratio run, and
+           with --profile a steady async tick beside phase 4's sync tick.
 
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
@@ -143,6 +161,9 @@ MAX_NEW = 32
 REQUESTS = 8
 MAX_LEN = 160                        # largest bucket + MAX_NEW, whole blocks
 SLOT_PROMPT = 64                     # phase 9's generate prompts
+VERIFY_S = 5                         # phase 10's verify pass: tokens per row
+STALL_MS = 1000                      # phase 10's queued device stall, longer than a tick
+CHUNK_PROMPT, PREFILL_CHUNK = 128, 32  # phase 10's chunked prefill
 K2_TOL = 1e-4
 K2_POOLS = {"f32": torch.float32, "bf16": torch.bfloat16}
 LONG_CONTEXT = 4096                  # granite-3.0-2b's context length
@@ -545,13 +566,16 @@ def make_trace(rng, vocab, n):
             for i in range(n)]
 
 
-def serve(cfg, params, trace, dev, attn_impl, seed, cache_layout="paged"):
+def serve(cfg, params, trace, dev, attn_impl, seed, cache_layout="paged", loop="sync", **kw):
+    """Phase 4's session on ``trace``: (session, results, wall seconds of
+    ``run()`` ending in a synchronise).  ``kw`` reaches ``ServeSession``
+    (``steps_per_tick``, ``prefill_decode_ratio``)."""
     from repro_torch.serve import ServeSession
 
     sess = ServeSession(cfg, params, num_slots=NUM_SLOTS, max_len=MAX_LEN,
                         prompt_buckets=BUCKETS, block_size=BLOCK_SIZE, policy="fifo",
                         attn_impl=attn_impl, seed=seed, cache_layout=cache_layout,
-                        device=dev)
+                        loop=loop, device=dev, **kw)
     for i, (p, n, a) in enumerate(trace):
         sess.submit(p, max_new=n, arrival=a, req_id=i)
     t0 = time.perf_counter()
@@ -560,10 +584,12 @@ def serve(cfg, params, trace, dev, attn_impl, seed, cache_layout="paged"):
     return sess, results, time.perf_counter() - t0
 
 
-def profile_decode(cfg, params, trace, dev, seed, ticks=6, cache_layout="paged"):
+def profile_decode(cfg, params, trace, dev, seed, ticks=6, cache_layout="paged", loop="sync"):
     """Where a decode tick's time goes: host-clock ms per tick without the
     profiler, and the kernels' device ms per tick under torch.profiler
-    (first four requests resident, no admission in the window)."""
+    (first four requests resident, no admission in the window; under the
+    async loop a tick is one ``step()``: dispatch a chunk, harvest the
+    previous one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -571,7 +597,7 @@ def profile_decode(cfg, params, trace, dev, seed, ticks=6, cache_layout="paged")
 
     sess = ServeSession(cfg, params, num_slots=NUM_SLOTS, max_len=MAX_LEN,
                         prompt_buckets=BUCKETS, block_size=BLOCK_SIZE, policy="fifo",
-                        cache_layout=cache_layout, seed=seed, device=dev)
+                        cache_layout=cache_layout, loop=loop, seed=seed, device=dev)
     for i, (p, n, _) in enumerate(trace[:NUM_SLOTS]):
         sess.submit(p, max_new=n, req_id=i)
     for _ in range(3):                      # admission, then two warm decode ticks
@@ -592,7 +618,7 @@ def profile_decode(cfg, params, trace, dev, seed, ticks=6, cache_layout="paged")
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / ticks
-    out = {"layout": cache_layout, "ticks": ticks, "n_active": sess.n_active,
+    out = {"layout": cache_layout, "loop": loop, "ticks": ticks, "n_active": sess.n_active,
            "wall_ms_per_tick": wall_ms,
            "device_ms_per_tick": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
@@ -1197,6 +1223,312 @@ def slots_phase(cfg, ocfg, dev, seed, trace, paged_tokens, smi, profile_paged=No
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: async
+# ---------------------------------------------------------------------------
+
+
+def serve_numbers(sess, results, wall):
+    """The timings phase 10 reports for one served trace."""
+    st = sess.stats
+    generated = sum(len(r.tokens) for r in results.values())
+    return {"generated_tokens": generated, "wall_s": wall, "tok_per_s": generated / wall,
+            "ttft_p50_s": st.ttft_s_p50, "ttft_p50_ticks": st.ttft_p50, "ticks": st.ticks,
+            "host_block_s": st.host_block_s, "step_wall_s": st.wall_s,
+            "overlap_fraction": st.overlap_fraction,
+            "max_decode_gap_ticks": st.max_decode_gap_ticks,
+            "prefill_stall_ticks": st.prefill_stall_ticks}
+
+
+def verify_check(cfg, params, trace, phase4, dev):
+    """(d): the multi-token paged pass at full width through K1.  Four of
+    phase 4's prompts prefilled into a pool; ``paged_verify_step`` over the
+    first VERIFY_S tokens each request generated must equal as many
+    sequential ``paged_decode_step(attn_impl="gather")`` calls bit for bit,
+    logits and pool.  Then a CHUNK_PROMPT-token prompt through
+    ``paged_chunk_prefill_step`` in chunks of PREFILL_CHUNK must equal one
+    ``paged_verify_step`` over it bit for bit; its gap to ``forward``'s
+    logits is printed (the JAX package's own chunked-vs-fused pin is red)."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.models.transformer import (forward, init_paged_cache,
+                                                paged_chunk_prefill_step, paged_decode_step,
+                                                paged_verify_step)
+    from repro_torch.serve.cache import scatter_prompt_blocks
+
+    W, nbk, B = MAX_LEN // BLOCK_SIZE, BUCKETS[-1] // BLOCK_SIZE, NUM_SLOTS
+    out = {"rows": B, "S": VERIFY_S}
+    approx_matmul.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prompts = np.zeros((B, BUCKETS[-1]), np.int32)
+        for i in range(B):
+            prompts[i, :trace[i][0].size] = trace[i][0]
+        pool = init_paged_cache(cfg, B * W, BLOCK_SIZE, device=dev)
+        _, kvs = forward(cfg, params, torch.as_tensor(prompts, device=dev), return_kv=True)
+        tables = torch.arange(B * W, dtype=torch.int32, device=dev).reshape(B, W)
+        scatter_prompt_blocks(pool, kvs, tables[:, :nbk], BLOCK_SIZE)
+        cur = torch.as_tensor([trace[i][0].size for i in range(B)], device=dev)
+        toks = torch.as_tensor([phase4["results"][i][0][:VERIFY_S] for i in range(B)],
+                               device=dev)
+        one = {k: v.clone() for k, v in pool.items()}
+        lv = paged_verify_step(cfg, params, one, toks, cur, tables, block_size=BLOCK_SIZE)
+        ls = torch.cat([paged_decode_step(cfg, params, pool, toks[:, j:j + 1], cur + j, tables,
+                                          block_size=BLOCK_SIZE, attn_impl="gather")
+                        for j in range(VERIFY_S)], dim=1)
+        out["logits_identical"] = torch.equal(lv, ls)
+        out["pool_identical"] = all(torch.equal(one[k], pool[k]) for k in ("k", "v"))
+        out["max_abs_diff"] = (lv - ls).abs().max().item()
+        del one, pool, kvs, lv, ls
+        out["verify_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        rng = np.random.default_rng(CHUNK_PROMPT)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, CHUNK_PROMPT)), device=dev)
+        nb = CHUNK_PROMPT // BLOCK_SIZE
+        full = torch.arange(nb, dtype=torch.int32, device=dev)[None, :]
+        one = init_paged_cache(cfg, nb, BLOCK_SIZE, device=dev)
+        lo = paged_verify_step(cfg, params, one, prompt, torch.zeros(1, dtype=torch.int64,
+                                                                     device=dev),
+                               full, block_size=BLOCK_SIZE)
+        chunked = init_paged_cache(cfg, nb, BLOCK_SIZE, device=dev)
+        parts = []
+        for pos in range(0, CHUNK_PROMPT, PREFILL_CHUNK):
+            # the table grows chunk by chunk; its tail stays the sentinel
+            upto = (pos + PREFILL_CHUNK) // BLOCK_SIZE
+            tbl = torch.where(torch.arange(nb, device=dev)[None, :] < upto, full, nb)
+            parts.append(paged_chunk_prefill_step(
+                cfg, params, chunked, prompt[:, pos:pos + PREFILL_CHUNK],
+                torch.full((1,), pos, dtype=torch.int64, device=dev), tbl.int(),
+                block_size=BLOCK_SIZE))
+        lc = torch.cat(parts, dim=1)
+        fused = forward(cfg, params, prompt)
+        V = cfg.vocab_size
+        out["chunk"] = {
+            "prompt": CHUNK_PROMPT, "chunk": PREFILL_CHUNK,
+            "logits_identical": torch.equal(lc, lo),
+            "pool_identical": all(torch.equal(one[k][:, :nb], chunked[k][:, :nb])
+                                  for k in ("k", "v")),
+            "vs_forward_max_abs_diff": (lo[..., :V] - fused[..., :V]).abs().max().item(),
+            "vs_forward_top1_agree": (lo[..., :V].argmax(-1)
+                                      == fused[..., :V].argmax(-1)).float().mean().item(),
+            "seconds": time.perf_counter() - t0}
+    out["k1_launches"] = approx_matmul.launches
+    ok = (out["logits_identical"] and out["pool_identical"]
+          and out["chunk"]["logits_identical"] and out["chunk"]["pool_identical"])
+    log(f"[async] verify and chunk prefill, {json.dumps(out)}")
+    if not ok or out["k1_launches"] <= 0:
+        raise AssertionError(f"the multi-token pass is not bit-equal to its oracles: {out}")
+    return out
+
+
+_BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                   "cudaMemcpy", "cudaMemcpyAsync")
+
+
+def stall_probe(cfg, params, trace, dev, seed):
+    """Does the host wait on the device where the async loop must not?
+    Each case runs while a STALL_MS device stall (``torch.cuda._sleep``,
+    longer than a host tick) sits queued ahead of it; the host ms each case
+    takes are reported beside the stall's measured ms:
+
+    - ``launch_queue``: tiny kernels launched one by one until a launch
+      blocks: how far the host can run ahead of a busy device at all;
+    - ``stage_pinned`` (``ServeSession._h2d``: pinned buffer, non-blocking
+      copy) against ``stage_pageable`` (``torch.as_tensor(numpy,
+      device=cuda)``, which waits for the stream to drain);
+    - ``fetch_event`` (``_HostCopy``: non-blocking copy into a pinned
+      buffer, an event) against ``fetch_cpu`` (``.cpu()``);
+    - ``attention_core`` at phase 4's prefill shape;
+    - one ``step()`` of each loop with four requests resident, under the
+      profiler: its host ms, its ms in ``cudaLaunchKernel`` and in the
+      runtime calls that wait (``_BLOCKING_CALLS``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.attention import attention_core
+    from repro_torch.serve import ServeSession
+    from repro_torch.serve.scheduler import _HostCopy
+
+    def sessions():
+        out = {}
+        for loop in ("sync", "async"):
+            sess = ServeSession(cfg, params, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+                                prompt_buckets=BUCKETS, block_size=BLOCK_SIZE, policy="fifo",
+                                loop=loop, seed=seed, device=dev)
+            for i, (p, n, _) in enumerate(trace[:NUM_SLOTS]):
+                sess.submit(p, max_new=n, req_id=i)
+            for _ in range(3):
+                sess.step()
+            out[loop] = sess
+        torch.cuda.synchronize()
+        return out
+
+    sess = sessions()                       # the clocks are up by now
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(STALL_MS * 10 ** 8 / start.elapsed_time(end))
+
+    def stalled(fn):
+        """(host ms of fn, the stall's device ms, fn's result)"""
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        t0 = time.perf_counter()
+        res = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return ms, start.elapsed_time(end), res
+
+    out = {}
+    x = torch.zeros(1, device=dev)
+
+    def launch_until_blocked():
+        n, t_last = 0, time.perf_counter()
+        while n < 100_000:
+            x.add_(1)
+            n += 1
+            t = time.perf_counter()
+            if t - t_last > 0.05 * STALL_MS / 1e3:
+                return n
+            t_last = t
+        return n
+
+    ms, stall, n = stalled(launch_until_blocked)
+    out["launch_queue"] = {"kernels_before_block": n, "host_ms": ms, "stall_ms": stall}
+    cur = sess["async"]._cur_len
+    q = torch.randn(1, BUCKETS[0], cfg.num_heads, cfg.head_dim, device=dev,
+                    dtype=getattr(torch, cfg.dtype))
+    kv = torch.randn(1, BUCKETS[0], cfg.num_kv_heads, cfg.head_dim, device=dev,
+                     dtype=getattr(torch, cfg.dtype))
+    on_dev = torch.zeros(NUM_SLOTS, dtype=torch.int64, device=dev)
+    for name, fn in (("stage_pinned", lambda: sess["async"]._h2d(cur)),
+                     ("stage_pageable", lambda: torch.as_tensor(cur, device=dev)),
+                     ("fetch_event", lambda: _HostCopy(on_dev)),
+                     ("fetch_cpu", lambda: on_dev.cpu()),
+                     ("attention_core", lambda: attention_core(q, kv, kv, causal=True))):
+        ms, stall, _ = stalled(fn)
+        out[name] = {"host_ms": ms, "stall_ms": stall}
+    sess["async"]._staged.clear()
+    for loop, s in sess.items():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            b0 = s.stats.host_block_s
+            ms, stall, _ = stalled(s.step)
+        self_ms = {}
+        for e in prof.key_averages():
+            self_ms[e.key] = self_ms.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
+        out[f"step_{loop}"] = {
+            "host_ms": ms, "stall_ms": stall,
+            "host_block_ms": (s.stats.host_block_s - b0) * 1e3,
+            "launch_ms": self_ms.get("cudaLaunchKernel", 0.0),
+            "waiting_calls_ms": sum(self_ms.get(k, 0.0) for k in _BLOCKING_CALLS)}
+    return out
+
+
+def async_phase(cfg, dev, seed, trace, phase4, smi, profile_paged=None, profile=False):
+    """Phase 10: the async loop and the multi-token paged pass at full width
+    through K1 and K2 (see the module text).  ``phase4`` holds phase 4's
+    sync results and ticks."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import freeze_params
+
+    t_phase = time.perf_counter()
+    params = freeze_params(cfg, init_params(cfg, seed=seed, device=dev))
+    want = phase4["results"]
+    out = {"timings": {}, "seconds_by_part": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds_by_part"][name] = now - t_part
+        t_part = now
+
+    def same_tokens(name, results):
+        for rid, r in results.items():
+            if r.tokens.tolist() != want[rid][0]:
+                raise AssertionError(f"{name}: request {rid} {r.tokens.tolist()} vs phase 4's "
+                                     f"sync run {want[rid][0]}")
+
+    # the sync loop again, for timings in turn with the async runs
+    sess, results, wall = serve(cfg, params, trace, dev, "kernel", seed, loop="sync")
+    same_tokens("sync", results)
+    out["timings"]["sync"] = serve_numbers(sess, results, wall)
+
+    # (a) the async loop on phase 4's trace
+    approx_matmul.launches = paged_attention.launches = 0
+    sess, results, wall = serve(cfg, params, trace, dev, "kernel", seed, loop="async")
+    out["launches"] = {"approx_matmul": approx_matmul.launches,
+                       "paged_attention": paged_attention.launches}
+    out["timings"]["async"] = serve_numbers(sess, results, wall)
+    same_tokens("async", results)
+    late = {rid: r.finished_tick - want[rid][2] for rid, r in results.items()}
+    out["finished_ticks_after_sync"] = late
+    for rid, r in results.items():
+        if r.admitted_tick != want[rid][1] or late[rid] not in (0, 1):
+            raise AssertionError(f"async request {rid}: admitted {r.admitted_tick}, finished "
+                                 f"{r.finished_tick} vs sync {want[rid][1:]}")
+    if sess.stats.ticks != phase4["ticks"]:
+        raise AssertionError(f"async ticks {sess.stats.ticks} vs sync {phase4['ticks']}")
+    for name, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the async path")
+    log(f"[async] async loop ({smi}): tokens, admission ticks and {sess.stats.ticks} ticks "
+        f"equal to phase 4's sync run; finish ticks after sync's: {json.dumps(late)}; "
+        f"launches {json.dumps(out['launches'])}")
+
+    # (b) four decode steps per chunk; (c) the prefill-decode ratio
+    for name, kw in (("async_x4", dict(steps_per_tick=4)),
+                     ("async_ratio_1.0", dict(prefill_decode_ratio=1.0))):
+        sess, results, wall = serve(cfg, params, trace, dev, "kernel", seed, loop="async", **kw)
+        same_tokens(name, results)
+        out["timings"][name] = serve_numbers(sess, results, wall)
+    gap, steps = out["timings"]["async_ratio_1.0"]["max_decode_gap_ticks"], 1
+    if gap > steps + math.ceil(1.0 * steps):
+        raise AssertionError(f"ratio 1.0: decode gap {gap} > {steps + math.ceil(steps)}")
+    for name, row in out["timings"].items():
+        log(f"[async] {name} ({smi}): {json.dumps(row)}")
+    part("sessions")
+
+    # (e) work queued behind a device stall: what the async loop does must not wait on it
+    probe = out["stall_probe"] = stall_probe(cfg, params, trace, dev, seed)
+    for name, row in probe.items():
+        log(f"[async] behind a queued {STALL_MS} ms device stall, {name} ({smi}): "
+            f"{json.dumps(row)}")
+    waits = {name: probe[name]["host_ms"] for name in ("stage_pinned", "fetch_event",
+                                                        "attention_core")}
+    waits["step_async waiting calls"] = probe["step_async"]["waiting_calls_ms"]
+    if probe["stage_pageable"]["host_ms"] < 0.5 * STALL_MS:
+        raise AssertionError(f"a pageable copy did not wait out the stall: the probe measured "
+                             f"nothing ({probe['stage_pageable']})")
+    if max(waits.values()) > 0.25 * STALL_MS:
+        raise AssertionError(f"the async path waited on the device: {waits}")
+    part("stall_probe")
+
+    # (d) the multi-token paged pass
+    out["verify"] = verify_check(cfg, params, trace, phase4, dev)
+    part("verify")
+
+    if profile:
+        # in turn, so that a slow spell of the host does not read as a loop's cost
+        out["profile"] = [profile_decode(cfg, params, trace, dev, seed, loop=loop)
+                          for loop in ("sync", "async", "async", "sync")]
+        for prof in out["profile"]:
+            log(f"[async] steady {prof['loop']} tick ({smi}): {prof['wall_ms_per_tick']:.2f} "
+                f"host ms, idle {prof['device_idle_share']}")
+        log(f"[async] phase 4's sync tick: {profile_paged['wall_ms_per_tick']:.2f} host ms, "
+            f"idle {profile_paged['device_idle_share']}")
+        part("profile")
+    del params, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1263,9 +1595,9 @@ def main(argv=None) -> int:
     # -- 4. serve ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
     trace = make_trace(rng, cfg.vocab_size, REQUESTS)
-    serve(cfg, params, trace[:1], dev, "kernel", args.seed)   # warm-up
+    serve(cfg, params, trace[:1], dev, "kernel", args.seed, loop="sync")   # warm-up
     approx_matmul.launches = paged_attention.launches = 0
-    sess, results, wall = serve(cfg, params, trace, dev, "kernel", args.seed)
+    sess, results, wall = serve(cfg, params, trace, dev, "kernel", args.seed, loop="sync")
     launches = {"approx_matmul": approx_matmul.launches,
                 "paged_attention": paged_attention.launches}
     st = sess.stats
@@ -1276,6 +1608,7 @@ def main(argv=None) -> int:
               "peak_blocks_in_use": st.peak_blocks_in_use, "num_blocks": sess.num_blocks,
               "prefills": {str(k): v for k, v in st.prefills.items()},
               "admit_calls": st.admit_calls, "launches": launches,
+              "host_block_s": st.host_block_s, "overlap_fraction": st.overlap_fraction,
               "launches_per_request": {k: v / len(results) for k, v in launches.items()}}
     report["serve"] = served
     log(f"[serve] {json.dumps(served)}")
@@ -1324,6 +1657,9 @@ def main(argv=None) -> int:
         log(f"[profile] {json.dumps(report['profile'])}")
 
     paged_tokens = {rid: r.tokens.tolist() for rid, r in results.items()}
+    phase4 = {"ticks": st.ticks, "results": {rid: (r.tokens.tolist(), r.admitted_tick,
+                                                   r.finished_tick)
+                                             for rid, r in results.items()}}
 
     # -- 6. K3 ---------------------------------------------------------------
     report["k3"] = k3_phase(dev, gen)
@@ -1348,16 +1684,25 @@ def main(argv=None) -> int:
     slots = report["slots"]
     log(f"[slots] phase 9 took {slots['seconds']:.1f}s")
 
+    # -- 10. async -----------------------------------------------------------
+    report["async"] = async_phase(cfg, dev, args.seed, trace, phase4, smi,
+                                  report.get("profile"), args.profile)
+    asy = report["async"]
+    log(f"[async] phase 10 took {asy['seconds']:.1f}s")
+
     k3 = report["k3"]
     kernels = [
         {"name": "approx_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/approx_matmul.cu",
          "replaces": "src/repro/kernels/approx_matmul/kernel.py:85",
          "launches": launches["approx_matmul"] + train["launches"]
-         + paper["k1_launches_table_viii"] + slots["k1_launches"],
+         + paper["k1_launches_table_viii"] + slots["k1_launches"]
+         + asy["launches"]["approx_matmul"] + asy["verify"]["k1_launches"],
          "launches_by_path": {"serve": launches["approx_matmul"], "train": train["launches"],
                               "table_viii": paper["k1_launches_table_viii"],
                               "slots": slots["k1_launches"],
+                              "async": asy["launches"]["approx_matmul"],
+                              "verify": asy["verify"]["k1_launches"],
                               "table_viii_by_net": {f"{r['net']}-{r['dataset']}": r["k1_launches"]
                                                     for r in paper["table_viii"]}},
          "max_abs_err": max(k1_err, paper["k1"]["max_abs_err"]),
@@ -1378,7 +1723,10 @@ def main(argv=None) -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:141",
-         "launches": launches["paged_attention"], "max_abs_err": k2_err,
+         "launches": launches["paged_attention"] + asy["launches"]["paged_attention"],
+         "launches_by_path": {"serve": launches["paged_attention"],
+                              "async": asy["launches"]["paged_attention"]},
+         "max_abs_err": k2_err,
          "max_abs_err_bf16_q": k2_err16,
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],

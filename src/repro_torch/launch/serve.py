@@ -2,8 +2,8 @@
 mixed-length trace through the continuous-batching ``ServeSession``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
-        --engine continuous --cache-layout paged --loop sync --exec approx \
-        --attn-impl kernel
+        --engine continuous --cache-layout paged --loop async --exec approx \
+        --attn-impl kernel --steps-per-tick 2 --prefill-decode-ratio 1.0
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --reduced --device cpu --requests 6 --new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
@@ -16,7 +16,11 @@ The JAX package's launcher less the flags of the slices not yet ported.
 steps over per-row ``max_len`` stripes), ``--engine legacy`` the per-token
 ``greedy_generate_legacy`` loop, and ``--engine continuous`` (the port's
 default; the JAX launcher's is ``scan``) a ``ServeSession`` on the paged
-pool (default) or on per-slot stripes (``--cache-layout slots``).  The
+pool (default) or on per-slot stripes (``--cache-layout slots``), driven
+by the async double-buffered loop (``--loop async``, the default) or the
+sync loop, ``--steps-per-tick`` decode steps per chunk, with
+``--prefill-decode-ratio`` / ``--prefill-token-budget`` rate-limiting the
+prompt tokens admitted against resident decodes.  The
 weights are random (``init_params`` from ``--seed``) at the registered
 widths and are frozen to uint8 ``QWeight``s for every quantized ``--exec``
 mode.  ``--exec approx`` runs every projection through the CUDA
@@ -45,6 +49,7 @@ from repro_torch.serve import (
     ADMISSION_POLICIES,
     CACHE_LAYOUTS,
     EXECUTION_MODES,
+    SERVE_LOOPS,
     SamplingConfig,
     ServeSession,
     freeze_params,
@@ -71,7 +76,17 @@ def main(argv=None):
     ap.add_argument("--cache-layout", default="paged", choices=CACHE_LAYOUTS,
                     help="continuous engine: the paged block pool, or a "
                          "max_len stripe per slot")
-    ap.add_argument("--loop", default="sync", choices=("sync",))
+    ap.add_argument("--loop", default="async", choices=SERVE_LOOPS,
+                    help="continuous engine: async double-buffered pipeline "
+                         "(default) or the strictly-alternating sync loop")
+    ap.add_argument("--steps-per-tick", type=int, default=1,
+                    help="continuous engine: decode steps per dispatched chunk")
+    ap.add_argument("--prefill-decode-ratio", type=float, default=None,
+                    help="continuous engine: admit at most RATIO * resident "
+                         "decode tokens of bucketed prefill per step")
+    ap.add_argument("--prefill-token-budget", type=int, default=None,
+                    help="continuous engine: flat per-step prefill token "
+                         "budget (alternative to --prefill-decode-ratio)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--eos-id", type=int, default=-1)
@@ -115,7 +130,9 @@ def main(argv=None):
         prompt_buckets=tuple(buckets), sampling=sampling, seed=args.seed,
         block_size=args.block_size, num_blocks=args.num_blocks,
         policy=args.policy, attn_impl=args.attn_impl, pad_id=args.pad_id,
-        cache_layout=args.cache_layout, device=device,
+        cache_layout=args.cache_layout, loop=args.loop, steps_per_tick=args.steps_per_tick,
+        prefill_decode_ratio=args.prefill_decode_ratio,
+        prefill_token_budget=args.prefill_token_budget, device=device,
     )
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -129,7 +146,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     generated = sum(len(r.tokens) for r in results.values())
     st = sess.stats
-    print(f"[continuous/{args.exec_mode}/{args.cache_layout}/sync on {device}] {len(results)} "
+    print(f"[continuous/{args.exec_mode}/{args.cache_layout}/{args.loop} on {device}] "
+          f"{len(results)} "
           f"requests, {generated} tokens in {dt:.3f}s ({generated / dt:.1f} tok/s), "
           f"slot utilization {st.slot_utilization * 100:.1f}% over {st.ticks} "
           f"ticks x {args.num_slots} slots")
@@ -137,6 +155,9 @@ def main(argv=None):
           f"(p50 {st.ttft_s_p50:.3f}s), latency p50/p95 = "
           f"{st.latency_p50:.0f}/{st.latency_p95:.0f} ticks, peak concurrency "
           f"{st.peak_active}")
+    print(f"  host/device overlap {st.overlap_fraction * 100:.0f}% of wall "
+          f"(host blocked {st.host_block_s:.3f}s of {st.wall_s:.3f}s), decode-gap gauge "
+          f"{st.max_decode_gap_ticks} work ticks, prefill stalls {st.prefill_stall_ticks}")
     if args.cache_layout == "paged":
         print(f"  KV pool: {sess.num_blocks} x {args.block_size}-row blocks, peak "
               f"in use {st.peak_blocks_in_use}, attention impl {st.attn_impl}")

@@ -1,7 +1,9 @@
-"""Grouped-query attention: exact causal attention for prefill, and one
+"""Grouped-query attention: exact causal attention for prefill, one
 decode step against either KV layout: the slot layout's per-row
 ``max_len`` stripe (``decode_attention``) or the paged pool
-(``paged_decode_attention``).
+(``paged_decode_attention``), and the multi-position pass over the paged
+pool that speculative verification and chunked prefill share
+(``paged_verify_attention``, ``paged_chunk_prefill_attention``).
 
 K/V are never head-repeated: scores use grouped einsums (q reshaped to
 (B, S, Hkv, group, hd)).  All projections route through ``layers.dense``;
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core.approx import ApproxConfig, w_dim
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.paged_attention.ref import attend_gathered, gather_blocks, softmax_scale
 from repro_torch.models import layers as L
 
 __all__ = [
@@ -25,6 +28,8 @@ __all__ = [
     "seed_kv_cache",
     "decode_attention",
     "paged_decode_attention",
+    "paged_verify_attention",
+    "paged_chunk_prefill_attention",
 ]
 
 _NEG = -1e30
@@ -48,8 +53,7 @@ def attention_core(
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
-    qt = (q * scale.to(q.dtype).to(q.device)).reshape(B, Sq, Hkv, g, hd)
+    qt = (q * softmax_scale(hd, q.dtype)).reshape(B, Sq, Hkv, g, hd)
     scores = torch.einsum("bchgd,bkhd->bhgck", qt.float(), k.float())
     kv_pos = torch.arange(Sk, device=q.device)
     if causal:
@@ -182,14 +186,7 @@ def paged_decode_attention(
                           rope_theta=rope_theta)
     hd = q.shape[3]
     num_blocks = k_blocks.shape[0] - 1
-    W = block_table.shape[1]
-    cur = cur_len.long()
-    blk = cur // block_size
-    off = cur % block_size
-    tbl = block_table.long()
-    phys = torch.gather(tbl, 1, blk.clamp(max=W - 1)[:, None])[:, 0]
-    # past-table rows -> trash; a sentinel entry already names the trash row
-    phys = torch.where(blk < W, phys, num_blocks)
+    phys, off = _paged_slot(cur_len.long()[:, None], block_table, num_blocks, block_size)
     # the fused token is cast to the POOL dtype first: attention must use
     # the same rounded value every later step reads back from the pool
     kn = k[:, 0].to(k_blocks.dtype)
@@ -200,6 +197,79 @@ def paged_decode_attention(
         out = paged_attention(*args, block_size=block_size)
     else:
         out = paged_attention_plain(*args, block_size=block_size).to(q.dtype)
+    k_blocks[phys[:, 0], off[:, 0]] = kn
+    v_blocks[phys[:, 0], off[:, 0]] = vn
+    return L.dense(out.reshape(B, 1, n_heads * hd), p["wo"], cfg)
+
+
+def _paged_slot(pos, block_table, num_blocks: int, block_size: int):
+    """(physical block, offset) of cache positions ``pos`` through each
+    row's table; positions past the table map to the trash block (a
+    sentinel entry already names it)."""
+    W = block_table.shape[1]
+    blk = pos // block_size
+    phys = torch.gather(block_table.long(), 1, blk.clamp(max=W - 1))
+    return torch.where(blk < W, phys, num_blocks), pos % block_size
+
+
+def paged_verify_attention(
+    x: torch.Tensor,                 # (B, S, d): S consecutive tokens per row
+    p: Dict[str, object],
+    k_blocks: torch.Tensor,          # (num_blocks + 1, block_size, Hkv, hd) one layer
+    v_blocks: torch.Tensor,
+    block_table: torch.Tensor,       # (B, W) int32 physical block ids
+    cur_len: torch.Tensor,           # (B,) position of the FIRST of the S tokens
+    *,
+    block_size: int,
+    n_heads: int,
+    n_kv: int,
+    cfg: ApproxConfig,
+    rope_theta: float = 10000.0,
+) -> torch.Tensor:
+    """Score ``S`` consecutive tokens of each row at cache positions
+    ``cur_len + j`` in one pass against the paged pool.
+
+    The projections and rope run batched over the S positions; the K/V of
+    all S positions are written into the pool IN PLACE through the table
+    first (past-table and sentinel targets land in the trash block, as in
+    ``paged_decode_attention``); the blocks are gathered once; then each
+    position attends with its own horizon ``kv_len = cur_len + j + 1``
+    through ``attend_gathered``, once per position with one query, NOT
+    one batched call: every position runs the instruction sequence of the
+    single-token gather decode (``paged_decode_step(attn_impl="gather")``),
+    so the pass is bit-identical to S sequential decode steps by
+    construction.  K2 is single-query, as the TPU kernel is, so this pass
+    always reads through the gather."""
+    B, S, _ = x.shape
+    hd = w_dim(p["wq"], -1) // n_heads
+    q = L.dense(x, p["wq"], cfg).reshape(B, S, n_heads, hd)
+    k = L.dense(x, p["wk"], cfg).reshape(B, S, n_kv, hd)
+    v = L.dense(x, p["wv"], cfg).reshape(B, S, n_kv, hd)
+    pos = cur_len.long()[:, None] + torch.arange(S, device=x.device)[None, :]
+    q, k = L.apply_rope(q, k, pos, theta=rope_theta)
+    num_blocks = k_blocks.shape[0] - 1
+    phys, off = _paged_slot(pos, block_table, num_blocks, block_size)
+    kn = k.to(k_blocks.dtype)
+    vn = v.to(v_blocks.dtype)
     k_blocks[phys, off] = kn
     v_blocks[phys, off] = vn
-    return L.dense(out.reshape(B, 1, n_heads * hd), p["wo"], cfg)
+    kg, vg = gather_blocks(k_blocks[:num_blocks], v_blocks[:num_blocks], block_table)
+    outs = [
+        attend_gathered(q[:, j], kn[:, j], vn[:, j], kg, vg, block_table, cur_len + j,
+                        num_blocks=num_blocks, block_size=block_size).to(q.dtype)
+        for j in range(S)
+    ]
+    out = torch.stack(outs, dim=1)               # (B, S, H, hd)
+    return L.dense(out.reshape(B, S, n_heads * hd), p["wo"], cfg)
+
+
+def paged_chunk_prefill_attention(*args, **kwargs) -> torch.Tensor:
+    """Chunk-prefill attention: one chunk of each row's prompt at cache
+    positions ``cur_len + j``, reading the already-written prefix through
+    the block table.  This IS ``paged_verify_attention``: write the chunk's
+    K/V through the table first (sentinel-tail entries of a partly filled
+    table send those writes to the trash block), then attend each position
+    at its own horizon.  Padding positions past a row's real chunk length
+    write K/V inside the row's own blocks only, at positions the next
+    chunk or decode overwrites before any horizon reaches them."""
+    return paged_verify_attention(*args, **kwargs)

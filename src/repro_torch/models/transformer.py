@@ -1,14 +1,15 @@
 """Dense decoder stack (pre-RMSNorm GQA + SwiGLU FFN): the training and
-prefill forward, and one-token decode on the slot layout (a per-row
-``max_len`` stripe) and on the paged pool.
+prefill forward, one-token decode on the slot layout (a per-row
+``max_len`` stripe) and on the paged pool, and the multi-token pass over
+the paged pool (speculative verification, chunked prefill).
 
 Parameters are a dict with the JAX package's tree shape: layer weights are
 stacked on a leading layer axis under ``params["layers"]`` and the loop
 below walks them (the JAX package scans them).  Under autograd with
 ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, as the JAX
 package wraps its scan body in ``jax.checkpoint``.  Both decode steps
-update their cache in place and return the logits only (the JAX package
-returns a new cache).
+and the multi-token pass update their cache in place and return the
+logits only (the JAX package returns a new cache).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (
     decode_attention,
     paged_decode_attention,
+    paged_verify_attention,
     seed_kv_cache,
     self_attention,
 )
@@ -38,6 +40,8 @@ __all__ = [
     "cache_max_len",
     "init_paged_cache",
     "paged_decode_step",
+    "paged_verify_step",
+    "paged_chunk_prefill_step",
     "params_to",
 ]
 
@@ -254,6 +258,86 @@ def paged_decode_step(
     return _head(cfg, params, x)
 
 
+# ---------------------------------------------------------------------------
+# Multi-token paged pass: speculative verification and chunked prefill
+# ---------------------------------------------------------------------------
+
+
+def _norm_per_position(x, gamma):
+    """``rms_norm`` of each position's (B, 1, d) slice.  A CUDA reduction
+    picks its thread layout from the number of rows it reduces, so one norm
+    over B*S rows would sum each row in another order than a decode step's
+    norm over B rows; S norms of B rows keep the multi-token pass
+    bit-identical to S decode steps."""
+    return torch.cat([L.rms_norm(x[:, j:j + 1], gamma) for j in range(x.shape[1])], dim=1)
+
+
+def paged_verify_step(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,               # (B, S)
+    cur_len: torch.Tensor,              # (B,) position of the first token
+    block_tables: torch.Tensor,         # (B, W) int32
+    *,
+    block_size: int,
+) -> torch.Tensor:
+    """Score ``S`` consecutive tokens per row against the paged pool in one
+    pass: row ``b``'s token ``j`` sits at position ``cur_len[b] + j``.
+    Returns logits (B, S, Vp) float32: ``logits[:, j]`` is what a
+    sequential ``paged_decode_step(attn_impl="gather")`` at ``cur_len + j``
+    would give, bit for bit where the projections are (per-row activation
+    scales, or float matmuls that do not depend on the row count), and the
+    pool holds this pass's K/V at ``[cur_len, cur_len + S)``, written in
+    place.  Projections run batched over the S positions; norms and
+    attention run per position (``paged_verify_attention``).
+
+    Dense family only: MoE routing is capacity-coupled across the token
+    batch, so a (B*S)-token pass would route differently than B sequential
+    single-token steps."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "moe routing is capacity-coupled across the token batch — a "
+            "batched verify pass routes differently than sequential decode, "
+            "breaking the speculative acceptance contract"
+        )
+    _dense_family_only(cfg, "paged_verify_step")
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    a = cfg.approx
+    for i, layer in enumerate(_layers(params["layers"], cfg.num_layers)):
+        h = paged_verify_attention(
+            _norm_per_position(x, layer["ln1"]), layer["attn"],
+            cache["k"][i], cache["v"][i], block_tables, cur_len,
+            block_size=block_size, n_heads=cfg.num_heads,
+            n_kv=cfg.num_kv_heads, cfg=a, rope_theta=cfg.rope_theta,
+        )
+        x = x + h
+        x = x + _ffn(_norm_per_position(x, layer["ln2"]), layer["ffn"], a)
+    return _head(cfg, params, x, norm=_norm_per_position)
+
+
+def paged_chunk_prefill_step(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,               # (B, C) one chunk of each prompt
+    prefill_pos: torch.Tensor,          # (B,) tokens already prefilled
+    block_tables: torch.Tensor,         # (B, W) int32, sentinel-tailed
+    *,
+    block_size: int,
+) -> torch.Tensor:
+    """Teacher-force one (B, C) chunk of each row's prompt into the pool at
+    positions ``[prefill_pos, prefill_pos + C)``, reading the prefix
+    already written through the block table.  This IS ``paged_verify_step``:
+    table entries covering ``[0, prefill_pos + C)`` must name real blocks,
+    tail entries may still be the sentinel (their writes land in the trash
+    block and no horizon reaches them), so N chunks write the pool and
+    give the logits of one pass over the whole prompt, bit for bit.  The
+    same family gates as the verify pass."""
+    return paged_verify_step(cfg, params, cache, tokens, prefill_pos, block_tables,
+                             block_size=block_size)
+
+
 def _mask_pad(cfg: ModelConfig, logits):
     """-1e30 on padded vocab columns (additive, in the logits' dtype)."""
     V, Vp = cfg.vocab_size, cfg.padded_vocab
@@ -263,8 +347,8 @@ def _mask_pad(cfg: ModelConfig, logits):
     return logits + neg.to(logits.dtype)
 
 
-def _head(cfg: ModelConfig, params, x):
-    x = L.rms_norm(x, params["final_norm"])
+def _head(cfg: ModelConfig, params, x, norm=L.rms_norm):
+    x = norm(x, params["final_norm"])
     return _mask_pad(cfg, L.dense(x, params["lm_head"], cfg.approx)).to(torch.float32)
 
 

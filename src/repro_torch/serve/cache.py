@@ -18,6 +18,9 @@ fixed-width per-slot block table whose unallocated entries hold the
 sentinel ``num_blocks`` — which is also the trash row's index, so a write
 through a sentinel entry lands in the trash and is never read.
 
+Async serve loop: ``merge_admit_carry`` writes an admission batch's first
+tokens and request ids into the device-resident decode carry.
+
 Host-side bookkeeping: ``SlotPool`` (decode-row free list), ``BlockPool``
 (KV-block free list — both min-heaps with O(1) membership) and
 ``PromptBuckets`` (fixed prompt-length buckets).
@@ -38,6 +41,7 @@ __all__ = [
     "scatter_rows",
     "insert_prefill_kv",
     "scatter_prompt_blocks",
+    "merge_admit_carry",
     "PromptBuckets",
     "SlotPool",
     "BlockPool",
@@ -129,6 +133,30 @@ def scatter_prompt_blocks(
     for name, part in (("k", k), ("v", v)):
         full = cache[name]
         full[:, ids] = part.reshape(Lyr, A * nb, block_size, *part.shape[3:]).to(full.dtype)
+
+
+def merge_admit_carry(
+    last_token: torch.Tensor,   # (N,) device-resident decode carry
+    slot_req: torch.Tensor,     # (N,) per-slot request ids (sampling keys)
+    slots: torch.Tensor,        # (A,) distinct slot ids
+    tok0s: torch.Tensor,        # (A,) first sampled tokens (admission output)
+    req_ids: torch.Tensor,      # (A,) request ids
+    valid: torch.Tensor,        # (A,) bool: rows actually admitted
+) -> None:
+    """Scatter an admission batch's first tokens and request ids into the
+    decode carry at rows ``slots``, IN PLACE (the JAX package's op returns
+    new arrays and carries PRNG keys where the port carries the request
+    ids its positional sampling is keyed by).
+
+    The async serve loop keeps the carry on the device between chunks; this
+    merge lets freshly admitted rows join the next chunk without the host
+    ever reading the prefill's outputs.  ``slots`` must hold distinct ids
+    (the session pads its acquired slots with distinct unused ones); rows
+    with ``valid == False`` rewrite the values they gathered, an exact
+    no-op, so one admission width merges any number <= A of requests."""
+    idx = slots.long()
+    last_token[idx] = torch.where(valid, tok0s.to(last_token.dtype), last_token[idx])
+    slot_req[idx] = torch.where(valid, req_ids.to(slot_req.dtype), slot_req[idx])
 
 
 class PromptBuckets:

@@ -76,7 +76,8 @@ def test_greedy_tokens_match_jax_session_approx_kernels():
     trace = _trace(3)
     jsess = JServeSession(jcfg, jp, cache_layout="paged", loop="sync", attn_impl="pallas",
                           policy="fifo", **KW)
-    tsess = ServeSession(tcfg, tp, attn_impl="kernel", policy="fifo", device="cpu", **KW)
+    tsess = ServeSession(tcfg, tp, attn_impl="kernel", policy="fifo", loop="sync",
+                         device="cpu", **KW)
     _assert_same_results(_run(jsess, trace), _run(tsess, trace), trace)
     for f in ("ticks", "admitted", "completed", "generated_tokens", "admit_calls",
               "peak_active", "peak_blocks_in_use", "prefill_tokens", "busy_slot_steps"):
@@ -119,7 +120,7 @@ def test_admission_policies_and_eos_match_jax(policy):
     eos = int(next(r.tokens[1] for r in free_run.values() if len(r.tokens) > 2))
     jsess = JServeSession(jcfg, jp, cache_layout="paged", loop="sync", attn_impl="gather",
                           policy=policy, sampling=JSampling(eos_id=eos), **kw)
-    tsess = ServeSession(tcfg, tp, attn_impl="gather", policy=policy,
+    tsess = ServeSession(tcfg, tp, attn_impl="gather", policy=policy, loop="sync",
                          sampling=SamplingConfig(eos_id=eos), device="cpu", **kw)
     tres = _run(tsess, trace)
     _assert_same_results(_run(jsess, trace), tres, trace)

@@ -52,8 +52,8 @@ def _pair(mode, per_row=False, eos=-1, **kw):
     kw = {**SKW, **kw}
     jsess = JServeSession(jcfg, jp, cache_layout="slots", loop="sync",
                           sampling=JSampling(eos_id=eos), **kw)
-    tsess = ServeSession(tcfg, tp, cache_layout="slots", sampling=SamplingConfig(eos_id=eos),
-                         device="cpu", **kw)
+    tsess = ServeSession(tcfg, tp, cache_layout="slots", loop="sync",
+                         sampling=SamplingConfig(eos_id=eos), device="cpu", **kw)
     return jsess, tsess
 
 
