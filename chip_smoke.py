@@ -22,10 +22,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K2      paged_attention (CUDA) within 1e-4 of its plain version at the
            served shapes (H 32, Hkv 8, hd 64, block 16) and the test shapes,
            with sentinel holes, all-sentinel rows, cur_len on a block
-           boundary and cur_len past the table, each on a float32 and on a
+           boundary, cur_len past the table and rows sharing their leading
+           blocks (prefix sharing), each on a float32 and on a
            bfloat16 pool and each with a float32 and a bfloat16 query (the
            bf16-query output within 1e-4 plus bf16 rounding, and bit-equal
-           to the f32 result rounded to bf16); then one served decode step
+           to the f32 result rounded to bf16); one decode step
+           (``paged_decode_attention``) over shared blocks through K2
+           within 1e-4 of the gather's, writing only each row's cur_len
+           slot; then one served decode step
            (40 calls, bf16 q as served) and one call at 4,096 positions
            (W = 256), each on both pool dtypes, every call checked the
            same way, then timed by CUDA events and by the profiler's device
@@ -116,6 +120,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
            the sync loop (run again), async, async x4 and the ratio run, and
            with --profile a steady async tick beside phase 4's sync tick.
 
+11. share  prefix sharing, preemption and self-speculative decoding at full
+           width (the weights re-created from the seed), served async on 4
+           slots of 16-row blocks through K1 and K2: (a) 8 requests sharing
+           a 64-token system prompt (tails of 8-40, 16-24 new) with and
+           without ``prefix_sharing``: >= 28 prefix-hit blocks, fewer peak
+           blocks, a clean drained pool, each hit block's K/V bit-equal to
+           the request's own prefill in the unshared run, tokens bit-equal
+           to the unshared run's; then 3 identical 72-token prompts: >= 1
+           copy-on-write fork, tokens identical to each other and to the
+           unshared run; (b) phase 4's first 4 requests with
+           ``preemption`` in a pool above every single worst case that
+           admits two prompts but not two worst cases: >= 1 preemption, a
+           higher peak concurrency than the reservation in the same pool
+           (run 4 layers deep: its admissions do not depend on the depth),
+           each victim's tokens before its eviction bit-equal to an
+           unstarved run's and after each replay to a fresh session
+           admitted with the replay prompt, and whether its whole stream
+           equals the unstarved run's (else the first divergence and its
+           logit gap in ``forward``); (c) ``spec_decode`` with an
+           ``exact_quant`` per-row verifier and a mul8x8_2 draft through K1
+           and K2 (draft_k 4) on phase 4's trace, async (the sync loop on
+           its first request, 8 new tokens): tokens bit-equal to the
+           non-speculative ``exact_quant`` session through the gather,
+           accept rate, tokens per verify and tok/s beside that session's;
+           the self-test (the verifier's own mode drafting, 20 new tokens
+           on the first 2 requests) through the gather at accept rate 1.0,
+           and through K2 printed; one ``dynamic_draft_k`` run (first
+           request); the accept rates of mul8x8_1/2/3 drafts on the first
+           2 requests 4 layers deep.  Every spec run's tokens are
+           bit-equal to the non-spec session's.  K1's and K2's counts are
+           zeroed just before each feature session (sharing on, the shared
+           copy-on-write run, the preemption run, each spec run) and read
+           just after; each session must launch the kernels its path runs
+           (the self-test drafts without K1, through the gather without
+           K2), and the sums are the paths' launches.  The baselines and
+           oracles are not counted.
+
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
 replay a subset of the trace.  The weights are random, from ``--seed``.
@@ -171,6 +212,15 @@ K3_DESIGNS = ("mul8x8_1", "mul8x8_2", "mul8x8_3")
 K3_TIMED_N = 1 << 26                 # 64 M elements
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 3
 ORACLE_LAYERS = 4
+SYSTEM_PROMPT = 64                   # phase 11's shared system prompt: 4 blocks
+COW_PROMPT = 72                      # phase 11's identical prompts, ending in a partial block
+PREEMPT_REQUESTS = 4                 # phase 11's preemption trace: phase 4's first requests
+PREEMPT_BUCKETS = BUCKETS + (256,)   # ... whose replay prompts reach 159 tokens
+PREEMPT_MAX_LEN = 256
+DRAFT_K = 4
+SELF_TEST_NEW = 20                   # a multiple of DRAFT_K + 1
+SPEC_SYNC_NEW = 8                    # the sync spec run: the first request, cut to 8 new
+SPEC_SHORT = 2                       # phase 11's shorter spec runs: the trace's first 2
 PAPER_BATCH, PAPER_TEST = 64, 256     # Table VIII's training and test batches
 RESNET_STEPS = 3
 
@@ -429,6 +479,54 @@ def k2_check(name, args, bs, zero_rows=()):
     return err, err16
 
 
+def shared_table(rng, dev, B, W, bs, nb):
+    """Prefix sharing: every row's table names the same W - 1 leading
+    physical blocks and a tail block of its own, with cur_len at a random
+    offset of its tail; (table, cur_len) on the card."""
+    perm = rng.permutation(nb)
+    tbl = np.empty((B, W), np.int32)
+    tbl[:, :W - 1] = perm[:W - 1]
+    tbl[:, W - 1] = perm[W - 1:W - 1 + B]
+    cur = (W - 1) * bs + rng.integers(0, bs, B)
+    as_i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)
+    return as_i32(tbl), as_i32(cur)
+
+
+def shared_step_check(cfg, dev, rng):
+    """One paged decode step through K2 (``paged_decode_attention``, float
+    projections at the served head shape) over rows sharing their leading
+    blocks: within K2_TOL of the step through the gather, and the step
+    writes each row's cur_len slot and nothing else — the shared blocks'
+    bytes are unchanged."""
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.models.attention import paged_decode_attention
+
+    B, W, hkv, hd = NUM_SLOTS, MAX_LEN // BLOCK_SIZE, cfg.num_kv_heads, cfg.head_dim
+    H, d, nb = cfg.num_heads, 256, NUM_SLOTS * W
+    g = torch.Generator(device=dev).manual_seed(11)
+    w = lambda *s: torch.randn(*s, generator=g, device=dev) / math.sqrt(s[0])
+    p = {"wq": w(d, H * hd), "wk": w(d, hkv * hd), "wv": w(d, hkv * hd), "wo": w(H * hd, d)}
+    x = torch.randn(B, 1, d, generator=g, device=dev)
+    tbl, cur = shared_table(rng, dev, B, W, BLOCK_SIZE, nb)
+    before = [torch.randn(nb + 1, BLOCK_SIZE, hkv, hd, generator=g, device=dev) for _ in "kv"]
+    pools = {impl: [t.clone() for t in before] for impl in ("kernel", "gather")}
+    with torch.no_grad():
+        outs = {impl: paged_decode_attention(x, p, *pools[impl], tbl, cur, block_size=BLOCK_SIZE,
+                                             n_heads=H, n_kv=hkv, cfg=ApproxConfig(mode="float"),
+                                             attn_impl=impl) for impl in pools}
+    err = (outs["kernel"] - outs["gather"]).abs().max().item()
+    written = torch.zeros(nb + 1, BLOCK_SIZE, dtype=torch.bool, device=dev)
+    written[tbl[:, W - 1].long(), (cur % BLOCK_SIZE).long()] = True
+    same_pools = all(torch.equal(a, b) for a, b in zip(*pools.values()))
+    only_slots = all(torch.equal((a != b0).any(-1).any(-1), written)
+                     for a, b0 in zip(pools["kernel"], before))
+    log(f"K2 decode step over shared blocks: max abs err {err:.3g} vs the gather's step; "
+        f"pools equal {same_pools}; only each row's cur_len slot written {only_slots}")
+    if not (err <= K2_TOL and same_pools and only_slots):
+        raise AssertionError("K2's decode step over shared blocks: "
+                             f"err {err}, pools equal {same_pools}, only slots {only_slots}")
+
+
 def k2_step_inputs(dev, rng, *, calls, B, W, hkv, g, hd, cur, pool_dtype):
     """Operands of ``calls`` K2 calls, each on its own pool (as the layers
     of one decode step are), with a bf16 query as served and rows holding
@@ -533,6 +631,10 @@ def k2_phase(cfg, dev, seed):
             args[6] = torch.as_tensor(Wc * bs + rng.integers(0, bs + 1, B), dtype=torch.int32,
                                       device=dev)
             check(f"{name} {pool} cur_len past the table", args, bs)
+            args = case()
+            args[5], args[6] = shared_table(rng, dev, B, Wc, bs, nb)
+            check(f"{name} {pool} rows sharing leading blocks", args, bs)
+    shared_step_check(cfg, dev, rng)
 
     # one decode step's K2 work (one call per layer on its own pool, rows at
     # served lengths: a quarter to all of the table), and one call at
@@ -1529,6 +1631,318 @@ def async_phase(cfg, dev, seed, trace, phase4, smi, profile_paged=None, profile=
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: share
+# ---------------------------------------------------------------------------
+
+
+def same_tokens(name, got, want):
+    """Raise unless two token streams are equal."""
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: {list(got)} vs {list(want)}")
+
+
+def share_session(cfg, params, dev, seed, **kw):
+    """Phase 11's ``ServeSession``: 4 slots, 16-row blocks, the async loop
+    through K2 unless ``kw`` says otherwise."""
+    from repro_torch.serve import ServeSession
+
+    kw = {"num_slots": NUM_SLOTS, "max_len": MAX_LEN, "prompt_buckets": BUCKETS,
+          "block_size": BLOCK_SIZE, "policy": "fifo", "seed": seed, "device": dev,
+          "loop": "async", "attn_impl": "kernel", **kw}
+    return ServeSession(cfg, params, **kw)
+
+
+def drive(sess, trace, first_id=0):
+    """Serve ``trace`` ((prompt, max_new, arrival), request ids from
+    ``first_id``): the results and the wall seconds of ``run()`` ending in
+    a synchronise."""
+    for i, (p, n, a) in enumerate(trace):
+        sess.submit(p, max_new=n, arrival=a, req_id=first_id + i)
+    t0 = time.perf_counter()
+    res = sess.run()
+    torch.cuda.synchronize()
+    if not sess.drained or len(res) != len(trace):
+        raise AssertionError(f"served {sorted(res)} of {len(trace)} requests")
+    return res, time.perf_counter() - t0
+
+
+def pool_clean(sess):
+    """The drained pool: cache-pinned blocks at refcount 1, every other
+    block free, tables at the sentinel, no reservation, no replay pending."""
+    cached = set(sess._prefix.lru_blocks()) if sess._prefix is not None else set()
+    bad = [b for b in range(sess.num_blocks) if sess.blocks.refcount(b) != (b in cached)]
+    ok = (not bad and sess.blocks.free_count == sess.num_blocks - len(cached)
+          and sess._reserved_total == 0 and not (sess._future != 0).any()
+          and (sess._tables == sess.num_blocks).all() and not any(sess._held)
+          and not sess._preempt_resume)
+    if not ok:
+        raise AssertionError(f"the drained pool is not clean: refcounts off at {bad}, "
+                             f"{sess.blocks.free_count} free of {sess.num_blocks}, "
+                             f"{len(cached)} cached, reserved {sess._reserved_total}")
+    return len(cached)
+
+
+def capture_prefix(sess, nblk):
+    """Copy each admitted request's first ``nblk`` blocks (K and V, every
+    layer) just after its admission, queued behind its prefill: the K/V
+    its table maps there, written by its own prefill or by a sharer's."""
+    kv, inner = {}, sess._admit_many
+
+    def admit(reqs):
+        inner(reqs)
+        for r in reqs:
+            slot = next(s.slot for s in sess._active if s is not None and s.req is r)
+            held = sess._held[slot][:nblk]
+            kv[r.req_id] = torch.stack([torch.stack([sess.cache[n][:, b] for b in held])
+                                        for n in ("k", "v")])
+
+    sess._admit_many = admit
+    return kv
+
+
+def record_preemptions(sess):
+    """(request id, accepted tokens at the eviction) of each preemption:
+    where a victim's stream is cut into the segments phase 11 gates."""
+    log_, inner = [], sess._preempt
+
+    def preempt(state):
+        log_.append((state.req.req_id, len(state.tokens)))
+        inner(state)
+
+    sess._preempt = preempt
+    return log_
+
+
+def share_trace(rng, vocab, n=REQUESTS):
+    """``n`` requests: one SYSTEM_PROMPT-token system prompt, a unique tail
+    of 8-40 tokens each (bucket 128), 16-24 new tokens; arrivals as in
+    phase 4's trace."""
+    system = rng.integers(0, vocab, SYSTEM_PROMPT)
+    return [(np.concatenate([system, rng.integers(0, vocab, int(rng.integers(8, 41)))]),
+             int(rng.integers(16, 25)), 0 if i < 2 else 1 + (i - 2) // 2) for i in range(n)]
+
+
+def share_phase(cfg, dev, seed, trace, smi):
+    """Phase 11: prefix sharing, preemption and self-speculative decoding at
+    full width through K1 and K2 (see the module text); ``trace`` is phase
+    4's."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import freeze_params, resolve_execution_mode
+
+    t_phase = time.perf_counter()
+    params = freeze_params(cfg, init_params(cfg, seed=seed, device=dev))
+    # ORACLE_LAYERS deep, weights from seed + 1 (as phase 9's oracle): the
+    # runs whose reading does not need the full depth
+    cfg4 = dataclasses.replace(cfg, num_layers=ORACLE_LAYERS)
+    params4 = freeze_params(cfg4, init_params(cfg4, seed=seed + 1, device=dev))
+    rng = np.random.default_rng(seed + 11)
+    vocab = cfg.vocab_size
+    out = {"launches": {}, "launches_by_run": {}, "seconds_by_part": {}}
+    t_part = time.perf_counter()
+
+    def counted(path, name, sess, tr, k1=True, k2=True, **kw):
+        """``drive`` one feature session with K1's and K2's counts zeroed
+        just before and read just after: its launches, added to ``path``'s
+        tally.  ``k1``/``k2``: the session must launch that kernel."""
+        approx_matmul.launches = paged_attention.launches = 0
+        res, wall = drive(sess, tr, **kw)
+        n = {"approx_matmul": approx_matmul.launches, "paged_attention": paged_attention.launches}
+        out["launches_by_run"][f"{path}/{name}"] = n
+        tally = out["launches"].setdefault(path, dict.fromkeys(n, 0))
+        for (k, v), need in zip(n.items(), (k1, k2)):
+            tally[k] += v
+            if need and v <= 0:
+                raise AssertionError(f"{k} was never launched by {path}/{name}")
+        return res, wall
+
+    def lap(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds_by_part"][name] = now - t_part
+        t_part = now
+
+    def numbers(sess, res, wall):
+        st = sess.stats
+        gen = sum(len(r.tokens) for r in res.values())
+        return {"tok_per_s": gen / wall, "generated_tokens": gen, "wall_s": wall,
+                "ttft_p50_s": st.ttft_s_p50, "ticks": st.ticks,
+                "peak_blocks_in_use": st.peak_blocks_in_use, "peak_active": st.peak_active}
+
+    # (a) prefix sharing: a common system prompt, without and with sharing
+    nblk = SYSTEM_PROMPT // BLOCK_SIZE
+    strace = share_trace(rng, vocab)
+    plain = share_session(cfg, params, dev, seed)
+    pkv = capture_prefix(plain, nblk)
+    pres, pwall = drive(plain, strace)
+    sess = share_session(cfg, params, dev, seed, prefix_sharing=True)
+    skv = capture_prefix(sess, nblk)
+    res, wall = counted("prefix", "sharing", sess, strace)
+    out["sharing_off"], out["sharing_on"] = numbers(plain, pres, pwall), numbers(sess, res, wall)
+    st = sess.stats
+    a = out["prefix"] = {"prefix_hit_blocks": st.prefix_hit_blocks, "cow_forks": st.cow_forks,
+                         "peak_blocks_in_use": st.peak_blocks_in_use,
+                         "peak_blocks_unshared": plain.stats.peak_blocks_in_use,
+                         "cached_blocks_after_drain": pool_clean(sess)}
+    pool_clean(plain)
+    # each request's first blocks: the K/V its table mapped (a sharer's, on
+    # a hit) against what its own prefill wrote in the unshared run
+    d = max((skv[i] - pkv[i]).abs().max().item() for i in range(len(strace)))
+    a["hit_block_kv_max_abs_diff"], a["kv_max_abs"] = d, max(
+        v.abs().max().item() for v in pkv.values())
+    a["bit_equal"] = all(res[rid].tokens.tolist() == r.tokens.tolist()
+                         for rid, r in pres.items())
+    log(f"[share] (a) prefix sharing ({smi}): {json.dumps(a)}; "
+        f"on {json.dumps(out['sharing_on'])}; off {json.dumps(out['sharing_off'])}")
+    for rid, r in pres.items():
+        same_tokens(f"sharing, request {rid} (hit-block K/V max |d| {d})",
+                    res[rid].tokens.tolist(), r.tokens.tolist())
+    if st.prefix_hit_blocks < (len(strace) - 1) * nblk:
+        raise AssertionError(f"{st.prefix_hit_blocks} prefix-hit blocks < "
+                             f"{(len(strace) - 1) * nblk}")
+    if not st.peak_blocks_in_use < plain.stats.peak_blocks_in_use:
+        raise AssertionError(f"sharing held {st.peak_blocks_in_use} blocks at peak, unshared "
+                             f"{plain.stats.peak_blocks_in_use}")
+    # both runs admit in the same batches, so the bytes agree exactly
+    if d != 0:
+        raise AssertionError(f"a hit block's K/V differs from the request's own prefill by {d} "
+                             f"(max |K/V| {a['kv_max_abs']})")
+    # three identical prompts ending in a partial block: the first decode
+    # write into the shared tail forks a private copy
+    cp = rng.integers(0, vocab, COW_PROMPT)
+    ctrace = [(cp, 16, 0)] * 3
+    cres, _ = drive(share_session(cfg, params, dev, seed), ctrace)
+    s = share_session(cfg, params, dev, seed, prefix_sharing=True)
+    sres, _ = counted("prefix", "cow", s, ctrace)
+    a["cow"] = {"cow_forks": s.stats.cow_forks, "prefix_hit_blocks": s.stats.prefix_hit_blocks}
+    pool_clean(s)
+    log(f"[share] (a) identical {COW_PROMPT}-token prompts: {json.dumps(a['cow'])}")
+    for rid, r in sres.items():
+        same_tokens(f"copy-on-write, request {rid} vs unshared", r.tokens.tolist(),
+                    cres[rid].tokens.tolist())
+        same_tokens(f"copy-on-write, request {rid} vs request 0", r.tokens.tolist(),
+                    sres[0].tokens.tolist())
+    if a["cow"]["cow_forks"] < 1:
+        raise AssertionError(f"copy-on-write: {a['cow']}")
+    del sess, plain, s, skv, pkv
+    lap("prefix")
+
+    # (b) preemption: phase 4's first requests in a pool above every single
+    # worst case that admits two of the prompts but not two worst cases,
+    # against the reservation in the same pool and an unstarved pool
+    btrace = trace[:PREEMPT_REQUESTS]
+    need = sorted(-(-p.size // BLOCK_SIZE) for p, _, _ in btrace)
+    worst = sorted(-(-(p.size + n - 1) // BLOCK_SIZE) for p, n, _ in btrace)
+    starved = max(worst[-1], need[0] + need[1]) + 1
+    if starved >= worst[0] + worst[1]:
+        raise AssertionError(f"no pool starves this trace: needs {need}, worst cases {worst}")
+    kw = dict(max_len=PREEMPT_MAX_LEN, prompt_buckets=PREEMPT_BUCKETS)
+    roomy = share_session(cfg, params, dev, seed, **kw)
+    rres, rwall = drive(roomy, btrace)
+    # the reservation's admissions are the same at any depth (no eos)
+    reserve = share_session(cfg4, params4, dev, seed, num_blocks=starved, **kw)
+    drive(reserve, btrace)
+    pool_clean(reserve)
+    sess = share_session(cfg, params, dev, seed, num_blocks=starved, preemption=True, **kw)
+    events = record_preemptions(sess)
+    res, wall = counted("preempt", "preemption", sess, btrace)
+    pool_clean(sess)
+    b = out["preempt"] = {"num_blocks": starved, "preemptions": sess.stats.preemptions,
+                          "events": events, "peak_active": sess.stats.peak_active,
+                          "peak_active_reservation": reserve.stats.peak_active,
+                          "tok_per_s": numbers(sess, res, wall)["tok_per_s"],
+                          "tok_per_s_roomy": numbers(roomy, rres, rwall)["tok_per_s"],
+                          "victims": {}}
+    if sess.stats.preemptions < 1 or not sess.stats.peak_active > reserve.stats.peak_active:
+        raise AssertionError(f"preemption: {json.dumps(b)}")
+    for rid in sorted({r for r, _ in events}):
+        p, n, _ = btrace[rid]
+        toks, want = res[rid].tokens.tolist(), rres[rid].tokens.tolist()
+        cuts = [k for r, k in events if r == rid]
+        v = b["victims"][rid] = {"preempted_at": cuts}
+        same_tokens(f"request {rid} before its preemption", toks[:cuts[0]], want[:cuts[0]])
+        for j, k in enumerate(cuts):
+            # the replay against a fresh session admitted with its prompt
+            eff = np.concatenate([p, np.asarray(toks[:k], p.dtype)])
+            end = cuts[j + 1] if j + 1 < len(cuts) else n
+            fres, _ = drive(share_session(cfg, params, dev, seed, **kw),
+                            [(eff, n - k, 0)], first_id=rid)
+            same_tokens(f"request {rid} after replay {j}", toks[k:end],
+                        fres[rid].tokens.tolist()[:end - k])
+        v["whole_stream_equal_unpreempted"] = toks == want
+        if toks != want:
+            m = min(len(toks), len(want))
+            v["first_divergence"] = first_divergence(
+                cfg, params, *(torch.as_tensor(np.concatenate([p, t[:m]])[None], device=dev)
+                               for t in (np.asarray(toks), np.asarray(want))), p.size)
+    log(f"[share] (b) preemption ({smi}): {json.dumps(b)}")
+    del roomy, reserve, sess
+    lap("preempt")
+
+    # (c) self-speculative decoding: an integer-exact per-row verifier
+    # (exact_quant) drafting through K1 (approx), against the same verifier
+    # without spec decode, attending through the gather
+    vcfg = dataclasses.replace(cfg, approx=resolve_execution_mode("exact_quant", act_per_row=True))
+    spec = dict(spec_decode=True, draft_k=DRAFT_K, draft_mode="approx")
+    c = out["spec"] = {}
+
+    def oracle_run(name, vc, prm, tr):
+        s = share_session(vc, prm, dev, seed, loop="sync", attn_impl="gather")
+        res, wall = drive(s, tr)
+        c[name] = numbers(s, res, wall)
+        log(f"[share] (c) {name} ({smi}): {json.dumps(c[name])}")
+        return res
+
+    def spec_run(name, tr, oracle, vc=vcfg, prm=params, k1=True, k2=True, **skw):
+        s = share_session(vc, prm, dev, seed, **{**spec, **skw})
+        sres, swall = counted("spec", name, s, tr, k1=k1, k2=k2)
+        st = s.stats
+        row = c[name] = {
+            **numbers(s, sres, swall), "accept_rate": st.accept_rate,
+            "draft_tokens": st.draft_tokens, "accepted_tokens": st.accepted_tokens,
+            "verify_calls": st.verify_calls,
+            "tokens_per_verify": (st.accepted_tokens + st.verify_calls) / st.verify_calls,
+            "draft_k_shrinks": st.draft_k_shrinks, "draft_k_grows": st.draft_k_grows,
+            "draft_k_current": st.draft_k_current}
+        log(f"[share] (c) spec {name} ({smi}): {json.dumps(row)}")
+        # the oracle served the trace's own max_new; compare what both hold
+        for rid, r in sres.items():
+            m = min(len(r.tokens), len(oracle[rid].tokens))
+            same_tokens(f"spec {name}, request {rid} vs the non-spec session",
+                        r.tokens.tolist()[:m], oracle[rid].tokens.tolist()[:m])
+        return row
+
+    oracle = oracle_run("oracle", vcfg, params, trace)
+    spec_run("mul8x8_2_async", trace, oracle, loop="async")
+    spec_run("mul8x8_2_sync", [(p, SPEC_SYNC_NEW, a) for p, _, a in trace[:1]], oracle,
+             loop="sync")
+    # the self-test: the verifier's own mode drafts (with its per-row
+    # scales; no K1), so through the gather every drafted token is
+    # accepted; through K2 a near tie may reject one
+    two = [(p, SELF_TEST_NEW, a) for p, _, a in trace[:2]]
+    for attn in ("gather", "kernel"):
+        row = spec_run(f"self_test_{attn}", two, oracle, k1=False, k2=attn == "kernel",
+                       draft_mode="exact_quant", attn_impl=attn)
+        if attn == "gather" and row["accept_rate"] != 1.0:
+            raise AssertionError(f"the self-test draft accepted {row['accept_rate']} of its tokens")
+    spec_run("dynamic", trace[:1], oracle, dynamic_draft_k=True, draft_window=4)
+    # the paper's ordering of error rates, read end to end on two requests,
+    # ORACLE_LAYERS deep
+    vcfg4 = dataclasses.replace(vcfg, num_layers=ORACLE_LAYERS)
+    oracle4 = oracle_run(f"oracle_{ORACLE_LAYERS}_layers", vcfg4, params4, trace[:SPEC_SHORT])
+    for mult in ("mul8x8_1", "mul8x8_2", "mul8x8_3"):
+        spec_run(f"{mult}_{ORACLE_LAYERS}_layers", trace[:SPEC_SHORT], oracle4, vc=vcfg4,
+                 prm=params4, draft_multiplier=mult)
+    lap("spec")
+    del params, params4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1690,6 +2104,13 @@ def main(argv=None) -> int:
     asy = report["async"]
     log(f"[async] phase 10 took {asy['seconds']:.1f}s")
 
+    # -- 11. share -----------------------------------------------------------
+    report["share"] = share_phase(cfg, dev, args.seed, trace, smi)
+    share = report["share"]["launches"]
+    log(f"[share] phase 11 took {report['share']['seconds']:.1f}s: "
+        f"{json.dumps(report['share']['seconds_by_part'])}; launches by path "
+        f"{json.dumps(share)}, by run {json.dumps(report['share']['launches_by_run'])}")
+
     k3 = report["k3"]
     kernels = [
         {"name": "approx_matmul", "route": "cuda",
@@ -1697,12 +2118,14 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/approx_matmul/kernel.py:85",
          "launches": launches["approx_matmul"] + train["launches"]
          + paper["k1_launches_table_viii"] + slots["k1_launches"]
-         + asy["launches"]["approx_matmul"] + asy["verify"]["k1_launches"],
+         + asy["launches"]["approx_matmul"] + asy["verify"]["k1_launches"]
+         + sum(n["approx_matmul"] for n in share.values()),
          "launches_by_path": {"serve": launches["approx_matmul"], "train": train["launches"],
                               "table_viii": paper["k1_launches_table_viii"],
                               "slots": slots["k1_launches"],
                               "async": asy["launches"]["approx_matmul"],
                               "verify": asy["verify"]["k1_launches"],
+                              **{path: n["approx_matmul"] for path, n in share.items()},
                               "table_viii_by_net": {f"{r['net']}-{r['dataset']}": r["k1_launches"]
                                                     for r in paper["table_viii"]}},
          "max_abs_err": max(k1_err, paper["k1"]["max_abs_err"]),
@@ -1723,9 +2146,11 @@ def main(argv=None) -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:141",
-         "launches": launches["paged_attention"] + asy["launches"]["paged_attention"],
+         "launches": launches["paged_attention"] + asy["launches"]["paged_attention"]
+         + sum(n["paged_attention"] for n in share.values()),
          "launches_by_path": {"serve": launches["paged_attention"],
-                              "async": asy["launches"]["paged_attention"]},
+                              "async": asy["launches"]["paged_attention"],
+                              **{path: n["paged_attention"] for path, n in share.items()}},
          "max_abs_err": k2_err,
          "max_abs_err_bf16_q": k2_err16,
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],

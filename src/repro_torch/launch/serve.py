@@ -12,6 +12,18 @@ mixed-length trace through the continuous-batching ``ServeSession``.
         --engine continuous --cache-layout slots --requests 6
 
 The JAX package's launcher less the flags of the slices not yet ported.
+On the paged layout ``--prefix-sharing`` shares resident prompt blocks
+(copy-on-write), ``--preemption`` oversubscribes the pool and evicts and
+replays a resident request when it runs dry (the buckets then widen to
+cover the longest replay prompt), and ``--spec-decode`` drafts
+``--draft-k`` tokens per tick through ``--draft-mode`` x ``--multiplier``
+and verifies them in one pass (``--dynamic-draft-k`` tunes the window).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --prefix-sharing --preemption --num-blocks 12 --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --exec exact_quant --spec-decode --draft-mode approx --draft-k 4
+
 ``--engine scan`` is ``generate`` (fused prefill, then a loop of decode
 steps over per-row ``max_len`` stripes), ``--engine legacy`` the per-token
 ``greedy_generate_legacy`` loop, and ``--engine continuous`` (the port's
@@ -99,6 +111,37 @@ def main(argv=None):
                     help="decode attention: the CUDA kernel (paged only; the "
                          "paged default), or its plain version (the oracle; "
                          "the slot layout's default)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="paged layout: refcounted copy-on-write prefix "
+                         "sharing — requests whose prompts share leading "
+                         "blocks map them to the same physical blocks")
+    ap.add_argument("--preemption", action="store_true",
+                    help="paged layout: drop the worst-case block "
+                         "reservation and oversubscribe the pool; on "
+                         "exhaustion the least-important resident request "
+                         "is evicted and replayed")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="paged layout: self-speculative decoding — each "
+                         "tick runs --draft-k steps through the "
+                         "approximate draft path, then one verify pass "
+                         "accepts the longest matching prefix")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="spec decode: drafted positions per verify")
+    ap.add_argument("--draft-mode", default="approx", choices=EXECUTION_MODES,
+                    help="spec decode: the draft path's execution mode (the "
+                         "draft multiplier reuses --multiplier; the --exec "
+                         "mode itself is the every-token-accepts self-test)")
+    ap.add_argument("--dynamic-draft-k", action="store_true",
+                    help="spec decode: halve or regrow the draft window on "
+                         "a --draft-k -> 1 ladder around the break-even "
+                         "accept rate 1/--draft-cost-ratio")
+    ap.add_argument("--draft-cost-ratio", type=float, default=4.0,
+                    help="dynamic draft: verify-position cost over "
+                         "draft-step cost; its inverse is the break-even "
+                         "accept rate")
+    ap.add_argument("--draft-window", type=int, default=32,
+                    help="dynamic draft: rolling (drafted, accepted) rows "
+                         "judged before each move")
     ap.add_argument("--policy", default="priority", choices=ADMISSION_POLICIES)
     ap.add_argument("--pad-id", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -119,8 +162,11 @@ def main(argv=None):
     if args.engine != "continuous":
         return _batched(args, cfg, params, sampling, device)
 
+    # preemption replays prompt + accepted tokens through the bucketed
+    # prefill, so the buckets must cover the longest replay prompt too
+    top = args.prompt_len + args.new - 1 if args.preemption else args.prompt_len
     buckets = [8]
-    while buckets[-1] < args.prompt_len:
+    while buckets[-1] < top:
         buckets.append(buckets[-1] * 2)
     max_len = max(args.max_len, buckets[-1] + args.new)
     if args.cache_layout == "paged":
@@ -132,7 +178,12 @@ def main(argv=None):
         policy=args.policy, attn_impl=args.attn_impl, pad_id=args.pad_id,
         cache_layout=args.cache_layout, loop=args.loop, steps_per_tick=args.steps_per_tick,
         prefill_decode_ratio=args.prefill_decode_ratio,
-        prefill_token_budget=args.prefill_token_budget, device=device,
+        prefill_token_budget=args.prefill_token_budget,
+        prefix_sharing=args.prefix_sharing, preemption=args.preemption,
+        spec_decode=args.spec_decode, draft_k=args.draft_k, draft_mode=args.draft_mode,
+        draft_multiplier=args.multiplier, dynamic_draft_k=args.dynamic_draft_k,
+        draft_cost_ratio=args.draft_cost_ratio, draft_window=args.draft_window,
+        device=device,
     )
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -161,6 +212,17 @@ def main(argv=None):
     if args.cache_layout == "paged":
         print(f"  KV pool: {sess.num_blocks} x {args.block_size}-row blocks, peak "
               f"in use {st.peak_blocks_in_use}, attention impl {st.attn_impl}")
+        if args.prefix_sharing or args.preemption:
+            print(f"  sharing: {st.prefix_hit_blocks} prefix-hit blocks, "
+                  f"{st.cow_forks} CoW forks, {st.preemptions} preemptions")
+        if args.spec_decode:
+            print(f"  spec decode: draft {args.draft_mode}/{args.multiplier} "
+                  f"k={args.draft_k}, accept rate {st.accept_rate * 100:.1f}% "
+                  f"({st.accepted_tokens}/{st.draft_tokens} drafted tokens "
+                  f"over {st.verify_calls} verifies)")
+            if args.dynamic_draft_k:
+                print(f"  dynamic draft: k now {st.draft_k_current} "
+                      f"({st.draft_k_shrinks} shrinks, {st.draft_k_grows} grows)")
     else:
         print(f"  KV stripes: {args.num_slots} x {max_len} positions, attention "
               f"impl {st.attn_impl}")

@@ -18,17 +18,24 @@ fixed-width per-slot block table whose unallocated entries hold the
 sentinel ``num_blocks`` — which is also the trash row's index, so a write
 through a sentinel entry lands in the trash and is never read.
 
+Prefix sharing: ``copy_block`` copies one physical block in every layer
+(the copy-on-write fork).
+
 Async serve loop: ``merge_admit_carry`` writes an admission batch's first
-tokens and request ids into the device-resident decode carry.
+tokens and request ids into the device-resident decode carry, and
+``merge_spec_len`` its prompt lengths into the speculative loop's
+device-resident ``cur_len`` carry.
 
 Host-side bookkeeping: ``SlotPool`` (decode-row free list), ``BlockPool``
-(KV-block free list — both min-heaps with O(1) membership) and
-``PromptBuckets`` (fixed prompt-length buckets).
+(refcounted KV-block free list — both min-heaps with O(1) membership),
+``PrefixCache`` (prompt-prefix content -> the physical block holding its
+K/V) and ``PromptBuckets`` (fixed prompt-length buckets).
 """
 from __future__ import annotations
 
 import bisect
 import heapq
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,9 +49,12 @@ __all__ = [
     "insert_prefill_kv",
     "scatter_prompt_blocks",
     "merge_admit_carry",
+    "merge_spec_len",
+    "copy_block",
     "PromptBuckets",
     "SlotPool",
     "BlockPool",
+    "PrefixCache",
 ]
 
 
@@ -159,6 +169,32 @@ def merge_admit_carry(
     slot_req[idx] = torch.where(valid, req_ids.to(slot_req.dtype), slot_req[idx])
 
 
+def merge_spec_len(
+    cur_len: torch.Tensor,      # (N,) device-resident length carry
+    slots: torch.Tensor,        # (A,) distinct slot ids
+    lens: torch.Tensor,         # (A,) admitted prompt lengths
+    valid: torch.Tensor,        # (A,) bool: rows actually admitted
+) -> None:
+    """Scatter an admission batch's prompt lengths into the ``cur_len``
+    carry at rows ``slots``, IN PLACE.  Speculative decoding advances rows
+    by data-dependent accepted counts, so the async serve loop keeps
+    ``cur_len`` on the device beside the decode carry.  Same no-op
+    discipline as ``merge_admit_carry``: rows with ``valid == False``
+    rewrite the values they gathered."""
+    idx = slots.long()
+    cur_len[idx] = torch.where(valid, lens.to(cur_len.dtype), cur_len[idx])
+
+
+def copy_block(cache: Dict[str, torch.Tensor], src: int, dst: int) -> None:
+    """Copy physical block ``src``'s K/V rows, in every layer, to block
+    ``dst`` IN PLACE: the copy-on-write fork.  An indexed device copy on
+    the current stream (the JAX package's is an XLA dynamic update, not a
+    kernel either); Python-int indices keep it free of host-to-device
+    copies."""
+    for a in cache.values():
+        a[:, dst] = a[:, src]
+
+
 class PromptBuckets:
     """Fixed prompt-length buckets: prefill runs at one of a few widths, so
     no request length ever yields a new prefill shape."""
@@ -256,13 +292,130 @@ class SlotPool(_IdPool):
 
 
 class BlockPool(_IdPool):
-    """Free list over ``num_blocks`` physical KV blocks; the sentinel id
-    ``num_blocks`` marks unallocated table entries.  (The JAX package's
-    pool also refcounts blocks for prefix sharing, which arrives with its
-    own slice of the port.)"""
+    """Refcounted free list over ``num_blocks`` physical KV blocks; the
+    sentinel id ``num_blocks`` marks unallocated table entries.
+
+    ``acquire`` hands out a block with refcount 1; ``share`` takes one more
+    reference on a live block (prefix sharing: several block tables, and
+    the session's prefix cache, point at one physical block); ``release``
+    drops one reference and returns the block to the free heap only at
+    zero.  ``free_count`` / ``busy_count`` count physical blocks."""
 
     _what = "block"
 
     def __init__(self, num_blocks: int):
         super().__init__(num_blocks)
         self.num_blocks = num_blocks
+        self._ref: List[int] = [0] * num_blocks
+
+    def refcount(self, i: int) -> int:
+        if not 0 <= i < self._count:
+            raise ValueError(f"block {i} out of range")
+        return self._ref[i]
+
+    def acquire(self) -> Optional[int]:
+        i = super().acquire()
+        if i is not None:
+            self._ref[i] = 1
+        return i
+
+    def share(self, i: int) -> int:
+        """Take one more reference on a live block; returns the new count."""
+        if not 0 <= i < self._count:
+            raise ValueError(f"block {i} out of range")
+        if self._ref[i] < 1:
+            raise ValueError(f"block {i} is free; cannot share")
+        self._ref[i] += 1
+        return self._ref[i]
+
+    def release(self, i: int) -> None:
+        if not 0 <= i < self._count:
+            raise ValueError(f"block {i} out of range")
+        if self._ref[i] < 1:
+            raise ValueError(f"block {i} double-released")
+        self._ref[i] -= 1
+        if self._ref[i] == 0:
+            heapq.heappush(self._heap, i)
+            self._free_set.add(i)
+
+    def _validate_release_many(self, ids: Sequence[int]) -> None:
+        # an id may appear up to its refcount times in one batch
+        mult: Dict[int, int] = {}
+        for i in ids:
+            if not 0 <= i < self._count:
+                raise ValueError(f"block {i} out of range")
+            mult[i] = mult.get(i, 0) + 1
+        for i, n in mult.items():
+            if n > self._ref[i]:
+                raise ValueError(
+                    f"block {i}: batch releases {n} refs but only {self._ref[i]} held"
+                )
+
+
+class PrefixCache:
+    """Host-side map from prompt-prefix content to the physical block that
+    already holds its K/V (copy-on-write prefix sharing).
+
+    The key of a prompt's block ``j`` is ``intern((key of block j-1, the
+    tokens of block j))``, with ``ROOT`` as block 0's parent: interning
+    compares exact token tuples, so two prefixes share a key iff their
+    contents are identical, and keys are content-bound, not block-bound
+    (evicting an entry only un-publishes its block).  The cache never
+    touches the ``BlockPool``: the session takes one pool reference per
+    published block on its behalf and drops it on eviction.  Entries keep
+    LRU order; ``lru_blocks`` lists the eviction candidates."""
+
+    ROOT = -1
+
+    def __init__(self) -> None:
+        self._intern: Dict[Tuple[int, Tuple[int, ...]], int] = {}
+        self._entries: "OrderedDict[int, int]" = OrderedDict()   # key -> block
+        self._by_block: Dict[int, int] = {}                      # block -> key
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def key(self, parent: int, tokens: Sequence[int]) -> int:
+        """The interned key of a block holding ``tokens`` whose predecessor
+        block has key ``parent`` (``ROOT`` for block 0)."""
+        k = (int(parent), tuple(int(t) for t in tokens))
+        kid = self._intern.get(k)
+        if kid is None:
+            kid = len(self._intern)
+            self._intern[k] = kid
+        return kid
+
+    def lookup(self, key_id: int) -> Optional[int]:
+        """The block published under ``key_id`` (now most recently used),
+        else None."""
+        blk = self._entries.get(key_id)
+        if blk is not None:
+            self._entries.move_to_end(key_id)
+        return blk
+
+    def insert(self, key_id: int, block: int) -> None:
+        """Publish ``block`` under ``key_id``; a second publication of
+        either raises."""
+        if key_id in self._entries:
+            raise ValueError(f"prefix key {key_id} already published")
+        if block in self._by_block:
+            raise ValueError(f"block {block} already published")
+        self._entries[key_id] = block
+        self._by_block[block] = key_id
+
+    def holds_block(self, block: int) -> bool:
+        return block in self._by_block
+
+    def drop_block(self, block: int) -> bool:
+        """Un-publish ``block`` (before it mutates, or to reclaim it); True
+        if an entry was dropped, and the caller then releases the cache's
+        pool reference."""
+        kid = self._by_block.pop(block, None)
+        if kid is None:
+            return False
+        del self._entries[kid]
+        return True
+
+    def lru_blocks(self) -> List[int]:
+        """Published blocks, least recently used first (a snapshot)."""
+        return list(self._entries.values())

@@ -23,6 +23,7 @@ this contract within the port only.)
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -43,6 +44,7 @@ __all__ = [
     "EXECUTION_MODES",
     "GenerationState",
     "SamplingConfig",
+    "draft_config",
     "freeze_params",
     "generate",
     "greedy_generate",
@@ -82,6 +84,23 @@ def resolve_execution_mode(
         msr = multiplier if multiplier in MSR_SPECS else "mul8x8_msr4"
         return ApproxConfig(multiplier=msr, mode="kernel", act_per_row=act_per_row)
     raise ValueError(f"execution mode {mode!r} not in {EXECUTION_MODES}")
+
+
+def draft_config(cfg: ModelConfig, draft_mode: str,
+                 multiplier: str = "mul8x8_2") -> ModelConfig:
+    """The self-speculative DRAFT model's config: the verifier's ``cfg``
+    with only ``approx`` swapped for ``draft_mode``'s pipeline.  Draft and
+    verifier share every weight; only the path of the projection matmuls
+    differs (``layers.dense`` reads ``cfg.approx`` per call), so the accept
+    rate a session measures is an end-to-end readout of ``multiplier``'s
+    error rate.  ``draft_mode`` may be any execution mode, the verifier's
+    own included (a self-test: every drafted token is then accepted).  The
+    draft keeps the verifier's ``act_per_row`` (the JAX package's draft
+    always scales per tensor; its verifiers do too, as no JAX entry point
+    serves per-row scales outside its tiers), so a per-row verifier's
+    self-test drafts with the verifier's own arithmetic."""
+    return dataclasses.replace(cfg, approx=resolve_execution_mode(
+        draft_mode, multiplier, act_per_row=cfg.approx.act_per_row))
 
 
 def freeze_params(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:

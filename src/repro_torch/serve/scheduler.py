@@ -5,12 +5,12 @@ sync or an async (double-buffered) host loop.
 from a request queue the moment its occupant finishes (eos or max-token).
 Two cache layouts (``cache_layout=``):
 
-* ``"paged"`` (the port's default): K/V live in a global ``BlockPool`` of
-  fixed-size blocks; each request holds only the blocks its context
-  occupies, recorded in a fixed-width per-slot block table.  Admission
-  reserves each request's worst case (``ceil((prompt_len + max_new - 1) /
-  block_size)`` blocks) against the pool, which makes every mid-decode
-  block append infallible.  Decode attention runs through K2.
+* ``"paged"`` (the port's default): K/V live in a global refcounted
+  ``BlockPool`` of fixed-size blocks; each request holds only the blocks
+  its context occupies, recorded in a fixed-width per-slot block table.
+  Admission reserves each request's worst case (``ceil((prompt_len +
+  max_new - 1) / block_size)`` blocks) against the pool, which makes every
+  mid-decode block append infallible.  Decode attention runs through K2.
 * ``"slots"`` (the JAX package's default): every slot owns a ``max_len``
   KV stripe (``transformer.init_cache``) and decode attends over it with
   the plain ``attention_core``, as the JAX package does.
@@ -45,23 +45,42 @@ resident, so a burst of long prompts cannot starve them: the queue head is
 deferred, never skipped, and ``max_decode_gap_ticks`` stays within
 ``steps_per_tick + ceil(R * steps_per_tick)``.
 
+On the paged layout, three features of the JAX package share the block
+pool's machinery:
+
+* ``prefix_sharing`` — a request's prompt blocks are keyed by content
+  (``cache.PrefixCache``); a block already resident is mapped into the new
+  table and shared (refcounted) instead of prefilled again, and a row
+  about to write a block it shares forks a private copy first
+  (``_cow_guard``, ``cache.copy_block``);
+* ``preemption`` — admission drops the worst-case reservation and admits
+  on the prompt's immediate need; when the pool runs dry the
+  least-important resident row is evicted and later replayed as a longer
+  prompt (prompt + its accepted tokens);
+* ``spec_decode`` — each tick drafts ``draft_k`` tokens per row through
+  the approximate path (``engine.draft_config``: the same weights, only
+  ``cfg.approx`` swapped), then one exact ``paged_verify_step`` accepts
+  each row's longest matching prefix plus a correction token
+  (``_spec_tick``).  ``stats.accept_rate`` reads out the draft
+  multiplier's error rate end to end.
+
 A freed slot keeps decoding its stale carry (last token, ``cur_len``)
 into its own stripe or the trash block, as in the JAX package; under
 per-tensor activation scales those rows flow into every row's
 quantization, so the carry is kept exactly as the JAX session keeps it.
 
-This is the JAX package's ``ServeSession`` less prefix sharing,
-preemption, speculative decoding, quality tiers, chunked prefill and
-meshes, which arrive with later slices of the port.  Greedy tokens are
-the cross-framework contract; temperature sampling follows the port's own
-positional Philox schedule (``serve.engine``), so a request's tokens never
-depend on its slot.
+This is the JAX package's ``ServeSession`` less quality tiers, chunked
+prefill and meshes, which arrive with later slices of the port.  Greedy
+tokens are the cross-framework contract; temperature sampling follows the
+port's own positional Philox schedule (``serve.engine``), so a request's
+tokens never depend on its slot.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import time
+from collections import deque
 from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,10 +95,11 @@ from repro_torch.models.transformer import (
     init_cache,
     init_paged_cache,
     paged_decode_step,
+    paged_verify_step,
     params_to,
 )
 from repro_torch.serve import cache as C
-from repro_torch.serve.engine import SamplingConfig, select_token
+from repro_torch.serve.engine import SamplingConfig, draft_config, select_token
 
 __all__ = [
     "Request",
@@ -140,6 +160,84 @@ def _decode_tick(
         cur_len = cur_len + active
         out.append(toks)
     return torch.stack(out), last_token
+
+
+def _spec_tick(
+    cfg: ModelConfig,
+    draft_cfg: ModelConfig,
+    params,
+    cache: Dict[str, torch.Tensor],
+    last_token: torch.Tensor,          # (N,) int
+    cur_len: torch.Tensor,             # (N,) int: position of last_token
+    active: torch.Tensor,              # (N,) bool
+    slot_req: torch.Tensor,            # (N,) request ids (sampling keys)
+    tables: torch.Tensor,              # (N, W) int32: spec decode is paged-only
+    *,
+    sampling: SamplingConfig,
+    seed: int,
+    draft_k: int,
+    block_size: int,
+    attn_impl: str,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One self-speculative tick, issued without waiting on the device:
+    ``draft_k`` decode steps through the draft path (``draft_cfg``, the
+    verifier's config with only ``approx`` swapped; ``attn_impl`` as the
+    session's decode), then ONE ``paged_verify_step`` over the K+1
+    positions [last token; drafts], accepting per row the longest draft
+    prefix the verifier's own tokens match plus the verifier's token after
+    it, clipped at the first eos.
+
+    The verify pass is bit-equal to K+1 sequential gather decode steps
+    (per-row exact projections; see ``paged_verify_step``) and samples
+    with the positional keys a sequential decode uses, so every accepted
+    token is the non-speculative session's token: the draft decides only
+    how many positions one verify covers.  The draft steps write
+    approximate K/V at ``cur_len .. cur_len + K - 1`` and the verify
+    overwrites ``cur_len .. cur_len + K``; positions past the accept point
+    lie beyond the new ``cur_len`` and are rewritten before any horizon
+    reaches them.
+
+    Returns ``(toks (K+1, N), n_acc (N,), last token, cur_len)``: row b's
+    accepted tokens are ``toks[:n_acc[b], b]`` (1..K+1 for live rows, 0
+    for inactive ones), and the carries advance per row by ``n_acc``."""
+    S = draft_k + 1
+    tok, pos, drafts = last_token, cur_len, []
+    for _ in range(draft_k):
+        logits = paged_decode_step(draft_cfg, params, cache, tok[:, None], pos, tables,
+                                   block_size=block_size, attn_impl=attn_impl)
+        # the draft samples with the verifier's positional keys, so a
+        # perfect draft is accepted whole
+        tok = select_token(logits[:, 0], sampling, seed=seed, req_ids=slot_req,
+                           positions=pos + 1)
+        tok = torch.where(active, tok, torch.zeros_like(tok))
+        drafts.append(tok)
+        pos = pos + active
+    drafts = torch.stack(drafts, dim=1)                           # (N, K)
+    logits = paged_verify_step(cfg, params, cache,
+                               torch.cat([last_token[:, None].to(drafts.dtype), drafts], dim=1),
+                               cur_len, tables, block_size=block_size)
+    N, V = logits.shape[0], logits.shape[-1]
+    offs = torch.arange(S, device=logits.device)
+    # the verifier's token at position cur_len + j + 1, for j = 0..K
+    exact = select_token(logits.reshape(N * S, V), sampling, seed=seed,
+                         req_ids=slot_req.repeat_interleave(S),
+                         positions=(cur_len[:, None] + 1 + offs).reshape(-1)).reshape(N, S)
+    match = (exact[:, :draft_k] == drafts).long()
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1) + 1
+    if sampling.eos_id >= 0:
+        # never emit past the first eos (a sequential decode stops there)
+        is_eos = exact == sampling.eos_id
+        first = torch.where(is_eos.any(dim=1), is_eos.long().argmax(dim=1),
+                            torch.full_like(n_acc, S))
+        n_acc = torch.minimum(n_acc, first + 1)
+    n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
+    toks = torch.where((offs[None, :] < n_acc[:, None]) & active[:, None], exact,
+                       torch.zeros_like(exact))
+    new_last = exact.gather(1, (n_acc - 1).clamp(min=0)[:, None])[:, 0]
+    last_token = torch.where(active, new_last, last_token)
+    max_pos = tables.shape[1] * block_size - 1                    # == max_len - 1
+    cur_len = torch.where(active, torch.clamp(cur_len + n_acc, max=max_pos), cur_len)
+    return toks.T, n_acc, last_token, cur_len
 
 
 class _HostCopy:
@@ -255,6 +353,41 @@ class SchedulerStats:
         "ttft_s_p50": "median time-to-first-token, wall seconds",
         "latency_p50": "median request latency, scheduler ticks",
         "latency_p95": "95th-percentile request latency, scheduler ticks",
+        "prefix_hit_blocks": "prefix sharing: prompt blocks admitted by "
+                             "pointing the block table at an already-"
+                             "resident shared block instead of acquiring "
+                             "and prefill-writing a new one",
+        "cow_forks": "prefix sharing: copy-on-write forks — a request "
+                     "about to write into a block it shares acquired a "
+                     "private copy via copy_block first",
+        "preemptions": "preemption: resident requests evicted to free "
+                       "blocks for another row's append/fork; the victim "
+                       "re-enters the ready queue and replays from its "
+                       "accepted tokens (bit-identical under the "
+                       "positional key schedule)",
+        "draft_tokens": "speculative decoding: tokens proposed by the "
+                        "approximate draft path (draft_k per live row per "
+                        "verify)",
+        "accepted_tokens": "speculative decoding: drafted tokens the exact "
+                           "verifier accepted — excludes the correction "
+                           "token every verify emits, so accepted == "
+                           "drafted means a perfect draft",
+        "verify_calls": "speculative decoding: per-row exact verify "
+                        "passes (one per live row per spec tick)",
+        "accept_rate": "speculative decoding: accepted_tokens / "
+                       "draft_tokens — the live end-to-end readout of the "
+                       "draft multiplier's error rate (0.0 when spec "
+                       "decode is off)",
+        "draft_k_current": "speculative decoding: the draft window the "
+                           "NEXT spec tick will dispatch — equals the "
+                           "configured draft_k unless dynamic_draft_k "
+                           "shrank/regrew it on the rolling accept rate",
+        "draft_k_shrinks": "speculative decoding: times dynamic_draft_k "
+                           "halved the draft window (rolling accept rate "
+                           "below break-even 1/draft_cost_ratio)",
+        "draft_k_grows": "speculative decoding: times dynamic_draft_k "
+                         "re-grew the draft window (rolling accept rate "
+                         "back at/above break-even)",
     }
 
     ticks: int = 0
@@ -277,6 +410,21 @@ class SchedulerStats:
     host_block_s: float = 0.0
     wall_s: float = 0.0
     attn_impl: str = "kernel"
+    prefix_hit_blocks: int = 0
+    cow_forks: int = 0
+    preemptions: int = 0
+    draft_tokens: int = 0
+    accepted_tokens: int = 0
+    verify_calls: int = 0
+    draft_k_current: int = 0
+    draft_k_shrinks: int = 0
+    draft_k_grows: int = 0
+
+    @property
+    def accept_rate(self) -> float:
+        if not self.draft_tokens:
+            return 0.0
+        return self.accepted_tokens / self.draft_tokens
 
     @property
     def slot_utilization(self) -> float:
@@ -327,7 +475,12 @@ class _ActiveSlot:
     # slot and blocks already freed (predictive early turnover: the row's
     # in-flight chunk provably completes it by length)
     released: bool = False
-    # async loop: the admit-time first token is on its way to the host
+    # evicted mid-decode to free blocks for another row: the request is back
+    # in the ready queue and replays from its accepted tokens; every token
+    # this state still has in flight is discarded
+    preempted: bool = False
+    # async loop: the admit-time first token is on its way to the host (a
+    # re-admitted row already holds tokens while it is pending)
     pending_first: bool = False
 
 
@@ -347,6 +500,10 @@ class _Inflight:
     states: List[Optional[_ActiveSlot]]
     work_end: int
     staged: List[torch.Tensor]
+    # speculative chunks: the draft window this chunk was dispatched with
+    # (0 for a decode chunk); ``toks`` then holds (draft_k + 2, N): the
+    # accepted tokens' rows, then each row's accepted count
+    draft_k: int = 0
 
 
 class ServeSession:
@@ -380,6 +537,22 @@ class ServeSession:
     (``ratio * n_active * steps_per_tick``, or a flat budget).
     ``close()`` flushes the in-flight chunk and seals the session: later
     ``submit``/``step``/``run`` raise ``RuntimeError``.
+
+    Paged layout only: ``prefix_sharing`` maps prompt blocks already
+    resident into new tables (refcounted, forked on first write);
+    ``preemption`` admits on the prompt's immediate need and evicts the
+    least-important resident row (highest policy key, then youngest) when
+    the pool runs dry, replaying it later as prompt + accepted tokens.
+    ``spec_decode`` (``steps_per_tick=1``) runs each tick as ``draft_k``
+    draft steps through ``draft_mode`` x ``draft_multiplier`` and one
+    verify pass; ``dynamic_draft_k`` halves or regrows the draft window
+    on the rolling accept rate of the last ``draft_window`` verifies
+    against the break-even ``1 / draft_cost_ratio``.  Accepted tokens equal
+    the non-speculative session's where the verify pass is bit-equal to
+    sequential gather decode (per-row exact projections: ``exact_quant``
+    or ``approx`` with ``act_per_row``, or float on the CPU).  ``tiers``
+    and ``chunked_prefill`` raise ``NotImplementedError`` until their
+    slices of the port arrive.
     """
 
     def __init__(
@@ -404,8 +577,29 @@ class ServeSession:
         cache_dtype: torch.dtype = torch.float32,
         cache_layout: str = "paged",
         zero_on_evict: bool = False,
+        prefix_sharing: bool = False,
+        preemption: bool = False,
+        spec_decode: bool = False,
+        draft_k: int = 4,
+        draft_mode: str = "approx",
+        draft_multiplier: str = "mul8x8_2",
+        dynamic_draft_k: bool = False,
+        draft_cost_ratio: float = 4.0,
+        draft_window: int = 32,
+        tiers: Optional[Sequence[str]] = None,
+        chunked_prefill: bool = False,
         device=None,
     ):
+        if tiers is not None:
+            raise NotImplementedError(
+                "quality tiers and the load shedder arrive with their own slice "
+                "of the port (ROADMAP section 1, item 7)"
+            )
+        if chunked_prefill:
+            raise NotImplementedError(
+                "chunked prefill arrives with its own slice of the port (ROADMAP "
+                "section 1, item 8)"
+            )
         if cache_layout not in CACHE_LAYOUTS:
             raise ValueError(f"cache_layout {cache_layout!r} not in {CACHE_LAYOUTS}")
         if policy not in ADMISSION_POLICIES:
@@ -436,6 +630,43 @@ class ServeSession:
             )
         if steps_per_tick < 1:
             raise ValueError(f"steps_per_tick must be >= 1, got {steps_per_tick}")
+        if (prefix_sharing or preemption) and cache_layout != "paged":
+            raise ValueError(
+                "prefix_sharing/preemption operate on the shared BlockPool — "
+                'they require cache_layout="paged"'
+            )
+        if spec_decode:
+            if cache_layout != "paged":
+                raise ValueError(
+                    "spec_decode verifies drafted positions against the "
+                    'block pool — it requires cache_layout="paged"'
+                )
+            if steps_per_tick != 1:
+                raise ValueError(
+                    "spec_decode replaces the decode chunk with draft_k "
+                    "drafts + one verify per tick — steps_per_tick must "
+                    f"stay 1, got {steps_per_tick}"
+                )
+            if draft_k < 1:
+                raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+            if cfg.family == "moe":
+                raise ValueError(
+                    "spec_decode requires a dense attention family: moe "
+                    "routing is capacity-coupled across the token batch, "
+                    "so a batched verify would route differently than "
+                    "sequential decode and lose the exactness contract"
+                )
+        if dynamic_draft_k:
+            if not spec_decode:
+                raise ValueError("dynamic_draft_k requires spec_decode=True")
+            if draft_cost_ratio <= 1.0:
+                raise ValueError(
+                    "draft_cost_ratio is verify-work / draft-step-work and "
+                    f"must be > 1 (break-even accept rate is its inverse), "
+                    f"got {draft_cost_ratio}"
+                )
+            if draft_window < 1:
+                raise ValueError(f"draft_window must be >= 1, got {draft_window}")
         if cache_layout == "paged":
             if zero_on_evict:
                 raise ValueError(
@@ -464,6 +695,24 @@ class ServeSession:
         self.prefill_token_budget = prefill_token_budget
         self.attn_impl = attn_impl
         self.pad_id = int(pad_id)
+        self.prefix_sharing = bool(prefix_sharing)
+        self.preempt = bool(preemption)
+        self.spec = bool(spec_decode)
+        self.draft_k = int(draft_k)
+        self.dynamic_draft = bool(dynamic_draft_k)
+        self.draft_cost_ratio = float(draft_cost_ratio)
+        self.draft_window = int(draft_window)
+        # the halving ladder draft_k -> 1 that dynamic_draft_k may visit
+        ks = [max(1, self.draft_k)]
+        while ks[-1] > 1:
+            ks.append(ks[-1] // 2)
+        self._draft_ks: Tuple[int, ...] = tuple(ks)
+        self._draft_k_eff = self.draft_k
+        # rolling (drafted, accepted) pairs of the last draft_window live
+        # rows; cleared on every rung change, so each rung is judged on a
+        # full window of its own
+        self._accept_hist: deque = deque(maxlen=self.draft_window)
+        self.draft_cfg = draft_config(cfg, draft_mode, draft_multiplier) if self.spec else None
         self.buckets = C.PromptBuckets(prompt_buckets)
         if self.buckets.max_size > self.max_len:
             raise ValueError(
@@ -487,9 +736,16 @@ class ServeSession:
             self._held: List[List[int]] = [[] for _ in range(num_slots)]
             self._future = np.zeros((num_slots,), np.int64)
             self._reserved_total = 0
+            # prefix sharing: content -> physical block; the session takes
+            # one pool reference per published block on the cache's behalf
+            self._prefix = C.PrefixCache() if self.prefix_sharing else None
         else:
+            self._prefix = None
             self.cache = init_cache(cfg, num_slots, self.max_len, cache_dtype,
                                     device=self.device)
+        # preemption: req_id -> (accepted tokens, first admit tick, ttft
+        # ticks), consumed when the victim is admitted again and replays
+        self._preempt_resume: Dict[int, Tuple[List[int], int, int]] = {}
 
         # decode carry; a freed slot keeps its last values — they still flow
         # through the decode step (and, under per-tensor activation scales,
@@ -501,6 +757,14 @@ class ServeSession:
         self._slot_req = np.zeros((num_slots,), np.int64)   # sampling key per slot
         self._lt_dev = torch.zeros((num_slots,), dtype=torch.int64, device=self.device)
         self._req_dev = torch.zeros((num_slots,), dtype=torch.int64, device=self.device)
+        # speculative async loop: rows advance by accepted counts the host
+        # learns only at harvest, so cur_len joins the device carry
+        # (_cl_dev); the host's _cur_len is then an UPPER bound (each live
+        # row charged draft_k + 1 at dispatch, reconciled at harvest) for
+        # block allocation, and _cl_true the truth through the last
+        # harvested chunk (the copy-on-write guard's lower bound)
+        self._cl_dev = torch.zeros((num_slots,), dtype=torch.int64, device=self.device)
+        self._cl_true = np.zeros((num_slots,), np.int32)
 
         self._active: List[Optional[_ActiveSlot]] = [None] * num_slots
         self._pending: List[Tuple[int, int, Request]] = []   # heap (arrival, seq)
@@ -509,7 +773,8 @@ class ServeSession:
         self._next_id = 0
         self._submit_t: Dict[int, float] = {}
         self.clock = 0
-        self.stats = SchedulerStats(attn_impl=attn_impl)
+        self.stats = SchedulerStats(attn_impl=attn_impl,
+                                    draft_k_current=self.draft_k if self.spec else 0)
         self._completed: Dict[int, CompletedRequest] = {}
         self._just_finished: List[int] = []
         self._last_emit_work = np.zeros((num_slots,), np.int64)
@@ -559,6 +824,24 @@ class ServeSession:
                     f"the pool only has {self.num_blocks} — it could never be "
                     "admitted"
                 )
+            if (self.prefix_sharing and not self.preempt
+                    and prompt.size % self.block_size
+                    and worst + 1 > self.num_blocks):
+                raise ValueError(
+                    f"request {rid}: prefix sharing reserves {worst} + 1 "
+                    "blocks (worst case + the partial tail's potential "
+                    f"copy-on-write fork) but the pool only has "
+                    f"{self.num_blocks} — it could never be admitted"
+                )
+            if self.preempt and prompt.size + max_new - 1 > self.buckets.max_size:
+                raise ValueError(
+                    f"request {rid}: preemption replays prompt + accepted "
+                    f"tokens through the bucketed prefill — its replay "
+                    f"prompt can reach {prompt.size + max_new - 1} tokens, "
+                    f"exceeding the largest prompt bucket "
+                    f"{self.buckets.max_size}; widen the buckets or lower "
+                    "max_new"
+                )
         if req_id is not None and (
             req_id in self._completed
             or any(r.req_id == req_id for _, _, r in self._pending)
@@ -576,9 +859,16 @@ class ServeSession:
             self._push_ready(req)
         return rid
 
-    def _ready_key(self, req: Request) -> int:
+    def _ready_key(self, req: Request, eff_len: Optional[int] = None) -> int:
+        """Admission-order key under the session policy (ties FIFO by
+        submission).  SJF ranks the EFFECTIVE prompt: a preempted request
+        is admitted again by replaying prompt + accepted tokens, so its
+        cost is the replay's bucket (``_pick_victim`` passes the would-be
+        replay length of a resident row the same way)."""
         if self.policy == "sjf":
-            return req.max_new + self.buckets.bucket(req.prompt.size)
+            if eff_len is None:
+                eff_len = int(self._eff_prompt(req).size)
+            return req.max_new + self.buckets.bucket(eff_len)
         if self.policy == "fifo":
             return 0
         return req.priority
@@ -616,6 +906,138 @@ class ServeSession:
         output, never written)."""
         return -(-(prompt_len + max_new - 1) // self.block_size)
 
+    # -- prefix sharing and preemption -----------------------------------------
+
+    def _eff_prompt(self, req: Request) -> np.ndarray:
+        """The prompt an admission prefills: the original prompt, extended
+        by the accepted tokens snapshotted at preemption (the replay; under
+        the positional key schedule its samples are the uninterrupted
+        run's)."""
+        resume = self._preempt_resume.get(req.req_id)
+        if resume is None:
+            return req.prompt
+        return np.concatenate([req.prompt, np.asarray(resume[0], np.int32)]).astype(np.int32)
+
+    def _reclaimable_blocks(self) -> int:
+        """Published blocks held ONLY by the prefix cache (refcount 1):
+        evictable on demand, so admission may count them as free."""
+        if self._prefix is None:
+            return 0
+        return sum(1 for b in self._prefix.lru_blocks() if self.blocks.refcount(b) == 1)
+
+    def _reclaim_cache_block(self) -> bool:
+        """Evict the least recently used cache-only published block back to
+        the free heap; False when every published block is still shared
+        with a resident request."""
+        if self._prefix is None:
+            return False
+        for b in self._prefix.lru_blocks():
+            if self.blocks.refcount(b) == 1:
+                self._prefix.drop_block(b)
+                self.blocks.release(b)              # the cache's own reference
+                return True
+        return False
+
+    def _pick_victim(self, excl_slot: int) -> Optional[_ActiveSlot]:
+        """Preemption victim: the least important resident row — highest
+        policy key (ranked on its replay length), then youngest admission,
+        then highest request id — other than the row that needs the
+        block."""
+        best, best_key = None, None
+        for state in self._active:
+            if (state is None or state.done or state.released or state.preempted
+                    or state.slot == excl_slot):
+                continue
+            key = (self._ready_key(state.req,
+                                   eff_len=state.req.prompt.size + len(state.tokens)),
+                   state.admitted_tick, state.req.req_id)
+            if best_key is None or key > best_key:
+                best, best_key = state, key
+        return best
+
+    def _preempt(self, state: _ActiveSlot) -> None:
+        """Evict ``state`` mid-decode: snapshot its accepted tokens (and its
+        first admission tick and TTFT, so each is counted once) for the
+        replay, free its blocks (shared ones lose one reference; its table
+        row goes to the sentinel, so a chunk still in flight writes through
+        the copy it was dispatched with, ahead of any later owner's writes
+        on the same stream), and queue the request again."""
+        state.preempted = True
+        self._preempt_resume[state.req.req_id] = (list(state.tokens), state.admitted_tick,
+                                                  state.ttft)
+        self._release_resources(state)
+        self._push_ready(state.req)
+        self.stats.preemptions += 1
+
+    def _acquire_block(self, requesting_slot: int) -> int:
+        """One block for ``requesting_slot``: from the free heap, else by
+        reclaiming a cache-only published block, else (preemption on) by
+        evicting other resident rows until one frees.  ``submit`` bounds
+        every worst case by ``num_blocks``, so once every other row is
+        evicted and every cache-only block reclaimed, the pool can fund the
+        request."""
+        b = self.blocks.acquire()
+        if b is not None:
+            return b
+        while self._reclaim_cache_block():
+            b = self.blocks.acquire()
+            if b is not None:
+                return b
+        if not self.preempt:
+            raise AssertionError("block append failed despite reservation")
+        while True:
+            victim = self._pick_victim(requesting_slot)
+            if victim is None:
+                raise AssertionError(
+                    "block pool exhausted with no victim left — submit's "
+                    "worst-case bound should make this unreachable"
+                )
+            self._preempt(victim)
+            while self._reclaim_cache_block():
+                pass
+            b = self.blocks.acquire()
+            if b is not None:
+                return b
+
+    def _admit_block(self) -> int:
+        """One block for an admission row.  Never preempts: admission was
+        gated on free + reclaimable blocks (preemption) or on the
+        reservation, so the free heap and cache reclaim fund it."""
+        b = self.blocks.acquire()
+        while b is None and self._reclaim_cache_block():
+            b = self.blocks.acquire()
+        assert b is not None, "admission admitted an unfundable request"
+        return b
+
+    def _cow_guard(self, slot: int, idx: int) -> None:
+        """Copy-on-write: before a dispatch writes held block ``idx`` of
+        ``slot``, make it private and unpublished.  Its publication goes
+        first (the content is about to diverge from its key); if another
+        row still shares it, this row forks a private copy
+        (``cache.copy_block``, queued on the current stream ahead of the
+        dispatch).  ``_chunk_inputs`` guards every block of the chunk's
+        write span; a private index is a no-op."""
+        held = self._held[slot]
+        if idx >= len(held):
+            return                              # the next write opens a fresh block
+        b = held[idx]
+        if self._prefix is not None and self._prefix.holds_block(b):
+            self._prefix.drop_block(b)
+            self.blocks.release(b)              # the cache's reference
+        if self.blocks.refcount(b) <= 1:
+            return                              # sole owner: write in place
+        nb = self._acquire_block(slot)
+        C.copy_block(self.cache, b, nb)
+        self.blocks.release(b)                  # this row's shared reference
+        held[idx] = nb
+        self._tables[slot, idx] = nb
+        self.stats.cow_forks += 1
+        if not self.preempt:
+            # the fork spends the +1 reserve _admit_many funded for a
+            # shared tail, which keeps appends infallible
+            self._future[slot] -= 1
+            self._reserved_total -= 1
+
     def _admit_width(self, n: int) -> int:
         """Admission rows pad to a power of two (capped at ``num_slots``)."""
         w = 1
@@ -637,26 +1059,45 @@ class ServeSession:
 
     def _pop_admissible(self, budget: float = float("inf")
                         ) -> Tuple[List[Request], float, bool]:
-        """Pop ready requests that fit the free slots, (paged) what the
-        block pool can still promise (``free - reserved``, reserving each
-        one's worst case), and the prefill-token ``budget``.  The queue
-        head blocks admission when it does not fit (no skip-ahead), so
-        policy order holds.  Returns ``(batch, remaining budget, stalled)``,
-        ``stalled`` meaning the head was deferred by the budget alone."""
+        """Pop ready requests that fit the free slots, (paged) the block
+        pool, and the prefill-token ``budget``.  Without preemption a
+        request's worst case (+1 for a shared partial tail's fork under
+        prefix sharing) must fit what the pool can still promise (``free -
+        reserved``, after evicting cache-only blocks) and is reserved on
+        the spot; with preemption its prompt's immediate need must fit the
+        free plus reclaimable blocks.  The queue head blocks admission when
+        it does not fit (no skip-ahead), so policy order holds.  Returns
+        ``(batch, remaining budget, stalled)``, ``stalled`` meaning the head
+        was deferred by the budget alone."""
         batch: List[Request] = []
         stalled = False
+        pending_need = 0
+        reclaimable = (self._reclaimable_blocks()
+                       if self.layout == "paged" and self.preempt else 0)
         while self._ready and len(batch) < self.pool.free_count:
             req = self._ready[0][2]
-            worst = 0
+            eff_len = int(self._eff_prompt(req).size)
+            worst = need = 0
             if self.layout == "paged":
-                worst = self._worst_blocks(req.prompt.size, req.max_new)
-                if worst > self.blocks.free_count - self._reserved_total:
-                    break
-            charge = self.buckets.bucket(req.prompt.size)
+                if self.preempt:
+                    need = -(-eff_len // self.block_size)
+                    if pending_need + need > self.blocks.free_count + reclaimable:
+                        break
+                else:
+                    worst = self._worst_blocks(req.prompt.size, req.max_new)
+                    if self._prefix is not None and eff_len % self.block_size:
+                        worst += 1
+                    while (worst > self.blocks.free_count - self._reserved_total
+                           and self._reclaim_cache_block()):
+                        pass
+                    if worst > self.blocks.free_count - self._reserved_total:
+                        break
+            charge = self.buckets.bucket(eff_len)
             if charge > budget:
                 stalled = True
                 break
             if self.layout == "paged":
+                pending_need += need
                 self._reserved_total += worst
             budget -= charge
             heapq.heappop(self._ready)
@@ -684,24 +1125,31 @@ class ServeSession:
                             req_ids=self._h2d(req_ids), positions=lens)
 
     def _admit_many(self, reqs: List[Request]) -> None:
-        """Admit ``reqs`` with ONE prefill: prompts pad to the batch's largest
+        """Admit ``reqs`` with ONE prefill: effective prompts (a replayed
+        victim's prompt + accepted tokens) pad to the batch's largest
         bucket, rows to the admission width (padding rows: prompt of
         ``pad_id``, length 1).  Paged: each request acquires its prompt's
         blocks, converting that much of its reservation, and the padding
         rows' block ids are all the sentinel, so their writes go to the
-        trash block.  Slots: the padding rows take distinct free slots and
-        rewrite what those hold.  The sync loop then waits for the first
-        tokens; the async loop merges them into the device carry and reads
-        them at the next harvest."""
+        trash block.  Under prefix sharing a rolling-key walk over the
+        prompt's blocks maps each block already published into the table
+        and leaves its block id at the sentinel (the full-shape prefill's
+        writes for that span land in the trash block); a miss acquires,
+        writes and publishes — before the next request of the batch walks,
+        so batch-mates share too.  Slots: the padding rows take distinct
+        free slots and rewrite what those hold.  The sync loop then waits
+        for the first tokens; the async loop merges them into the device
+        carry and reads them at the next harvest."""
         A = self._admit_width(len(reqs))
-        bucket = max(self.buckets.bucket(r.prompt.size) for r in reqs)
+        effs = [self._eff_prompt(r) for r in reqs]
+        bucket = max(self.buckets.bucket(e.size) for e in effs)
         prompts = np.full((A, bucket), self.pad_id, np.int32)
         prompt_lens = np.ones((A,), np.int32)
         req_ids = np.zeros((A,), np.int64)
         row_slot = [self.pool.acquire() for _ in reqs]
         for i, req in enumerate(reqs):
-            prompts[i, :req.prompt.size] = req.prompt
-            prompt_lens[i] = req.prompt.size
+            prompts[i, :effs[i].size] = effs[i]
+            prompt_lens[i] = effs[i].size
             req_ids[i] = req.req_id
         # valid rows -> their acquired slots; padding rows -> distinct other
         # slots, which rewrite what they gather
@@ -712,24 +1160,48 @@ class ServeSession:
             bs = self.block_size
             seat = np.full((A, -(-bucket // bs)), self.num_blocks, np.int32)
             for i, req in enumerate(reqs):
-                slot, plen = row_slot[i], req.prompt.size
+                slot, eff = row_slot[i], effs[i]
+                plen = int(eff.size)
                 ninit = -(-plen // bs)
-                held = [self.blocks.acquire() for _ in range(ninit)]
-                seat[i, :ninit] = held
+                held: List[int] = []
+                parent = C.PrefixCache.ROOT
+                for j in range(ninit):
+                    hit = None
+                    if self._prefix is not None:
+                        parent = self._prefix.key(parent, eff[j * bs:(j + 1) * bs])
+                        hit = self._prefix.lookup(parent)
+                    if hit is not None:
+                        self.blocks.share(hit)
+                        held.append(hit)
+                        self.stats.prefix_hit_blocks += 1
+                        continue
+                    b = self._admit_block()
+                    seat[i, j] = b
+                    held.append(b)
+                    if self._prefix is not None:
+                        self.blocks.share(b)        # the cache's reference
+                        self._prefix.insert(parent, b)
                 self._held[slot] = held
                 self._tables[slot, :] = self.num_blocks
                 self._tables[slot, :ninit] = held
-                self._future[slot] = self._worst_blocks(plen, req.max_new) - ninit
-                self._reserved_total -= ninit      # reservation -> held
+                if not self.preempt:
+                    # a shared partial tail's eventual fork spends one
+                    # reserved block, funded by _pop_admissible's +1
+                    fork_reserve = int(self._prefix is not None and plen % bs != 0)
+                    self._future[slot] = (self._worst_blocks(req.prompt.size, req.max_new)
+                                          - ninit + fork_reserve)
+                    self._reserved_total -= ninit      # reservation -> held
             self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
                                                 self.blocks.busy_count)
         else:
             seat = (self._h2d(slots), self._h2d(valid))
         tok0s = self._prefill(prompts, prompt_lens, req_ids, seat)
         self.stats.admit_calls += 1
+        # each request is charged its own effective bucket (a replay's is
+        # its longer replay prompt's)
         tok_sum = 0
-        for r in reqs:
-            b = self.buckets.bucket(r.prompt.size)
+        for e in effs:
+            b = self.buckets.bucket(e.size)
             self.stats.prefills[b] = self.stats.prefills.get(b, 0) + 1
             tok_sum += b
         self.stats.prefill_tokens += tok_sum
@@ -742,15 +1214,15 @@ class ServeSession:
             valid_d = seat[1] if self.layout == "slots" else self._h2d(valid)
             C.merge_admit_carry(self._lt_dev, self._req_dev, slots_d, tok0s,
                                 self._h2d(req_ids), valid_d)
+            if self.spec:
+                C.merge_spec_len(self._cl_dev, slots_d, self._h2d(prompt_lens), valid_d)
             states = []
             for i, req in enumerate(reqs):
                 slot = row_slot[i]
-                self._cur_len[slot] = int(prompt_lens[i])
+                self._cur_len[slot] = self._cl_true[slot] = int(prompt_lens[i])
                 self._last_emit_work[slot] = self.stats.work_ticks
-                self.stats.admitted += 1
-                state = _ActiveSlot(req, slot, [], self.clock, pending_first=True)
-                state.ttft = self.clock - req.arrival
-                self.stats.ttft_ticks.append(state.ttft)
+                state = self._admitted_state(req, slot, [])
+                state.pending_first = True
                 self._active[slot] = state
                 states.append(state)
             self._pending_tok0.append((states, _HostCopy(tok0s)))
@@ -765,16 +1237,36 @@ class ServeSession:
             self._cur_len[slot] = int(prompt_lens[i])
             self._slot_req[slot] = req.req_id
             self._last_emit_work[slot] = self.stats.work_ticks
-            self.stats.admitted += 1
-            state = _ActiveSlot(req, slot, [tok0], self.clock)
-            state.ttft = self.clock - req.arrival
-            self.stats.ttft_ticks.append(state.ttft)
-            self.stats.ttft_s.append(now - self._submit_t.pop(req.req_id))
+            state = self._admitted_state(req, slot, [tok0])
+            self._first_token_held(req.req_id, now)
             self.stats.generated_tokens += 1
             if len(state.tokens) >= req.max_new or (eos >= 0 and tok0 == eos):
                 self._finish(state, "eos" if (eos >= 0 and tok0 == eos) else "length")
             else:
                 self._active[slot] = state
+
+    def _admitted_state(self, req: Request, slot: int, first: List[int]) -> _ActiveSlot:
+        """The resident state of an admitted request holding ``first``.  A
+        new request counts as admitted and samples its TTFT now; a replayed
+        victim resumes with its accepted tokens, first admission tick and
+        TTFT, each counted once."""
+        resume = self._preempt_resume.pop(req.req_id, None)
+        if resume is not None:
+            state = _ActiveSlot(req, slot, resume[0] + first, resume[1])
+            state.ttft = resume[2]
+            return state
+        self.stats.admitted += 1
+        state = _ActiveSlot(req, slot, first, self.clock)
+        state.ttft = self.clock - req.arrival
+        self.stats.ttft_ticks.append(state.ttft)
+        return state
+
+    def _first_token_held(self, req_id: int, now: float) -> None:
+        """``ttft_s``: a request's first token reached the host (a replay's
+        first token again does not count)."""
+        t = self._submit_t.pop(req_id, None)
+        if t is not None:
+            self.stats.ttft_s.append(now - t)
 
     def _release_resources(self, state: _ActiveSlot) -> None:
         """Free the slot and (paged) every held block and the unused
@@ -814,17 +1306,18 @@ class ServeSession:
         )
 
     def _ensure_blocks(self, slot: int, hi: int) -> None:
-        """Append blocks to ``slot``'s table until it covers position ``hi``;
-        the admission reservation makes the acquire infallible."""
+        """Append blocks to ``slot``'s table until it covers position
+        ``hi``.  Without preemption the admission reservation makes the
+        append infallible; with it, ``_acquire_block`` reclaims published
+        blocks and evicts other rows until the pool funds it."""
         held = self._held[slot]
         while len(held) * self.block_size <= hi:
-            b = self.blocks.acquire()
-            if b is None:
-                raise AssertionError("block append failed despite reservation")
+            b = self._acquire_block(slot)
             self._tables[slot, len(held)] = b
             held.append(b)
-            self._future[slot] -= 1
-            self._reserved_total -= 1
+            if not self.preempt:
+                self._future[slot] -= 1
+                self._reserved_total -= 1
 
     # -- stepping ------------------------------------------------------------
 
@@ -863,19 +1356,34 @@ class ServeSession:
     def _chunk_inputs(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """The active-row mask and (paged) this chunk's block tables, grown
         to cover every position the chunk could write an ACCEPTED token to
-        (``cur_len + steps_per_tick - 1``; overshoot past ``max_new``
-        targets sentinel entries and lands in the trash block)."""
-        active = np.asarray([s is not None for s in self._active], bool)
+        (a decode chunk's last lands at ``cur_len + steps_per_tick - 1``, a
+        speculative tick's verify writes through ``cur_len + draft_k``;
+        overshoot past ``max_new`` targets sentinel entries and lands in
+        the trash block).  Under prefix sharing every block of the write
+        span is made private first (``_cow_guard``): K2 and the verify pass
+        write the pool in place, so a shared block written here would
+        corrupt its sharers.  A speculative async chunk may write anywhere
+        from the last harvested length ``_cl_true`` on.  Forks and appends
+        may preempt other rows (preemption on); the mask is taken after
+        them, and a victim's table row is already the sentinel."""
         if self.layout != "paged":
-            return active, None
+            return np.asarray([s is not None for s in self._active], bool), None
+        span = self._draft_k_eff if self.spec else self.steps_per_tick - 1
+        bs = self.block_size
         for slot, state in enumerate(self._active):
             if state is None:
                 continue
-            hi = min(int(self._cur_len[slot]) + self.steps_per_tick - 1,
+            hi = min(int(self._cur_len[slot]) + span,
                      state.req.prompt.size + state.req.max_new - 2)
+            if self._prefix is not None:
+                lo = int(self._cl_true[slot] if self.spec and self.loop == "async"
+                         else self._cur_len[slot])
+                for idx in range(lo // bs, hi // bs + 1):
+                    self._cow_guard(slot, idx)
             self._ensure_blocks(slot, hi)
         self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
                                             self.blocks.busy_count)
+        active = np.asarray([s is not None for s in self._active], bool)
         return active, self._tables.copy()
 
     def _dispatch(self, active, tables, last_token, slot_req):
@@ -890,18 +1398,31 @@ class ServeSession:
             attn_impl=self.attn_impl,
         )
 
+    def _dispatch_spec(self, active, tables, last_token, cur_len, slot_req):
+        """Issue one speculative tick at the current draft window; returns
+        (the tick's tokens with each row's accepted count as their last row
+        (draft_k + 2, N), last token, cur_len), on the device."""
+        toks, n_acc, last_token, cur_len = _spec_tick(
+            self.cfg, self.draft_cfg, self.params, self.cache, last_token, cur_len,
+            self._h2d(active), slot_req, self._h2d(tables), sampling=self.sampling,
+            seed=self.seed, draft_k=self._draft_k_eff, block_size=self.block_size,
+            attn_impl=self.attn_impl,
+        )
+        return torch.cat([toks, n_acc[None]]), last_token, cur_len
+
     def _accept_chunk(self, states: List[Optional[_ActiveSlot]], toks: np.ndarray,
                       steps: int, work_end: int) -> None:
         """Accept a fetched chunk's tokens for the rows that were live at its
         dispatch: each row takes tokens until it finishes (eos / max_new)
         and discards the bounded overshoot; rows whose completion was
-        discovered after the dispatch (``state.done``) contribute only idle
-        steps.  Updates the busy/idle accounting and the starvation gauge
+        discovered after the dispatch (``state.done``) and preempted rows
+        (the replay regenerates their tokens) contribute only idle steps.
+        Updates the busy/idle accounting and the starvation gauge
         (``work_end`` is the chunk's position on the work clock)."""
         eos = self.sampling.eos_id
         accepted = 0
         for slot, state in enumerate(states):
-            if state is None or state.done:
+            if state is None or state.done or state.preempted:
                 continue
             # a predictively released row may already have a successor in
             # its slot; leave the successor's emission mark alone
@@ -924,6 +1445,78 @@ class ServeSession:
         self.stats.idle_slot_steps += self.num_slots * steps - accepted
         self.stats.generated_tokens += accepted
 
+    def _accept_spec_chunk(self, states: List[Optional[_ActiveSlot]], toks: np.ndarray,
+                           n_acc: np.ndarray, work_end: int, draft_k: int) -> None:
+        """``_accept_chunk`` for a speculative tick: each live row takes its
+        own ``n_acc`` tokens (1..draft_k+1), finishing on eos / max_new as a
+        sequential decode would.  A tick's capacity is ``num_slots *
+        (draft_k + 1)`` token-slots.  The accept counters count the drafted
+        tokens the verifier kept (``n_acc - 1``, clipped to what the row
+        could still emit, so the end of a request never inflates the
+        readout); ``draft_k`` is the window the tick was dispatched with,
+        and each live row also feeds the rolling window of
+        ``dynamic_draft_k``."""
+        eos = self.sampling.eos_id
+        accepted = 0
+        for slot, state in enumerate(states):
+            if state is None or state.done or state.preempted:
+                continue
+            early = state.released
+            na = int(n_acc[slot])
+            self.stats.verify_calls += 1
+            self.stats.draft_tokens += draft_k
+            emitted = 0
+            for s in range(na):
+                tok = int(toks[s, slot])
+                state.tokens.append(tok)
+                emitted += 1
+                if eos >= 0 and tok == eos:
+                    self._finish(state, "eos")
+                    break
+                if len(state.tokens) >= state.req.max_new:
+                    self._finish(state, "length")
+                    break
+            accepted += emitted
+            kept = max(0, min(na - 1, emitted))
+            self.stats.accepted_tokens += kept
+            if self.dynamic_draft:
+                self._accept_hist.append((draft_k, kept))
+            if not early:
+                gap = int(work_end - self._last_emit_work[slot])
+                self.stats.max_decode_gap_ticks = max(self.stats.max_decode_gap_ticks, gap)
+                self._last_emit_work[slot] = work_end
+        self.stats.busy_slot_steps += accepted
+        self.stats.idle_slot_steps += self.num_slots * (draft_k + 1) - accepted
+        self.stats.generated_tokens += accepted
+        if self.dynamic_draft:
+            self._update_draft_k()
+
+    def _update_draft_k(self) -> None:
+        """The ``dynamic_draft_k`` rule, for the NEXT dispatch.  A drafted
+        token costs ``1 / draft_cost_ratio`` of a verified one, so drafting
+        pays when the accept rate reaches that break-even.  Over a full
+        rolling window of (drafted, accepted) pairs: strictly below it,
+        halve the window (one rung down the ladder); at or above it, grow
+        one rung back.  The window clears on every move, so each rung is
+        judged on a full window of its own ticks."""
+        if len(self._accept_hist) < self.draft_window:
+            return
+        drafted = sum(d for d, _ in self._accept_hist)
+        acc = sum(a for _, a in self._accept_hist)
+        if not drafted:
+            return
+        rate = acc / drafted
+        i = self._draft_ks.index(self._draft_k_eff)
+        if rate < 1.0 / self.draft_cost_ratio and i + 1 < len(self._draft_ks):
+            self._draft_k_eff = self._draft_ks[i + 1]
+            self.stats.draft_k_shrinks += 1
+            self._accept_hist.clear()
+        elif rate >= 1.0 / self.draft_cost_ratio and i > 0:
+            self._draft_k_eff = self._draft_ks[i - 1]
+            self.stats.draft_k_grows += 1
+            self._accept_hist.clear()
+        self.stats.draft_k_current = self._draft_k_eff
+
     def step(self) -> List[CompletedRequest]:
         """Admit what fits (under the interleaving budget), run one decode
         chunk, release finished slots.  Returns the requests completed
@@ -944,8 +1537,8 @@ class ServeSession:
             self.stats.wall_s += time.perf_counter() - t0
 
     def _step_sync(self) -> List[CompletedRequest]:
-        """Dispatch one chunk, block on its tokens, then do every piece of
-        bookkeeping."""
+        """Dispatch one chunk (or speculative tick), block on its tokens,
+        then do every piece of bookkeeping."""
         self._pull_arrivals()
         self._admit_phase()
         if self.n_active == 0:
@@ -955,8 +1548,32 @@ class ServeSession:
             else:
                 self.clock += 1
             return self._drain_finished()
-        steps = self.steps_per_tick
         active, tables = self._chunk_inputs()
+        if self.spec:
+            k = self._draft_k_eff
+            out_d, _, _ = self._dispatch_spec(active, tables, self._h2d(self._last_token),
+                                              self._h2d(self._cur_len),
+                                              self._h2d(self._slot_req))
+            out = self._wait(_HostCopy(out_d))
+            self._staged.clear()
+            toks, n_acc = out[:-1], out[-1]
+            # one tick on the scheduler clock; the device ran draft_k + 1
+            # token-steps' worth of work
+            self.clock += 1
+            self.stats.ticks += 1
+            self.stats.work_ticks += k + 1
+            states = list(self._active)
+            self._accept_spec_chunk(states, toks, n_acc, self.stats.work_ticks, k)
+            for slot, state in enumerate(states):
+                if state is None:
+                    continue
+                # each row advanced by its own accepted count on the device
+                na = int(n_acc[slot])
+                self._cur_len[slot] = min(self._cur_len[slot] + na, self.max_len - 1)
+                if na:
+                    self._last_token[slot] = int(toks[na - 1, slot])
+            return self._drain_finished()
+        steps = self.steps_per_tick
         toks_d, _ = self._dispatch(active, tables, self._h2d(self._last_token),
                                    self._h2d(self._slot_req))
         toks = self._wait(_HostCopy(toks_d))             # (steps, N)
@@ -978,21 +1595,23 @@ class ServeSession:
     def _release_predicted_done(self) -> None:
         """Predictive early slot turnover (async loop): a row whose
         in-flight chunk provably completes it by length — pending first
-        token + accepted tokens + the chunk's steps reach ``max_new``; an
-        eos can only finish it sooner — releases its slot and blocks NOW,
-        so this step's admissions refill the slot without waiting for the
-        harvest.  The successor's prefill and first chunk queue behind the
-        in-flight chunk on the same stream, so the retiring row's last
-        writes land before the successor's prefill overwrites them.  Its
-        tokens still arrive at the next harvest (``_Inflight.states`` holds
-        the state); ``state.released`` keeps the frees exactly-once."""
+        token + accepted tokens + what the chunk surely emits (its steps;
+        1 for a speculative tick) reach ``max_new``; an eos can only finish
+        it sooner — releases its slot and blocks NOW, so this step's
+        admissions refill the slot without waiting for the harvest.  The
+        successor's prefill and first chunk queue behind the in-flight
+        chunk on the same stream, so the retiring row's last writes land
+        before the successor's prefill overwrites them.  Its tokens still
+        arrive at the next harvest (``_Inflight.states`` holds the state);
+        ``state.released`` keeps the frees exactly-once."""
         fl = self._inflight
         if fl is None:
             return
+        min_emit = 1 if fl.draft_k else fl.steps
         for state in fl.states:
             if state is None or state.done or state.released:
                 continue
-            if len(state.tokens) + state.pending_first + fl.steps >= state.req.max_new:
+            if len(state.tokens) + state.pending_first + min_emit >= state.req.max_new:
                 self._release_resources(state)
 
     def _step_async(self) -> List[CompletedRequest]:
@@ -1005,18 +1624,36 @@ class ServeSession:
         self._admit_phase()
         prev, new = self._inflight, None
         if self.n_active:
-            steps = self.steps_per_tick
             active, tables = self._chunk_inputs()
-            toks_d, self._lt_dev = self._dispatch(active, tables, self._lt_dev, self._req_dev)
-            self.clock += steps
-            self.stats.ticks += steps
-            self.stats.work_ticks += steps
-            new = _Inflight(_HostCopy(toks_d), steps, list(self._active),
-                            self.stats.work_ticks, self._staged)
+            if self.spec:
+                # cur_len is a device carry (_cl_dev): rows advance by their
+                # own accepted counts, which the host learns at harvest;
+                # _cur_len meanwhile charges every live row the full
+                # draft_k + 1, an upper bound, which is all block
+                # allocation needs
+                k = self._draft_k_eff
+                out_d, self._lt_dev, self._cl_dev = self._dispatch_spec(
+                    active, tables, self._lt_dev, self._cl_dev, self._req_dev)
+                self.clock += 1
+                self.stats.ticks += 1
+                self.stats.work_ticks += k + 1
+                new = _Inflight(_HostCopy(out_d), 1, list(self._active), self.stats.work_ticks,
+                                self._staged, draft_k=k)
+                advance = k + 1
+            else:
+                steps = self.steps_per_tick
+                toks_d, self._lt_dev = self._dispatch(active, tables, self._lt_dev,
+                                                      self._req_dev)
+                self.clock += steps
+                self.stats.ticks += steps
+                self.stats.work_ticks += steps
+                new = _Inflight(_HostCopy(toks_d), steps, list(self._active),
+                                self.stats.work_ticks, self._staged)
+                advance = steps
             self._staged = []
-            # the device carry advances identically; the clamp matches the
-            # sync loop's post-harvest update
-            self._cur_len = np.minimum(self._cur_len + steps * active,
+            # the device carry advances identically (speculative: at most);
+            # the clamp matches the sync loop's post-harvest update
+            self._cur_len = np.minimum(self._cur_len + advance * active,
                                        self.max_len - 1).astype(np.int32)
         elif prev is None:
             # idle: jump to the next arrival instead of burning empty ticks
@@ -1032,9 +1669,12 @@ class ServeSession:
     def _harvest(self, fl: _Inflight) -> None:
         """Wait for an in-flight chunk's tokens (the device is already on
         the next chunk) and run the deferred bookkeeping: first tokens of
-        the admissions since the previous harvest, then the chunk's tokens
-        for the rows that were live at its dispatch."""
-        toks = self._wait(fl.toks)                        # (steps, N)
+        the admissions since the previous harvest (a row preempted before
+        its first token arrived discards it; the replay samples it again),
+        then the chunk's tokens for the rows that were live at its
+        dispatch.  A speculative chunk first brings the host's length views
+        of the rows it still owns up to their accepted counts."""
+        toks = self._wait(fl.toks)
         pend, self._pending_tok0 = self._pending_tok0, []
         drained = [(states, self._wait(copy)) for states, copy in pend]
         now = time.perf_counter()
@@ -1042,15 +1682,33 @@ class ServeSession:
         for states, tok0s in drained:
             for i, state in enumerate(states):
                 state.pending_first = False
+                if state.preempted:
+                    continue
                 tok0 = int(tok0s[i])
                 state.tokens.append(tok0)
                 self.stats.generated_tokens += 1
-                self.stats.ttft_s.append(now - self._submit_t.pop(state.req.req_id))
+                self._first_token_held(state.req.req_id, now)
                 if len(state.tokens) >= state.req.max_new or (eos >= 0 and tok0 == eos):
                     # discovered one chunk late: the row decoded one garbage
                     # chunk meanwhile (skipped below through state.done)
                     self._finish(state, "eos" if (eos >= 0 and tok0 == eos) else "length")
-        self._accept_chunk(fl.states, toks, fl.steps, fl.work_end)
+        if not fl.draft_k:
+            self._accept_chunk(fl.states, toks, fl.steps, fl.work_end)
+            return
+        toks, n_acc = toks[:-1], toks[-1]
+        for slot, state in enumerate(fl.states):
+            # a finished or preempted row's slot values are set again at its
+            # slot's next admission, which may already have happened
+            if (state is None or state.done or state.preempted
+                    or self._active[slot] is not state):
+                continue
+            self._cl_true[slot] = min(int(self._cl_true[slot]) + int(n_acc[slot]),
+                                      self.max_len - 1)
+            ub = int(self._cl_true[slot])
+            if self._inflight is not None and self._inflight.states[slot] is state:
+                ub += self._inflight.draft_k + 1          # the chunk still in flight
+            self._cur_len[slot] = min(ub, self.max_len - 1)
+        self._accept_spec_chunk(fl.states, toks, n_acc, fl.work_end, fl.draft_k)
 
     def close(self) -> Dict[int, CompletedRequest]:
         """Flush the pipeline (harvest the in-flight chunk and any pending

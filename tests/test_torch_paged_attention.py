@@ -100,6 +100,55 @@ def test_cur_len_on_block_boundary_and_past_table(shape):
     assert np.isfinite(_check(args, bs)).all()
 
 
+def _shared_case(rng, B, W, bs, n_kv, g, hd):
+    """Rows whose tables name the same W - 1 leading physical blocks (a
+    shared prompt prefix) and a tail block each, with cur_len at a random
+    offset of each row's tail."""
+    args = _case(rng, B, W, bs, n_kv, g, hd)
+    perm = rng.permutation(args[3].shape[0])
+    tbl = np.empty((B, W), np.int32)
+    tbl[:, :W - 1] = perm[:W - 1]
+    tbl[:, W - 1] = perm[W - 1:W - 1 + B]
+    args[5] = tbl
+    args[6] = ((W - 1) * bs + rng.integers(0, bs, B)).astype(np.int32)
+    return args
+
+
+@pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rows_sharing_leading_blocks(shape):
+    """Prefix sharing: rows attend the same physical leading blocks through
+    their own tables, and a decode step through K2's route (its plain
+    version here) writes only each row's cur_len slot — the shared blocks'
+    bytes are unchanged, as the gather's step leaves them."""
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.models.attention import paged_decode_attention
+
+    rng = np.random.default_rng(7)
+    B, W, bs, n_kv, g, hd = shape
+    args = _shared_case(rng, B, W, bs, n_kv, g, hd)
+    _check(args, bs)
+    H, d, nb = n_kv * g, 16, args[3].shape[0]
+    w = lambda *s: torch.from_numpy((rng.normal(size=s) / np.sqrt(s[0])).astype(np.float32))
+    p = {"wq": w(d, H * hd), "wk": w(d, n_kv * hd), "wv": w(d, n_kv * hd), "wo": w(H * hd, d)}
+    x = torch.from_numpy(rng.normal(size=(B, 1, d)).astype(np.float32))
+    trash = np.zeros((1,) + args[3].shape[1:], np.float32)
+    pools = {impl: [torch.from_numpy(np.concatenate([a, trash])) for a in args[3:5]]
+             for impl in ("kernel", "gather")}
+    tbl, cur = torch.from_numpy(args[5]), torch.from_numpy(args[6])
+    outs = {impl: paged_decode_attention(x, p, *pools[impl], tbl, cur, block_size=bs,
+                                         n_heads=H, n_kv=n_kv, cfg=ApproxConfig(mode="float"),
+                                         attn_impl=impl)
+            for impl in pools}
+    np.testing.assert_allclose(outs["kernel"].numpy(), outs["gather"].numpy(), **TOL)
+    written = np.zeros((nb + 1, bs), bool)
+    written[args[5][:, W - 1], args[6] % bs] = True
+    for before, k_after, g_after in zip(args[3:5], *pools.values()):
+        assert torch.equal(k_after, g_after)
+        changed = (k_after[:nb].numpy() != before).any(axis=(2, 3))
+        assert np.array_equal(changed, written[:nb])     # each row's slot, nothing else
+        assert not changed[args[5][0, :W - 1]].any()     # the shared blocks
+
+
 def test_wrapper_validates_like_jax():
     rng = np.random.default_rng(0)
     q, kn, vn, kp, vp, tbl, cur = map(torch.from_numpy, _case(rng, 2, 2, 4, 2, 2, 8))

@@ -194,7 +194,7 @@ def test_pools_hand_out_lowest_first_and_release_atomically():
     assert [pool.acquire() for _ in range(3)] == [0, 1, 2]
     pool.release(1)
     assert pool.acquire() == 1 and pool.busy_count == 3
-    with pytest.raises(ValueError, match="double-released"):
+    with pytest.raises(ValueError, match="block 3: batch releases 1 refs but only 0 held"):
         pool.release_many([0, 3])               # 3 is free: nothing is released
     assert pool.free_count == 1
     pool.release_many([2, 0])
