@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: granite-3-2b at full width served (on the paged pool and on
-per-slot stripes) and retrained, and the paper's CNNs (ResNet-19 at full
+per-slot stripes; with prefix sharing, preemption, spec decode, quality
+tiers and chunked prefill) and retrained, and the paper's CNNs (ResNet-19 at full
 width) trained and QAT-retrained, through the hand-written CUDA kernels,
 each held against its plain PyTorch version.
 
@@ -156,6 +157,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (the self-test drafts without K1, through the gather without
            K2), and the sums are the paths' launches.  The baselines and
            oracles are not counted.
+12. tiers  quality tiers with the load shedder, and chunked prefill, at full
+           width (phase 4's model and seed, float weights re-created from
+           the seed: the ``exact`` rung needs them, the quantized rungs
+           quantize them per call), async on 4 slots of 16-row blocks
+           through K1 and K2: (a) the ladder exact / approx / approx_msr
+           (mul8x8_2, so the MSR rung is mul8x8_msr4), 8 requests of 16-64
+           prompt tokens and 8-16 new, rungs round-robin (the last at tier
+           None), 2 arriving per tick: every request's tokens bit-equal to
+           a single-mode session of its rung serving that rung's requests
+           alone, each arriving at the tick the tier session admitted it
+           (so the oracle prefills it in the same batch: on the card the
+           rounding of a prefill follows its rows and bucket, and the exact
+           rung is bf16 float), the sync loop's to the async loop's, the
+           exact rung's session launching no K1; ``active_per_tier`` over
+           the run and tok/s and seconds per tick beside the single-mode
+           sessions'; (b) a burst of 12 such
+           requests at ticks 0-1, all at the best rung, with the shedder
+           (queue depth 4, hold 4, restore fraction 0.5), stepped on after
+           the drain until restored: demotions, restorations, the shed
+           level after every step and each request's effective rung equal
+           to the same session's on the CPU at reduced width (a schedule
+           is shape-only: no eos, and no value reaches it), final level 0,
+           and every request's tokens equal to its effective rung's
+           single-mode session; (c) chunked prefill on frozen codes of the
+           same weights: phase 4's trace and two 300-token prompts (past
+           the largest bucket, 128), chunks of 64, prefill_decode_ratio
+           1.0, max_len 336: async and sync bit-equal; chunks of 32
+           bit-equal for every prompt both sizes chunk (the chunk pass runs
+           per position at a fixed width of 4 rows, so it is
+           chunk-invariant); ``prefill_chunks`` equal to the chunk plan's
+           rows; a request whose prefill is fused in either run (one-shot
+           under 64 tokens; the unchunked session, buckets to 512, max_len
+           544, for all) bit-equal or equal up to a first divergence where
+           the two tokens' logits in ``forward`` lie within NEAR_TIE (the
+           two arithmetics' near tie, printed with the top two logits);
+           the decode gap and phase 4's requests' TTFT chunked and
+           unchunked.  K1's and
+           K2's counts are zeroed just before each feature session (both
+           mixed runs, the burst, the three chunked runs) and read just
+           after; each must launch both.  The oracles, the CPU schedule
+           and the unchunked session are not counted.
 
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
@@ -221,6 +263,14 @@ DRAFT_K = 4
 SELF_TEST_NEW = 20                   # a multiple of DRAFT_K + 1
 SPEC_SYNC_NEW = 8                    # the sync spec run: the first request, cut to 8 new
 SPEC_SHORT = 2                       # phase 11's shorter spec runs: the trace's first 2
+LADDER = ("exact", "approx", "approx_msr")  # phase 12's quality tiers
+TIER_MULTIPLIER = "mul8x8_2"         # ... so the MSR rung is mul8x8_msr4
+TIER_REQUESTS, SHED_REQUESTS = 8, 12
+SHED_DEPTH, SHED_HOLD, SHED_RESTORE = 4, 4, 0.5
+LONG_PROMPT, CHUNK, CHUNK_SMALL = 300, 64, 32  # phase 12's chunked prefill
+CHUNK_MAX_LEN = 336                  # covers a long prompt + 16 new, whole blocks
+WIDE_BUCKETS, WIDE_MAX_LEN = BUCKETS + (256, 512), 544   # the unchunked session's
+NEAR_TIE = 1.0                       # logits; the chunk pass and forward differed by up to 0.645
 PAPER_BATCH, PAPER_TEST = 64, 256     # Table VIII's training and test batches
 RESNET_STEPS = 3
 
@@ -1654,11 +1704,12 @@ def share_session(cfg, params, dev, seed, **kw):
 
 
 def drive(sess, trace, first_id=0):
-    """Serve ``trace`` ((prompt, max_new, arrival), request ids from
-    ``first_id``): the results and the wall seconds of ``run()`` ending in
-    a synchronise."""
-    for i, (p, n, a) in enumerate(trace):
-        sess.submit(p, max_new=n, arrival=a, req_id=first_id + i)
+    """Serve ``trace`` ((prompt, max_new, arrival[, tier]), request ids
+    from ``first_id``): the results and the wall seconds of ``run()``
+    ending in a synchronise."""
+    for i, (p, n, a, *tier) in enumerate(trace):
+        sess.submit(p, max_new=n, arrival=a, req_id=first_id + i,
+                    tier=tier[0] if tier else None)
     t0 = time.perf_counter()
     res = sess.run()
     torch.cuda.synchronize()
@@ -1714,6 +1765,35 @@ def record_preemptions(sess):
     return log_
 
 
+def count_launches(out, path, name, run, k1=True, k2=True):
+    """``run()`` (one feature session's run) with K1's and K2's counts
+    zeroed just before and read just after: its launches, recorded under
+    ``out["launches_by_run"]`` and added to ``path``'s tally in
+    ``out["launches"]``.  ``k1``/``k2``: the run must launch that kernel."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    approx_matmul.launches = paged_attention.launches = 0
+    got = run()
+    n = {"approx_matmul": approx_matmul.launches, "paged_attention": paged_attention.launches}
+    out["launches_by_run"][f"{path}/{name}"] = n
+    tally = out["launches"].setdefault(path, dict.fromkeys(n, 0))
+    for (k, v), need in zip(n.items(), (k1, k2)):
+        tally[k] += v
+        if need and v <= 0:
+            raise AssertionError(f"{k} was never launched by {path}/{name}")
+    return got
+
+
+def session_numbers(sess, res, wall):
+    """The timings and gauges phases 11 and 12 report for one session."""
+    st = sess.stats
+    gen = sum(len(r.tokens) for r in res.values())
+    return {"tok_per_s": gen / wall, "generated_tokens": gen, "wall_s": wall,
+            "ttft_p50_s": st.ttft_s_p50, "ticks": st.ticks, "s_per_tick": wall / max(st.ticks, 1),
+            "peak_blocks_in_use": st.peak_blocks_in_use, "peak_active": st.peak_active}
+
+
 def share_trace(rng, vocab, n=REQUESTS):
     """``n`` requests: one SYSTEM_PROMPT-token system prompt, a unique tail
     of 8-40 tokens each (bucket 128), 16-24 new tokens; arrivals as in
@@ -1727,8 +1807,6 @@ def share_phase(cfg, dev, seed, trace, smi):
     """Phase 11: prefix sharing, preemption and self-speculative decoding at
     full width through K1 and K2 (see the module text); ``trace`` is phase
     4's."""
-    from repro_torch.kernels.approx_matmul import approx_matmul
-    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import freeze_params, resolve_execution_mode
 
@@ -1743,20 +1821,8 @@ def share_phase(cfg, dev, seed, trace, smi):
     out = {"launches": {}, "launches_by_run": {}, "seconds_by_part": {}}
     t_part = time.perf_counter()
 
-    def counted(path, name, sess, tr, k1=True, k2=True, **kw):
-        """``drive`` one feature session with K1's and K2's counts zeroed
-        just before and read just after: its launches, added to ``path``'s
-        tally.  ``k1``/``k2``: the session must launch that kernel."""
-        approx_matmul.launches = paged_attention.launches = 0
-        res, wall = drive(sess, tr, **kw)
-        n = {"approx_matmul": approx_matmul.launches, "paged_attention": paged_attention.launches}
-        out["launches_by_run"][f"{path}/{name}"] = n
-        tally = out["launches"].setdefault(path, dict.fromkeys(n, 0))
-        for (k, v), need in zip(n.items(), (k1, k2)):
-            tally[k] += v
-            if need and v <= 0:
-                raise AssertionError(f"{k} was never launched by {path}/{name}")
-        return res, wall
+    def counted(path, name, sess, tr, k1=True, k2=True):
+        return count_launches(out, path, name, lambda: drive(sess, tr), k1, k2)
 
     def lap(name):
         nonlocal t_part
@@ -1764,12 +1830,7 @@ def share_phase(cfg, dev, seed, trace, smi):
         out["seconds_by_part"][name] = now - t_part
         t_part = now
 
-    def numbers(sess, res, wall):
-        st = sess.stats
-        gen = sum(len(r.tokens) for r in res.values())
-        return {"tok_per_s": gen / wall, "generated_tokens": gen, "wall_s": wall,
-                "ttft_p50_s": st.ttft_s_p50, "ticks": st.ticks,
-                "peak_blocks_in_use": st.peak_blocks_in_use, "peak_active": st.peak_active}
+    numbers = session_numbers
 
     # (a) prefix sharing: a common system prompt, without and with sharing
     nblk = SYSTEM_PROMPT // BLOCK_SIZE
@@ -1937,6 +1998,240 @@ def share_phase(cfg, dev, seed, trace, smi):
                  prm=params4, draft_multiplier=mult)
     lap("spec")
     del params, params4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tiers
+# ---------------------------------------------------------------------------
+
+
+def record_steps(sess, read):
+    """``read(sess)`` after every ``step()`` of ``sess``: the list it fills."""
+    seen, inner = [], sess.step
+
+    def step():
+        out = inner()
+        seen.append(read(sess))
+        return out
+
+    sess.step = step
+    return seen
+
+
+def runs(xs):
+    """[value, repeats] for each run of equal values in ``xs``."""
+    out = []
+    for x in xs:
+        if out and out[-1][0] == x:
+            out[-1][1] += 1
+        else:
+            out.append([x, 1])
+    return out
+
+
+def shed_session(cfg, params, dev, seed, trace):
+    """Phase 12 (b)'s shedding session on ``trace`` ((prompt, max_new,
+    arrival), every request at the best rung), stepped on until the level
+    is restored: (session, results, wall seconds of ``run()``, the shed
+    level after every step)."""
+    sess = share_session(cfg, params, dev, seed, tiers=LADDER, tier_multiplier=TIER_MULTIPLIER,
+                         shed_queue_depth=SHED_DEPTH, shed_hold_steps=SHED_HOLD,
+                         shed_restore_fraction=SHED_RESTORE)
+    levels = record_steps(sess, lambda s: s.stats.shed_level)
+    res, wall = drive(sess, trace)
+    for _ in range(2 * SHED_HOLD * len(LADDER)):     # restoring takes healthy steps
+        sess.step()
+    return sess, res, wall, levels
+
+
+def shed_schedule(sess, res, levels):
+    """What phase 12 (b) holds the card to: shape-only, so the reduced
+    session on the CPU gives it exactly."""
+    st = sess.stats
+    return {"tier_demotions": st.tier_demotions, "tier_restorations": st.tier_restorations,
+            "shed_level": st.shed_level, "tiers": {rid: r.tier for rid, r in sorted(res.items())},
+            "levels": runs(levels), "ticks": st.ticks}
+
+
+def tiers_phase(cfg, dev, seed, trace, smi):
+    """Phase 12: quality tiers with the load shedder, and chunked prefill, at
+    full width through K1 and K2 (see the module text); ``trace`` is phase
+    4's."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.serve import freeze_params, resolve_execution_mode
+
+    t_phase = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)      # float: the exact rung needs them
+    rng = np.random.default_rng(seed + 12)
+    vocab = cfg.vocab_size
+    out = {"launches": {}, "launches_by_run": {}, "seconds_by_part": {}}
+    t_part = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds_by_part"][name] = now - t_part
+        t_part = now
+
+    def counted(path, name, run):
+        return count_launches(out, path, name, run)
+
+    numbers = session_numbers
+
+    def oracles(name, tr, res, loop="async"):
+        """Each rung's requests of ``tr`` served alone by a single-mode
+        session of that rung (uncounted): every token equal to ``res``'s.
+        Each request arrives at the tick the tier session admitted it, so
+        the oracle admits it in the same prefill batch (rows and bucket):
+        on the card the rounding of the exact rung's bf16 GEMMs and of the
+        prefill's attention follows their shapes."""
+        rows = {}
+        for t in LADDER:
+            ids = [rid for rid in sorted(res) if res[rid].tier == t]
+            if not ids:
+                continue
+            k1 = approx_matmul.launches
+            tcfg = dataclasses.replace(cfg, approx=resolve_execution_mode(
+                t, TIER_MULTIPLIER, act_per_row=True))
+            sess = share_session(tcfg, params, dev, seed, loop=loop)
+            for rid in ids:
+                p, n, *_ = tr[rid]
+                sess.submit(p, max_new=n, arrival=res[rid].admitted_tick, req_id=rid)
+            t0 = time.perf_counter()
+            ores = sess.run()
+            torch.cuda.synchronize()
+            rows[t] = {**numbers(sess, ores, time.perf_counter() - t0), "requests": ids,
+                       "k1_launches": approx_matmul.launches - k1}
+            if t == "exact" and rows[t]["k1_launches"]:
+                raise AssertionError(f"the exact rung's oracle launched K1 {rows[t]}")
+            for rid in ids:
+                same_tokens(f"{name}, request {rid} at {t} vs its single-mode session",
+                            res[rid].tokens.tolist(), ores[rid].tokens.tolist())
+        return rows
+
+    # (a) mixed tiers: rungs round-robin, the last request at the best rung
+    atrace = [(rng.integers(0, vocab, int(rng.integers(16, 65))), int(rng.integers(8, 17)),
+               i // 2, None if i == TIER_REQUESTS - 1 else LADDER[i % len(LADDER)])
+              for i in range(TIER_REQUESTS)]
+    a = out["mixed"] = {}
+    mixed = {}
+    for loop in ("async", "sync"):
+        sess = share_session(cfg, params, dev, seed, loop=loop, tiers=LADDER,
+                             tier_multiplier=TIER_MULTIPLIER)
+        per_step = record_steps(sess, lambda s: tuple(s.stats.active_per_tier.values()))
+        res, wall = counted("tiers", f"mixed_{loop}", lambda: drive(sess, atrace))
+        mixed[loop] = res
+        a[loop] = {**numbers(sess, res, wall), "active_per_tier": runs(per_step),
+                   "tiers": {rid: r.tier for rid, r in sorted(res.items())}}
+    for rid, r in mixed["async"].items():
+        same_tokens(f"mixed tiers, request {rid}: sync vs async", mixed["sync"][rid].tokens,
+                    r.tokens)
+        if r.tier != (atrace[rid][3] or LADDER[0]):
+            raise AssertionError(f"request {rid} served at {r.tier}, asked {atrace[rid][3]}")
+    a["oracles"] = oracles("mixed tiers", atrace, mixed["async"])
+    log(f"[tiers] (a) mixed tiers {','.join(LADDER)} ({smi}): {json.dumps(a)}")
+    lap("mixed")
+
+    # (b) the shedder: a burst of requests at the best rung, against its
+    # schedule on the CPU at reduced width (shape-only: no eos, no value
+    # reaches the schedule)
+    btrace = [(rng.integers(0, vocab, int(rng.integers(16, 65))), int(rng.integers(8, 17)),
+               i * 2 // SHED_REQUESTS) for i in range(SHED_REQUESTS)]
+    rcfg = reduced_config(cfg)
+    cpu = torch.device("cpu")
+    rsess, rres, _, rlevels = shed_session(rcfg, init_params(rcfg, seed=seed, device=cpu), cpu,
+                                           seed, [(p % rcfg.vocab_size, n, t) for p, n, t in btrace])
+    ref = shed_schedule(rsess, rres, rlevels)
+    sess, res, wall, levels = counted("shed", "burst",
+                                      lambda: shed_session(cfg, params, dev, seed, btrace))
+    got = shed_schedule(sess, res, levels)
+    b = out["shed"] = {**got, **numbers(sess, res, wall), "cpu_reduced": ref}
+    log(f"[tiers] (b) shedder ({smi}): {json.dumps(b)}")
+    if got != ref or got["shed_level"] != 0 or not got["tier_demotions"]:
+        raise AssertionError(f"the shedder's schedule on the card {got} vs the CPU's {ref}")
+    b["oracles"] = oracles("shed", btrace, res)
+    log(f"[tiers] (b) shedder oracles: {json.dumps(b['oracles'])}")
+    lap("shed")
+
+    # (c) chunked prefill: phase 4's trace and two prompts past the largest
+    # bucket, on frozen codes of the same weights (as phases 4 and 10)
+    fparams = freeze_params(cfg, params)
+    ctrace = list(trace) + [(rng.integers(0, vocab, LONG_PROMPT), 16, 2) for _ in range(2)]
+    ckw = dict(prefill_decode_ratio=1.0, max_len=CHUNK_MAX_LEN)
+    c = out["chunked"] = {}
+    cres = {}
+    for name, loop, chunk in (("async", "async", CHUNK), ("sync", "sync", CHUNK),
+                              (f"chunk_{CHUNK_SMALL}", "async", CHUNK_SMALL)):
+        sess = share_session(cfg, fparams, dev, seed, loop=loop, chunked_prefill=True,
+                             prefill_chunk=chunk, **ckw)
+        res, wall = counted("chunked", name, lambda: drive(sess, ctrace))
+        plan = sum(-(-p.size // chunk) for p, _, _ in ctrace if p.size > chunk)
+        cres[name] = res
+        st = sess.stats
+        c[name] = {**numbers(sess, res, wall), "prefill_chunks": st.prefill_chunks,
+                   "planned_chunks": plan, "max_decode_gap_ticks": st.max_decode_gap_ticks,
+                   "prefills": {str(k): v for k, v in sorted(st.prefills.items())},
+                   "ttft_ticks": {rid: r.ttft for rid, r in sorted(res.items())}}
+        if st.prefill_chunks != plan:
+            raise AssertionError(f"chunked {name}: {st.prefill_chunks} chunk rows, the plan "
+                                 f"has {plan}")
+    sess = share_session(cfg, fparams, dev, seed, prompt_buckets=WIDE_BUCKETS,
+                         **{**ckw, "max_len": WIDE_MAX_LEN})
+    ures, wall = drive(sess, ctrace)
+    st = sess.stats
+    c["unchunked"] = {**numbers(sess, ures, wall), "max_decode_gap_ticks": st.max_decode_gap_ticks,
+                      "ttft_ticks": {rid: r.ttft for rid, r in sorted(ures.items())}}
+    c["near_ties"] = {}
+
+    def near_tie(name, rid, toks, want):
+        """Two arithmetics (the fused prefill, whose rounding follows its
+        admission batch, against the per-position chunk pass): the streams
+        equal up to their first divergence, and there the two tokens'
+        logits in ``forward`` over the common prefix within NEAR_TIE."""
+        if toks == want:
+            return
+        k = next((i for i, (x, y) in enumerate(zip(toks, want)) if x != y), None)
+        if k is None:
+            raise AssertionError(f"{name}, request {rid}: {len(toks)} vs {len(want)} tokens")
+        p = ctrace[rid][0]
+        with torch.no_grad():
+            lg = forward(cfg, fparams, torch.as_tensor(
+                np.concatenate([p, np.asarray(want[:k], p.dtype)])[None], device=dev))[0, -1]
+        top = torch.topk(lg[:vocab], 2)
+        row = c["near_ties"][f"{name}/{rid}"] = {
+            "new_token_index": k, "tokens": [toks[k], want[k]],
+            "logits": [lg[toks[k]].item(), lg[want[k]].item()],
+            "top2": {"tokens": top.indices.tolist(), "logits": top.values.tolist()}}
+        log(f"[tiers] (c) {name}, request {rid} parts at a near tie: {json.dumps(row)}")
+        if abs(row["logits"][0] - row["logits"][1]) > NEAR_TIE:
+            raise AssertionError(f"{name}, request {rid}: not a near tie {row}")
+
+    for rid, r in cres["async"].items():
+        toks = r.tokens.tolist()
+        # gate 1: the loops make the same dispatches
+        same_tokens(f"chunked, request {rid}: sync vs async", cres["sync"][rid].tokens, toks)
+        # gate 2: a prompt both chunk sizes chunk goes through the chunk
+        # pass in both, which is chunk-invariant at its fixed width
+        small = cres[f"chunk_{CHUNK_SMALL}"][rid].tokens.tolist()
+        if ctrace[rid][0].size > CHUNK:
+            same_tokens(f"chunked, request {rid}: chunks of {CHUNK_SMALL} vs {CHUNK}", small, toks)
+        else:
+            near_tie(f"chunks of {CHUNK_SMALL} vs {CHUNK}", rid, small, toks)
+        # gate 3: against the fused prefill of the unchunked session
+        near_tie("chunked vs unchunked", rid, toks, ures[rid].tokens.tolist())
+    short = range(len(trace))                 # all but the two long prompts
+    c["short_ttft_p50_ticks"] = {
+        name: float(np.median([c[name]["ttft_ticks"][rid] for rid in short]))
+        for name in ("async", "unchunked")}
+    log(f"[tiers] (c) chunked prefill ({smi}): {json.dumps(c)}")
+    lap("chunked")
+    del params, fparams, sess
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -2111,6 +2406,15 @@ def main(argv=None) -> int:
         f"{json.dumps(report['share']['seconds_by_part'])}; launches by path "
         f"{json.dumps(share)}, by run {json.dumps(report['share']['launches_by_run'])}")
 
+    # -- 12. tiers -----------------------------------------------------------
+    report["tiers"] = tiers_phase(cfg, dev, args.seed, trace, smi)
+    tiers = report["tiers"]["launches"]
+    log(f"[tiers] phase 12 took {report['tiers']['seconds']:.1f}s: "
+        f"{json.dumps(report['tiers']['seconds_by_part'])}; launches by path "
+        f"{json.dumps(tiers)}, by run {json.dumps(report['tiers']['launches_by_run'])}")
+    # phases 11 and 12 count each feature path's sessions
+    paths = {**share, **tiers}
+
     k3 = report["k3"]
     kernels = [
         {"name": "approx_matmul", "route": "cuda",
@@ -2119,13 +2423,13 @@ def main(argv=None) -> int:
          "launches": launches["approx_matmul"] + train["launches"]
          + paper["k1_launches_table_viii"] + slots["k1_launches"]
          + asy["launches"]["approx_matmul"] + asy["verify"]["k1_launches"]
-         + sum(n["approx_matmul"] for n in share.values()),
+         + sum(n["approx_matmul"] for n in paths.values()),
          "launches_by_path": {"serve": launches["approx_matmul"], "train": train["launches"],
                               "table_viii": paper["k1_launches_table_viii"],
                               "slots": slots["k1_launches"],
                               "async": asy["launches"]["approx_matmul"],
                               "verify": asy["verify"]["k1_launches"],
-                              **{path: n["approx_matmul"] for path, n in share.items()},
+                              **{path: n["approx_matmul"] for path, n in paths.items()},
                               "table_viii_by_net": {f"{r['net']}-{r['dataset']}": r["k1_launches"]
                                                     for r in paper["table_viii"]}},
          "max_abs_err": max(k1_err, paper["k1"]["max_abs_err"]),
@@ -2147,10 +2451,10 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:141",
          "launches": launches["paged_attention"] + asy["launches"]["paged_attention"]
-         + sum(n["paged_attention"] for n in share.values()),
+         + sum(n["paged_attention"] for n in paths.values()),
          "launches_by_path": {"serve": launches["paged_attention"],
                               "async": asy["launches"]["paged_attention"],
-                              **{path: n["paged_attention"] for path, n in share.items()}},
+                              **{path: n["paged_attention"] for path, n in paths.items()}},
          "max_abs_err": k2_err,
          "max_abs_err_bf16_q": k2_err16,
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],

@@ -11,7 +11,8 @@ mixed-length trace through the continuous-batching ``ServeSession``.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --engine continuous --cache-layout slots --requests 6
 
-The JAX package's launcher less the flags of the slices not yet ported.
+The JAX package's launcher less ``--tp``, which arrives with a later slice of
+the port.
 On the paged layout ``--prefix-sharing`` shares resident prompt blocks
 (copy-on-write), ``--preemption`` oversubscribes the pool and evicts and
 replays a resident request when it runs dry (the buckets then widen to
@@ -24,6 +25,21 @@ and verifies them in one pass (``--dynamic-draft-k`` tunes the window).
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --exec exact_quant --spec-decode --draft-mode approx --draft-k 4
 
+``--tiers`` serves a quality ladder (comma-separated execution modes, best
+first, e.g. ``exact,approx_lowrank,approx_msr``): each synthetic request is
+routed to a random rung, and ``--shed-queue-depth`` / ``--shed-gap-ticks``
+arm the load shedder that demotes new admissions down the ladder under
+pressure (``--shed-hold-steps``, ``--shed-restore-fraction``: its
+hysteresis).  ``--chunked-prefill`` splits each prompt longer than
+``--prefill-chunk`` (a bucket; default the largest) into chunks
+interleaved with decode across steps, and admits prompts past the largest
+bucket.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --tiers exact,approx_lowrank,approx_msr --shed-queue-depth 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --chunked-prefill --prefill-chunk 8 --prompt-len 20
+
 ``--engine scan`` is ``generate`` (fused prefill, then a loop of decode
 steps over per-row ``max_len`` stripes), ``--engine legacy`` the per-token
 ``greedy_generate_legacy`` loop, and ``--engine continuous`` (the port's
@@ -34,8 +50,10 @@ sync loop, ``--steps-per-tick`` decode steps per chunk, with
 ``--prefill-decode-ratio`` / ``--prefill-token-budget`` rate-limiting the
 prompt tokens admitted against resident decodes.  The
 weights are random (``init_params`` from ``--seed``) at the registered
-widths and are frozen to uint8 ``QWeight``s for every quantized ``--exec``
-mode.  ``--exec approx`` runs every projection through the CUDA
+widths; ``--freeze-weights`` pre-quantizes them to uint8 ``QWeight``s for
+a quantized ``--exec`` mode (off by default, as in the JAX launcher: each
+projection then quantizes its float weight per call, which a tier ladder
+with an ``exact`` rung needs).  ``--exec approx`` runs every projection through the CUDA
 approximate-matmul kernel and, on the paged layout, ``--attn-impl kernel``
 (its default there) the decode attention through the CUDA paged-attention
 kernel; the slot layout attends with the plain ``attention_core``, as the
@@ -102,6 +120,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--eos-id", type=int, default=-1)
+    ap.add_argument("--freeze-weights", action="store_true",
+                    help="pre-quantize matmul weights to uint8 QWeights")
     ap.add_argument("--num-slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
@@ -142,6 +162,37 @@ def main(argv=None):
     ap.add_argument("--draft-window", type=int, default=32,
                     help="dynamic draft: rolling (drafted, accepted) rows "
                          "judged before each move")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="paged layout: split each prompt's prefill into "
+                         "--prefill-chunk-wide chunks dispatched across "
+                         "successive steps and interleaved with decode "
+                         "under the prefill budget — a long prompt then "
+                         "stalls decode by at most one chunk, not one "
+                         "prompt bucket")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: chunk width (must be one of the "
+                         "prompt buckets; default: the largest bucket)")
+    ap.add_argument("--tiers", default=None,
+                    help="continuous engine: comma-separated execution-mode "
+                         "quality ladder (best first), e.g. "
+                         "'exact,approx_lowrank,approx_msr'; each request is "
+                         "routed to a random rung")
+    ap.add_argument("--tier-multiplier", default="mul8x8_2",
+                    help="tiers: multiplier for approx rungs (MSR rungs "
+                         "fall back to mul8x8_msr4 unless an MSR name is "
+                         "given)")
+    ap.add_argument("--shed-queue-depth", type=int, default=None,
+                    help="tiers: demote new admissions one rung when the "
+                         "ready queue exceeds this depth")
+    ap.add_argument("--shed-gap-ticks", type=int, default=None,
+                    help="tiers: demote new admissions one rung when the "
+                         "live decode gap exceeds this many work ticks")
+    ap.add_argument("--shed-hold-steps", type=int, default=8,
+                    help="shedder: consecutive healthy steps before "
+                         "restoring one rung")
+    ap.add_argument("--shed-restore-fraction", type=float, default=0.5,
+                    help="shedder: healthy = load below this fraction of "
+                         "the shed thresholds (hysteresis)")
     ap.add_argument("--policy", default="priority", choices=ADMISSION_POLICIES)
     ap.add_argument("--pad-id", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -156,21 +207,29 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     cfg = dataclasses.replace(cfg, approx=resolve_execution_mode(args.exec_mode,
                                                                  args.multiplier))
-    params = freeze_params(cfg, init_params(cfg, seed=args.seed, device=device))
+    params = init_params(cfg, seed=args.seed, device=device)
+    if args.freeze_weights:
+        params = freeze_params(cfg, params)
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               eos_id=args.eos_id)
     if args.engine != "continuous":
         return _batched(args, cfg, params, sampling, device)
 
     # preemption replays prompt + accepted tokens through the bucketed
-    # prefill, so the buckets must cover the longest replay prompt too
-    top = args.prompt_len + args.new - 1 if args.preemption else args.prompt_len
+    # prefill, so the buckets must cover the longest replay prompt too,
+    # unless chunked prefill chunks it through the buckets there are
+    top = args.prompt_len
+    if args.preemption and not args.chunked_prefill:
+        top = args.prompt_len + args.new - 1
     buckets = [8]
     while buckets[-1] < top:
         buckets.append(buckets[-1] * 2)
     max_len = max(args.max_len, buckets[-1] + args.new)
     if args.cache_layout == "paged":
         max_len += -max_len % args.block_size
+    tiers = None
+    if args.tiers:
+        tiers = tuple(t.strip() for t in args.tiers.split(",") if t.strip())
     sess = ServeSession(
         cfg, params, num_slots=args.num_slots, max_len=max_len,
         prompt_buckets=tuple(buckets), sampling=sampling, seed=args.seed,
@@ -183,14 +242,21 @@ def main(argv=None):
         spec_decode=args.spec_decode, draft_k=args.draft_k, draft_mode=args.draft_mode,
         draft_multiplier=args.multiplier, dynamic_draft_k=args.dynamic_draft_k,
         draft_cost_ratio=args.draft_cost_ratio, draft_window=args.draft_window,
+        tiers=tiers, tier_multiplier=args.tier_multiplier,
+        shed_queue_depth=args.shed_queue_depth, shed_gap_ticks=args.shed_gap_ticks,
+        shed_hold_steps=args.shed_hold_steps,
+        shed_restore_fraction=args.shed_restore_fraction,
+        chunked_prefill=args.chunked_prefill, prefill_chunk=args.prefill_chunk,
         device=device,
     )
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = int(rng.integers(min(2, args.prompt_len), args.prompt_len + 1))
+        prompt = rng.integers(0, cfg.vocab_size, plen)
         lo = min(max(2, args.new // 4), args.new)
-        sess.submit(rng.integers(0, cfg.vocab_size, plen),
-                    max_new=int(rng.integers(lo, args.new + 1)))
+        max_new = int(rng.integers(lo, args.new + 1))
+        tier = str(rng.choice(tiers)) if tiers is not None else None
+        sess.submit(prompt, max_new=max_new, tier=tier)
     approx_matmul.launches = paged_attention.launches = 0
     t0 = time.perf_counter()
     results = sess.run()
@@ -215,6 +281,9 @@ def main(argv=None):
         if args.prefix_sharing or args.preemption:
             print(f"  sharing: {st.prefix_hit_blocks} prefix-hit blocks, "
                   f"{st.cow_forks} CoW forks, {st.preemptions} preemptions")
+        if args.chunked_prefill:
+            print(f"  chunked prefill: chunk {sess.prefill_chunk}, {st.prefill_chunks} "
+                  f"chunk rows, prefills by bucket {dict(sorted(st.prefills.items()))}")
         if args.spec_decode:
             print(f"  spec decode: draft {args.draft_mode}/{args.multiplier} "
                   f"k={args.draft_k}, accept rate {st.accept_rate * 100:.1f}% "
@@ -226,6 +295,14 @@ def main(argv=None):
     else:
         print(f"  KV stripes: {args.num_slots} x {max_len} positions, attention "
               f"impl {st.attn_impl}")
+    if tiers is not None:
+        served = dict.fromkeys(tiers, 0)
+        for r in results.values():
+            served[r.tier] += 1
+        print(f"  tiers {','.join(tiers)}: served "
+              + " ".join(f"{t}={n}" for t, n in served.items())
+              + f", demotions {st.tier_demotions}, restorations {st.tier_restorations}, "
+              f"shed level now {st.shed_level}")
     print(f"  kernel launches: approx_matmul {approx_matmul.launches}, "
           f"paged_attention {paged_attention.launches}")
     first = results[min(results)]

@@ -69,11 +69,33 @@ into its own stripe or the trash block, as in the JAX package; under
 per-tensor activation scales those rows flow into every row's
 quantization, so the carry is kept exactly as the JAX session keeps it.
 
-This is the JAX package's ``ServeSession`` less quality tiers, chunked
-prefill and meshes, which arrive with later slices of the port.  Greedy
-tokens are the cross-framework contract; temperature sampling follows the
-port's own positional Philox schedule (``serve.engine``), so a request's
-tokens never depend on its slot.
+**Quality tiers** (``tiers=("exact", "approx", "approx_msr")``) route each
+REQUEST through its own execution mode: one ``_decode_tick`` per ladder
+rung holding resident rows, in ladder order, with the other rungs' rows
+made write-inert the way freed rows already are (paged: their rows of that
+dispatch's table copy scrubbed to the sentinel, so their writes land in
+the trash block and K2 gives their empty rows exactly 0; slots: their
+``cur_len`` pinned to ``max_len``, the stripe's trash column).  A request's
+rung is frozen at admission; the **load shedder** (``shed_queue_depth`` /
+``shed_gap_ticks``) demotes new admissions down the ladder while the
+session is overloaded and restores with hysteresis (``shed_hold_steps``).
+Every rung scales activations per row (``act_per_row``), so each request's
+greedy tokens equal a single-mode session of its rung whatever shares the
+batch.  Tier sessions take float params (the rungs quantize differently).
+
+**Chunked prefill** (``chunked_prefill``, paged only) splits a prompt
+longer than ``prefill_chunk`` into chunks dispatched across successive
+steps through ``paged_chunk_prefill_step`` (the multi-token pass), so a
+long prompt stalls resident decodes by one chunk, not one prompt bucket,
+and prompts past the largest bucket become admissible.  A mid-prefill row
+holds its slot but joins no decode chunk (its table row is scrubbed in the
+decode dispatch's copy).
+
+This is the JAX package's ``ServeSession`` less meshes, which arrive with
+a later slice of the port.  Greedy tokens are the cross-framework
+contract; temperature sampling follows the port's own positional Philox
+schedule (``serve.engine``), so a request's tokens never depend on its
+slot.
 """
 from __future__ import annotations
 
@@ -94,12 +116,19 @@ from repro_torch.models.transformer import (
     forward,
     init_cache,
     init_paged_cache,
+    paged_chunk_prefill_step,
     paged_decode_step,
     paged_verify_step,
     params_to,
 )
 from repro_torch.serve import cache as C
-from repro_torch.serve.engine import SamplingConfig, draft_config, select_token
+from repro_torch.serve.engine import (
+    EXECUTION_MODES,
+    SamplingConfig,
+    draft_config,
+    resolve_execution_mode,
+    select_token,
+)
 
 __all__ = [
     "Request",
@@ -240,6 +269,37 @@ def _spec_tick(
     return toks.T, n_acc, last_token, cur_len
 
 
+def _prefill_chunk(
+    cfg: ModelConfig,
+    params,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,              # (A, C_bucket) right-padded chunk tokens
+    starts: torch.Tensor,              # (A,) position of tokens[:, 0]
+    chunk_lens: torch.Tensor,          # (A,) real tokens this chunk
+    tables: torch.Tensor,              # (A, W) int32 per-row tables, sentinel-tailed
+    req_ids: torch.Tensor,             # (A,) request ids (sampling keys)
+    *,
+    sampling: SamplingConfig,
+    seed: int,
+    block_size: int,
+) -> torch.Tensor:
+    """Chunked prefill: teacher-force one chunk of each row's prompt into
+    the pool at positions ``[starts, starts + chunk_lens)``, reading the
+    prefix already written through the block table
+    (``paged_chunk_prefill_step``, the multi-token pass).  Padding rows
+    carry all-sentinel tables, so their writes land in the trash block.
+    Returns each row's first token ASSUMING this is its final chunk: it is
+    sampled at position ``starts + chunk_lens``, the effective prompt
+    length exactly when the chunk completes the prompt (the position the
+    one-shot prefill samples at); for other rows the host ignores it."""
+    logits = paged_chunk_prefill_step(cfg, params, cache, tokens, starts, tables,
+                                      block_size=block_size)
+    lens = chunk_lens.long()
+    last = logits[torch.arange(tokens.shape[0], device=tokens.device), lens - 1]
+    return select_token(last, sampling, seed=seed, req_ids=req_ids,
+                        positions=starts.long() + lens)
+
+
 class _HostCopy:
     """A device tensor's values on their way to the host.  On a CUDA
     device: a non-blocking copy into a pinned buffer and an event recorded
@@ -266,13 +326,15 @@ class _HostCopy:
 class Request:
     """One generation request. ``arrival`` is in scheduler ticks (one decode
     step == one tick); ``priority`` orders admission (lower first, FIFO
-    within a class)."""
+    within a class); ``tier`` names the requested quality-ladder rung
+    (``None``: the session's best rung; tier sessions only)."""
 
     req_id: int
     prompt: np.ndarray          # (S0,) int32
     max_new: int
     priority: int = 0
     arrival: int = 0
+    tier: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,6 +345,9 @@ class CompletedRequest:
     finish_reason: str          # "eos" | "length"
     admitted_tick: int
     finished_tick: int
+    # quality tiers: the EFFECTIVE rung the request was served at (its
+    # requested rung, possibly demoted by the load shedder); "" without tiers
+    tier: str = ""
     ttft: int = -1              # time-to-first-token, ticks since arrival
 
     @property
@@ -311,11 +376,20 @@ class SchedulerStats:
         "generated_tokens": "tokens accepted across all requests, including "
                             "each request's admit-time first token",
         "admit_calls": "batched prefill calls (one per admission batch)",
-        "prefills": "prompt-bucket size -> requests prefilled at that bucket",
+        "prefills": "prompt-bucket size -> prefill dispatches charged at "
+                    "that bucket (each request's OWN effective-prompt "
+                    "bucket — replayed preemption victims count at their "
+                    "longer replay bucket — not the admit batch's padding "
+                    "bucket; under chunked prefill every CHUNK counts at "
+                    "its own chunk bucket, so one long request contributes "
+                    "several entries)",
         "peak_active": "max concurrently-resident requests",
         "peak_blocks_in_use": "max KV pool blocks held at once",
         "ttft_ticks": "per-request time-to-first-token in scheduler ticks "
-                      "since the request's arrival, appended at admit",
+                      "since the request's arrival (queue wait + prefill), "
+                      "appended at admit — under chunked prefill, at the "
+                      "FINAL chunk's dispatch, when the first token is "
+                      "actually sampled",
         "ttft_s": "per-request wall seconds from submit() to the host "
                   "holding the request's first token",
         "latency_ticks": "per-request total latency in scheduler ticks since "
@@ -332,7 +406,10 @@ class SchedulerStats:
                                 "between a resident request's consecutive "
                                 "accepted tokens (<= steps_per_tick + "
                                 "ceil(prefill_decode_ratio * "
-                                "steps_per_tick) under the ratio policy)",
+                                "steps_per_tick) under the ratio policy; "
+                                "chunked prefill tightens the per-item "
+                                "budget overshoot from one prompt bucket "
+                                "to one chunk)",
         "host_block_s": "wall seconds the host spent blocked on device "
                         "results (first tokens and decode tokens: the "
                         "copies' events at harvest in the async loop)",
@@ -388,6 +465,25 @@ class SchedulerStats:
         "draft_k_grows": "speculative decoding: times dynamic_draft_k "
                          "re-grew the draft window (rolling accept rate "
                          "back at/above break-even)",
+        "tier_demotions": "quality tiers: times the load shedder raised "
+                          "the shed level (new admissions demoted one rung "
+                          "further down the tier ladder)",
+        "tier_restorations": "quality tiers: times the shedder lowered the "
+                             "shed level after shed_hold_steps consecutive "
+                             "healthy steps (the hysteresis window clears "
+                             "on every level change)",
+        "shed_level": "quality tiers: current shed level — new admissions "
+                      "serve at ladder rung max(requested, shed_level); "
+                      "0 = no shedding in effect",
+        "active_per_tier": "quality tiers: currently-resident requests per "
+                           "EFFECTIVE ladder rung (the rung each request "
+                           "was admitted at, post-shedding); empty when "
+                           "tiers are off",
+        "prefill_chunks": "chunked prefill: partial-prompt chunk rows "
+                          "dispatched (each long request contributes "
+                          "ceil(effective_prompt / prefill_chunk) rows; 0 "
+                          "when chunking is off or every prompt fits one "
+                          "chunk)",
     }
 
     ticks: int = 0
@@ -419,6 +515,11 @@ class SchedulerStats:
     draft_k_current: int = 0
     draft_k_shrinks: int = 0
     draft_k_grows: int = 0
+    tier_demotions: int = 0
+    tier_restorations: int = 0
+    shed_level: int = 0
+    active_per_tier: Dict[str, int] = dataclasses.field(default_factory=dict)
+    prefill_chunks: int = 0
 
     @property
     def accept_rate(self) -> float:
@@ -482,6 +583,21 @@ class _ActiveSlot:
     # async loop: the admit-time first token is on its way to the host (a
     # re-admitted row already holds tokens while it is pending)
     pending_first: bool = False
+    # quality tiers: the effective ladder rung this request decodes under,
+    # frozen at admission (a preemption replay re-admits at the same rung)
+    tier_idx: int = 0
+    # chunked prefill: a resident row whose prompt is still being written
+    # holds its slot and grows its table chunk by chunk; ``prefill_pos``
+    # counts effective-prompt tokens already dispatched, ``eff_prompt`` is
+    # the prompt (+ replayed tokens).  One-shot admissions leave both at
+    # 0 / None, so ``prefilling`` is False for them.
+    prefill_pos: int = 0
+    prefill_len: int = 0
+    eff_prompt: Optional[np.ndarray] = None
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_pos < self.prefill_len
 
 
 @dataclasses.dataclass
@@ -550,9 +666,21 @@ class ServeSession:
     against the break-even ``1 / draft_cost_ratio``.  Accepted tokens equal
     the non-speculative session's where the verify pass is bit-equal to
     sequential gather decode (per-row exact projections: ``exact_quant``
-    or ``approx`` with ``act_per_row``, or float on the CPU).  ``tiers``
-    and ``chunked_prefill`` raise ``NotImplementedError`` until their
-    slices of the port arrive.
+    or ``approx`` with ``act_per_row``, or float on the CPU).
+
+    ``tiers=("exact", "approx", "approx_msr")`` routes each request
+    through its own execution mode (the session cfg with only ``approx``
+    swapped, per-row scales; ``tier_multiplier`` names the approximate
+    design, MSR rungs default to ``mul8x8_msr4``); ``submit(...,
+    tier=...)`` picks a request's rung, and every step dispatches one
+    decode chunk per rung holding resident rows.  ``shed_queue_depth`` /
+    ``shed_gap_ticks`` arm the load shedder: a breach demotes NEW
+    admissions one rung down the ladder, and ``shed_hold_steps``
+    consecutive steps below ``shed_restore_fraction`` of the thresholds
+    restore one rung.  ``chunked_prefill`` (paged) prefills prompts
+    longer than ``prefill_chunk`` (a prompt bucket; default the largest)
+    chunk by chunk across steps, and admits prompts past the largest
+    bucket.
     """
 
     def __init__(
@@ -587,19 +715,15 @@ class ServeSession:
         draft_cost_ratio: float = 4.0,
         draft_window: int = 32,
         tiers: Optional[Sequence[str]] = None,
+        tier_multiplier: str = "mul8x8_2",
+        shed_queue_depth: Optional[int] = None,
+        shed_gap_ticks: Optional[int] = None,
+        shed_hold_steps: int = 8,
+        shed_restore_fraction: float = 0.5,
         chunked_prefill: bool = False,
+        prefill_chunk: Optional[int] = None,
         device=None,
     ):
-        if tiers is not None:
-            raise NotImplementedError(
-                "quality tiers and the load shedder arrive with their own slice "
-                "of the port (ROADMAP section 1, item 7)"
-            )
-        if chunked_prefill:
-            raise NotImplementedError(
-                "chunked prefill arrives with its own slice of the port (ROADMAP "
-                "section 1, item 8)"
-            )
         if cache_layout not in CACHE_LAYOUTS:
             raise ValueError(f"cache_layout {cache_layout!r} not in {CACHE_LAYOUTS}")
         if policy not in ADMISSION_POLICIES:
@@ -667,6 +791,54 @@ class ServeSession:
                 )
             if draft_window < 1:
                 raise ValueError(f"draft_window must be >= 1, got {draft_window}")
+        if tiers is not None:
+            tiers = tuple(tiers)
+            if not tiers:
+                raise ValueError("tiers must name at least one execution mode")
+            if len(set(tiers)) != len(tiers):
+                raise ValueError(f"tiers contains duplicate rungs: {tiers}")
+            for t in tiers:
+                if t not in EXECUTION_MODES:
+                    raise ValueError(
+                        f"tier {t!r} not in execution modes {EXECUTION_MODES}"
+                    )
+            if spec_decode:
+                raise ValueError(
+                    "tiers and spec_decode both repurpose the per-dispatch "
+                    "cfg.approx execution routing — set at most one"
+                )
+            if cfg.family in ("ssm", "hybrid"):
+                raise ValueError(
+                    "quality tiers dispatch one decode program per rung and "
+                    "rely on positional KV writes to keep the other rungs' "
+                    f"rows untouched — {cfg.family} carries non-positional "
+                    "conv/ssm state, so tier serving requires an attention "
+                    "family"
+                )
+        shed_on = shed_queue_depth is not None or shed_gap_ticks is not None
+        if shed_on:
+            if tiers is None or len(tiers) < 2:
+                raise ValueError(
+                    "load shedding demotes admissions down the quality "
+                    "ladder — it requires tiers with >= 2 rungs"
+                )
+            if shed_queue_depth is not None and shed_queue_depth < 1:
+                raise ValueError(
+                    f"shed_queue_depth must be >= 1, got {shed_queue_depth}"
+                )
+            if shed_gap_ticks is not None and shed_gap_ticks < 1:
+                raise ValueError(
+                    f"shed_gap_ticks must be >= 1, got {shed_gap_ticks}"
+                )
+            if shed_hold_steps < 1:
+                raise ValueError(
+                    f"shed_hold_steps must be >= 1, got {shed_hold_steps}"
+                )
+            if not 0.0 < shed_restore_fraction <= 1.0:
+                raise ValueError(
+                    "shed_restore_fraction must be in (0, 1], got "
+                    f"{shed_restore_fraction}"
+                )
         if cache_layout == "paged":
             if zero_on_evict:
                 raise ValueError(
@@ -713,11 +885,79 @@ class ServeSession:
         # full window of its own
         self._accept_hist: deque = deque(maxlen=self.draft_window)
         self.draft_cfg = draft_config(cfg, draft_mode, draft_multiplier) if self.spec else None
+        # quality tiers: one ModelConfig per ladder rung, the session cfg
+        # with only ``approx`` swapped and per-row activation scales, which
+        # make each row's quantized math independent of its neighbours
+        self.tiers: Optional[Tuple[str, ...]] = tiers
+        self.tier_multiplier = tier_multiplier
+        self._tier_cfgs: Tuple[ModelConfig, ...] = tuple(
+            dataclasses.replace(cfg, approx=resolve_execution_mode(
+                t, tier_multiplier, act_per_row=True))
+            for t in (tiers or ()))
+        self._shed_on = shed_on
+        self.shed_queue_depth = shed_queue_depth
+        self.shed_gap_ticks = shed_gap_ticks
+        self.shed_hold_steps = int(shed_hold_steps)
+        self.shed_restore_fraction = float(shed_restore_fraction)
+        self._shed_level = 0
+        # consecutive healthy steps toward a restore; cleared on every level
+        # change and every unhealthy step (the hysteresis window)
+        self._shed_ok_steps = 0
+        self._tier_active_counts: List[int] = [0] * len(tiers or ())
         self.buckets = C.PromptBuckets(prompt_buckets)
         if self.buckets.max_size > self.max_len:
             raise ValueError(
                 f"largest prompt bucket {self.buckets.max_size} > max_len {self.max_len}"
             )
+        if prefill_chunk is not None and not chunked_prefill:
+            raise ValueError("prefill_chunk requires chunked_prefill=True")
+        if chunked_prefill:
+            if cache_layout != "paged":
+                raise ValueError(
+                    "chunked prefill resumes a partially-written block table "
+                    'across ticks — it requires cache_layout="paged" (the '
+                    "slot layout has no sentinel-tailed table to grow)"
+                )
+            if cfg.family == "moe":
+                raise ValueError(
+                    "chunked prefill teacher-forces chunk tokens through a "
+                    "batched pass; moe routing is capacity-coupled across "
+                    "the token batch, so chunks would route differently "
+                    "than the fused prefill oracle and lose the exactness "
+                    "contract"
+                )
+            if spec_decode:
+                raise ValueError(
+                    "chunked prefill and spec_decode both repurpose the "
+                    "multi-position verify pass with different per-tick "
+                    "schedules — composing them is a ROADMAP follow-on; "
+                    "set at most one"
+                )
+            if tiers is not None:
+                raise ValueError(
+                    "chunked prefill dispatches chunk batches outside the "
+                    "per-rung admit grouping — composing it with quality "
+                    "tiers is a ROADMAP follow-on"
+                )
+            if prefix_sharing:
+                raise ValueError(
+                    "prefix sharing publishes prompt blocks at admission, "
+                    "but a chunk-prefilled block is written ticks after its "
+                    "table entry exists — a sharer could map it before its "
+                    "K/V lands; publish-at-chunk-boundary is a ROADMAP "
+                    "follow-on"
+                )
+            if prefill_chunk is None:
+                prefill_chunk = self.buckets.max_size
+            if prefill_chunk not in self.buckets.sizes:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} must be one of the "
+                    f"prompt buckets {self.buckets.sizes} — chunk widths are "
+                    "drawn from the bucket set so the compiled program set "
+                    "stays (admit widths x buckets)"
+                )
+        self.chunked = bool(chunked_prefill)
+        self.prefill_chunk = int(prefill_chunk) if chunked_prefill else 0
         self.pool = C.SlotPool(num_slots)
         self.num_slots = num_slots
         if cache_layout == "paged":
@@ -743,9 +983,10 @@ class ServeSession:
             self._prefix = None
             self.cache = init_cache(cfg, num_slots, self.max_len, cache_dtype,
                                     device=self.device)
-        # preemption: req_id -> (accepted tokens, first admit tick, ttft
-        # ticks), consumed when the victim is admitted again and replays
-        self._preempt_resume: Dict[int, Tuple[List[int], int, int]] = {}
+        # preemption: req_id -> (accepted tokens, first admit tick, effective
+        # tier rung, ttft ticks), consumed when the victim is admitted again
+        # and replays (at the same rung, so the replay is the same run's)
+        self._preempt_resume: Dict[int, Tuple[List[int], int, int, int]] = {}
 
         # decode carry; a freed slot keeps its last values — they still flow
         # through the decode step (and, under per-tensor activation scales,
@@ -765,6 +1006,13 @@ class ServeSession:
         # harvested chunk (the copy-on-write guard's lower bound)
         self._cl_dev = torch.zeros((num_slots,), dtype=torch.int64, device=self.device)
         self._cl_true = np.zeros((num_slots,), np.int32)
+        # quality tiers: each slot occupant's effective rung (read only where
+        # a slot is occupied; the per-rung dispatch masks on it)
+        self._slot_tier = np.zeros((num_slots,), np.int32)
+        # chunked prefill: resident rows whose prompt is still being written,
+        # FIFO; each step resumes their next chunk (budget permitting) BEFORE
+        # admitting new work, so started prefills finish first
+        self._prefilling: List[_ActiveSlot] = []
 
         self._active: List[Optional[_ActiveSlot]] = [None] * num_slots
         self._pending: List[Tuple[int, int, Request]] = []   # heap (arrival, seq)
@@ -790,9 +1038,11 @@ class ServeSession:
     # -- queue ---------------------------------------------------------------
 
     def submit(self, prompt, max_new: int, *, req_id: Optional[int] = None,
-               priority: int = 0, arrival: int = 0) -> int:
-        """Queue one request; returns its id. ``arrival`` in ticks.  Every
-        shape constraint is checked here, naming the request; a sealed
+               priority: int = 0, arrival: int = 0, tier: Optional[str] = None) -> int:
+        """Queue one request; returns its id. ``arrival`` in ticks; ``tier``
+        names the requested ladder rung (tier sessions only; ``None``: the
+        best rung), which the load shedder may still demote at admission.
+        Every shape constraint is checked here, naming the request; a sealed
         session (after ``close()``) refuses."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         rid = self._next_id if req_id is None else req_id
@@ -801,21 +1051,43 @@ class ServeSession:
                 f"request {rid}: submitted after close() — the session is "
                 "sealed and its pipeline flushed; create a new ServeSession"
             )
+        if tier is not None:
+            if self.tiers is None:
+                raise ValueError(
+                    f"request {rid}: tier={tier!r} on a session without a "
+                    "quality ladder — construct ServeSession(tiers=(...))"
+                )
+            if tier not in self.tiers:
+                raise ValueError(
+                    f"request {rid}: tier {tier!r} not in session tiers "
+                    f"{self.tiers}"
+                )
         if prompt.size < 1:
             raise ValueError(f"request {rid}: empty prompt")
         if max_new < 1:
             raise ValueError(f"request {rid}: max_new must be >= 1, got {max_new}")
-        if prompt.size > self.buckets.max_size:
+        if prompt.size > self.buckets.max_size and not self.chunked:
             raise ValueError(
                 f"request {rid}: prompt_len {prompt.size} exceeds the largest "
-                f"prompt bucket {self.buckets.max_size} (buckets {self.buckets.sizes})"
+                f"prompt bucket {self.buckets.max_size} (buckets "
+                f"{self.buckets.sizes}) — split the prompt, widen the "
+                "buckets, or enable chunked_prefill"
             )
-        bucket = self.buckets.bucket(prompt.size)
-        if max(bucket, prompt.size + max_new) > self.max_len:
-            raise ValueError(
-                f"request {rid}: prompt_len {prompt.size} + max_new {max_new} "
-                f"(bucket {bucket}) exceeds cache max_len {self.max_len}"
-            )
+        if prompt.size > self.buckets.max_size:
+            # chunked only: each chunk pads to its own bucket and writes stay
+            # within the prompt's blocks, so only the raw context binds
+            if prompt.size + max_new > self.max_len:
+                raise ValueError(
+                    f"request {rid}: prompt_len {prompt.size} + max_new "
+                    f"{max_new} exceeds cache max_len {self.max_len}"
+                )
+        else:
+            bucket = self.buckets.bucket(prompt.size)
+            if max(bucket, prompt.size + max_new) > self.max_len:
+                raise ValueError(
+                    f"request {rid}: prompt_len {prompt.size} + max_new {max_new} "
+                    f"(bucket {bucket}) exceeds cache max_len {self.max_len}"
+                )
         if self.layout == "paged":
             worst = self._worst_blocks(prompt.size, max_new)
             if worst > self.num_blocks:
@@ -833,7 +1105,9 @@ class ServeSession:
                     f"copy-on-write fork) but the pool only has "
                     f"{self.num_blocks} — it could never be admitted"
                 )
-            if self.preempt and prompt.size + max_new - 1 > self.buckets.max_size:
+            # chunked, a replay prompt needs no single bucket either
+            if (self.preempt and not self.chunked
+                    and prompt.size + max_new - 1 > self.buckets.max_size):
                 raise ValueError(
                     f"request {rid}: preemption replays prompt + accepted "
                     f"tokens through the bucketed prefill — its replay "
@@ -850,7 +1124,7 @@ class ServeSession:
         ):
             raise ValueError(f"req_id {req_id} already in use")
         self._next_id = max(self._next_id, rid) + 1
-        req = Request(rid, prompt, int(max_new), int(priority), int(arrival))
+        req = Request(rid, prompt, int(max_new), int(priority), int(arrival), tier)
         self._submit_t[rid] = time.perf_counter()
         if req.arrival > self.clock:
             heapq.heappush(self._pending, (req.arrival, self._seq, req))
@@ -868,7 +1142,7 @@ class ServeSession:
         if self.policy == "sjf":
             if eff_len is None:
                 eff_len = int(self._eff_prompt(req).size)
-            return req.max_new + self.buckets.bucket(eff_len)
+            return req.max_new + self._prefill_cost(eff_len)
         if self.policy == "fifo":
             return 0
         return req.priority
@@ -905,6 +1179,41 @@ class ServeSession:
         position ``prompt_len + max_new - 2`` (the final sampled token is
         output, never written)."""
         return -(-(prompt_len + max_new - 1) // self.block_size)
+
+    # -- chunked-prefill planning ----------------------------------------------
+
+    def _chunks_prefill(self, eff_len: int) -> bool:
+        """Whether a prompt of this effective length takes the chunked path;
+        one that fits one chunk keeps the one-shot ``_admit_many``, the
+        dispatch an unchunked session makes."""
+        return self.chunked and eff_len > self.prefill_chunk
+
+    def _chunk_spans(self, eff_len: int) -> List[int]:
+        """The chunk plan: ``prefill_chunk``-wide spans and a remainder,
+        each dispatched at its own bucket."""
+        spans, pos = [], 0
+        while pos < eff_len:
+            s = min(self.prefill_chunk, eff_len - pos)
+            spans.append(s)
+            pos += s
+        return spans
+
+    def _prefill_cost(self, eff_len: int) -> int:
+        """Bucketed prefill tokens this prompt charges in all: its one-shot
+        bucket, or the sum of its chunks' buckets (SJF's key and victim
+        choice; defined past ``buckets.max_size`` when chunking)."""
+        if not self._chunks_prefill(eff_len):
+            return self.buckets.bucket(eff_len)
+        return sum(self.buckets.bucket(s) for s in self._chunk_spans(eff_len))
+
+    def _head_charge(self, eff_len: int) -> int:
+        """Tokens the interleaving budget charges when this request is
+        admitted THIS step: its first chunk's bucket when chunked (later
+        chunks are charged step by step as they resume), else its whole
+        one-shot bucket."""
+        if self._chunks_prefill(eff_len):
+            return self.prefill_chunk
+        return self.buckets.bucket(eff_len)
 
     # -- prefix sharing and preemption -----------------------------------------
 
@@ -963,8 +1272,10 @@ class ServeSession:
         the copy it was dispatched with, ahead of any later owner's writes
         on the same stream), and queue the request again."""
         state.preempted = True
+        # a mid-prefill victim (chunked path, TTFT not yet sampled) samples
+        # its TTFT at the replay's final chunk
         self._preempt_resume[state.req.req_id] = (list(state.tokens), state.admitted_tick,
-                                                  state.ttft)
+                                                  state.tier_idx, state.ttft)
         self._release_resources(state)
         self._push_ready(state.req)
         self.stats.preemptions += 1
@@ -1048,14 +1359,15 @@ class ServeSession:
     def _prefill_budget(self) -> float:
         """Bucketed prompt tokens this step may admit under the interleaving
         policy: unlimited without a policy, and while no decode is resident
-        (nothing to starve, and the queue must drain)."""
+        (nothing to starve, and the queue must drain; mid-prefill rows do
+        not decode)."""
         if self.prefill_decode_ratio is None and self.prefill_token_budget is None:
             return float("inf")
-        if self.n_active == 0:
+        if self.n_decoding == 0:
             return float("inf")
         if self.prefill_token_budget is not None:
             return float(self.prefill_token_budget)
-        return self.prefill_decode_ratio * self.n_active * self.steps_per_tick
+        return self.prefill_decode_ratio * self.n_decoding * self.steps_per_tick
 
     def _pop_admissible(self, budget: float = float("inf")
                         ) -> Tuple[List[Request], float, bool]:
@@ -1064,11 +1376,13 @@ class ServeSession:
         request's worst case (+1 for a shared partial tail's fork under
         prefix sharing) must fit what the pool can still promise (``free -
         reserved``, after evicting cache-only blocks) and is reserved on
-        the spot; with preemption its prompt's immediate need must fit the
-        free plus reclaimable blocks.  The queue head blocks admission when
-        it does not fit (no skip-ahead), so policy order holds.  Returns
-        ``(batch, remaining budget, stalled)``, ``stalled`` meaning the head
-        was deferred by the budget alone."""
+        the spot; with preemption its prompt's immediate need (a chunked
+        admission's: its first chunk's blocks) must fit the free plus
+        reclaimable blocks.  The budget is charged ``_head_charge``.  The
+        queue head blocks admission when it does not fit (no skip-ahead),
+        so policy order holds.  Returns ``(batch, remaining budget,
+        stalled)``, ``stalled`` meaning the head was deferred by the budget
+        alone."""
         batch: List[Request] = []
         stalled = False
         pending_need = 0
@@ -1080,7 +1394,9 @@ class ServeSession:
             worst = need = 0
             if self.layout == "paged":
                 if self.preempt:
-                    need = -(-eff_len // self.block_size)
+                    head = (min(eff_len, self.prefill_chunk)
+                            if self._chunks_prefill(eff_len) else eff_len)
+                    need = -(-head // self.block_size)
                     if pending_need + need > self.blocks.free_count + reclaimable:
                         break
                 else:
@@ -1092,7 +1408,7 @@ class ServeSession:
                         pass
                     if worst > self.blocks.free_count - self._reserved_total:
                         break
-            charge = self.buckets.bucket(eff_len)
+            charge = self._head_charge(eff_len)
             if charge > budget:
                 stalled = True
                 break
@@ -1104,15 +1420,15 @@ class ServeSession:
             batch.append(req)
         return batch, budget, stalled
 
-    def _prefill(self, prompts, prompt_lens, req_ids, seat) -> torch.Tensor:
-        """One fused prefill of an admission batch: seed each row's cache
-        and sample its first token (at position ``prompt_len``); (A,) tokens
-        on the device.  ``seat`` is the paged layout's (A, nb) block ids, or
-        the slot layout's (slots, valid): rows to write and which of them
-        are real (the others rewrite what they hold,
-        ``cache.scatter_rows``)."""
+    def _prefill(self, cfg: ModelConfig, prompts, prompt_lens, req_ids, seat) -> torch.Tensor:
+        """One fused prefill of an admission batch under ``cfg`` (a tier
+        session's rung): seed each row's cache and sample its first token
+        (at position ``prompt_len``); (A,) tokens on the device.  ``seat``
+        is the paged layout's (A, nb) block ids, or the slot layout's
+        (slots, valid): rows to write and which of them are real (the
+        others rewrite what they hold, ``cache.scatter_rows``)."""
         dev = self.device
-        logits, kvs = forward(self.cfg, self.params, self._h2d(prompts), return_kv=True)
+        logits, kvs = forward(cfg, self.params, self._h2d(prompts), return_kv=True)
         lens = self._h2d(prompt_lens).long()
         last = logits[torch.arange(len(prompt_lens), device=dev), lens - 1]
         if self.layout == "paged":
@@ -1124,7 +1440,7 @@ class ServeSession:
         return select_token(last, self.sampling, seed=self.seed,
                             req_ids=self._h2d(req_ids), positions=lens)
 
-    def _admit_many(self, reqs: List[Request]) -> None:
+    def _admit_many(self, reqs: List[Request], tier_idx: int = 0) -> None:
         """Admit ``reqs`` with ONE prefill: effective prompts (a replayed
         victim's prompt + accepted tokens) pad to the batch's largest
         bucket, rows to the admission width (padding rows: prompt of
@@ -1137,9 +1453,14 @@ class ServeSession:
         writes for that span land in the trash block); a miss acquires,
         writes and publishes — before the next request of the batch walks,
         so batch-mates share too.  Slots: the padding rows take distinct
-        free slots and rewrite what those hold.  The sync loop then waits
-        for the first tokens; the async loop merges them into the device
-        carry and reads them at the next harvest."""
+        free slots and rewrite what those hold.  On a tier session the
+        batch shares the effective rung ``tier_idx`` (``_admit_phase``
+        groups by rung) and prefills under that rung's config, and each
+        rung's prefix chain starts from its own root (a block's K/V is
+        rung-specific).  The sync loop then waits for the first tokens; the
+        async loop merges them into the device carry and reads them at the
+        next harvest."""
+        acfg = self._tier_cfgs[tier_idx] if self.tiers is not None else self.cfg
         A = self._admit_width(len(reqs))
         effs = [self._eff_prompt(r) for r in reqs]
         bucket = max(self.buckets.bucket(e.size) for e in effs)
@@ -1164,7 +1485,7 @@ class ServeSession:
                 plen = int(eff.size)
                 ninit = -(-plen // bs)
                 held: List[int] = []
-                parent = C.PrefixCache.ROOT
+                parent = C.PrefixCache.ROOT - tier_idx
                 for j in range(ninit):
                     hit = None
                     if self._prefix is not None:
@@ -1195,19 +1516,11 @@ class ServeSession:
                                                 self.blocks.busy_count)
         else:
             seat = (self._h2d(slots), self._h2d(valid))
-        tok0s = self._prefill(prompts, prompt_lens, req_ids, seat)
+        tok0s = self._prefill(acfg, prompts, prompt_lens, req_ids, seat)
         self.stats.admit_calls += 1
         # each request is charged its own effective bucket (a replay's is
         # its longer replay prompt's)
-        tok_sum = 0
-        for e in effs:
-            b = self.buckets.bucket(e.size)
-            self.stats.prefills[b] = self.stats.prefills.get(b, 0) + 1
-            tok_sum += b
-        self.stats.prefill_tokens += tok_sum
-        self._prefill_carry += tok_sum
-        self.stats.work_ticks += self._prefill_carry // self.num_slots
-        self._prefill_carry %= self.num_slots
+        self._charge_prefill([self.buckets.bucket(e.size) for e in effs])
 
         if self.loop == "async":
             slots_d = seat[0] if self.layout == "slots" else self._h2d(slots)
@@ -1221,45 +1534,80 @@ class ServeSession:
                 slot = row_slot[i]
                 self._cur_len[slot] = self._cl_true[slot] = int(prompt_lens[i])
                 self._last_emit_work[slot] = self.stats.work_ticks
-                state = self._admitted_state(req, slot, [])
+                state = self._admitted_state(req, slot, [], tier_idx)
                 state.pending_first = True
                 self._active[slot] = state
                 states.append(state)
-            self._pending_tok0.append((states, _HostCopy(tok0s)))
+            self._pending_tok0.append((states, _HostCopy(tok0s), list(range(len(states)))))
             return
 
         tok0s = self._wait(_HostCopy(tok0s))
         now = time.perf_counter()
-        eos = self.sampling.eos_id
         for i, req in enumerate(reqs):
             slot, tok0 = row_slot[i], int(tok0s[i])
             self._last_token[slot] = tok0
             self._cur_len[slot] = int(prompt_lens[i])
             self._slot_req[slot] = req.req_id
             self._last_emit_work[slot] = self.stats.work_ticks
-            state = self._admitted_state(req, slot, [tok0])
-            self._first_token_held(req.req_id, now)
-            self.stats.generated_tokens += 1
-            if len(state.tokens) >= req.max_new or (eos >= 0 and tok0 == eos):
-                self._finish(state, "eos" if (eos >= 0 and tok0 == eos) else "length")
-            else:
-                self._active[slot] = state
+            state = self._admitted_state(req, slot, [], tier_idx)
+            self._active[slot] = state
+            self._take_first(state, tok0, now)
 
-    def _admitted_state(self, req: Request, slot: int, first: List[int]) -> _ActiveSlot:
-        """The resident state of an admitted request holding ``first``.  A
-        new request counts as admitted and samples its TTFT now; a replayed
-        victim resumes with its accepted tokens, first admission tick and
-        TTFT, each counted once."""
+    def _charge_prefill(self, buckets: List[int]) -> None:
+        """Charge one prefill dispatch's rows (each at its own bucket: a
+        one-shot request's effective prompt, or one chunk) to ``prefills``,
+        ``prefill_tokens`` and the work clock, whose integer carry keeps
+        rounding from compounding across dispatches."""
+        for b in buckets:
+            self.stats.prefills[b] = self.stats.prefills.get(b, 0) + 1
+        tok_sum = sum(buckets)
+        self.stats.prefill_tokens += tok_sum
+        self._prefill_carry += tok_sum
+        self.stats.work_ticks += self._prefill_carry // self.num_slots
+        self._prefill_carry %= self.num_slots
+
+    def _take_first(self, state: _ActiveSlot, tok0: int, now: float) -> None:
+        """A resident row's first sampled token reached the host: append it,
+        and finish the row when that already ends it (eos, or max_new)."""
+        eos = self.sampling.eos_id
+        state.tokens.append(tok0)
+        self.stats.generated_tokens += 1
+        self._first_token_held(state.req.req_id, now)
+        if len(state.tokens) >= state.req.max_new or (eos >= 0 and tok0 == eos):
+            self._finish(state, "eos" if (eos >= 0 and tok0 == eos) else "length")
+
+    def _admitted_state(self, req: Request, slot: int, first: List[int],
+                        tier_idx: int = 0, *, sample_ttft: bool = True) -> _ActiveSlot:
+        """The resident state of an admitted request holding ``first``, at
+        rung ``tier_idx``.  A new request counts as admitted and samples its
+        TTFT now (a chunked one at its final chunk: ``sample_ttft=False``);
+        a replayed victim resumes with its accepted tokens, first admission
+        tick and TTFT, each counted once (a victim evicted mid-prefill
+        samples its TTFT on the replay that reaches a token)."""
         resume = self._preempt_resume.pop(req.req_id, None)
         if resume is not None:
-            state = _ActiveSlot(req, slot, resume[0] + first, resume[1])
-            state.ttft = resume[2]
-            return state
-        self.stats.admitted += 1
-        state = _ActiveSlot(req, slot, first, self.clock)
-        state.ttft = self.clock - req.arrival
-        self.stats.ttft_ticks.append(state.ttft)
+            state = _ActiveSlot(req, slot, list(resume[0]) + first, resume[1],
+                                tier_idx=tier_idx)
+            state.ttft = resume[3]
+        else:
+            self.stats.admitted += 1
+            state = _ActiveSlot(req, slot, first, self.clock, tier_idx=tier_idx)
+        if state.ttft < 0 and sample_ttft:
+            state.ttft = self.clock - req.arrival
+            self.stats.ttft_ticks.append(state.ttft)
+        self._slot_tier[slot] = tier_idx
+        self._bump_tier_gauge(tier_idx, +1)
         return state
+
+    def _bump_tier_gauge(self, tier_idx: int, delta: int) -> None:
+        """The ``active_per_tier`` residency gauge (tier sessions only): +1
+        at each admission, -1 at each release, exactly once by the
+        ``state.released`` discipline of the resources."""
+        if self.tiers is None:
+            return
+        self._tier_active_counts[tier_idx] += delta
+        self.stats.active_per_tier = {t: int(c) for t, c in
+                                      zip(self.tiers, self._tier_active_counts)}
 
     def _first_token_held(self, req_id: int, now: float) -> None:
         """``ttft_s``: a request's first token reached the host (a replay's
@@ -1275,6 +1623,11 @@ class ServeSession:
         (``state.released``).  Stale cache contents are invisible: a block
         or stripe re-enters attention only after its next owner's writes."""
         state.released = True
+        self._bump_tier_gauge(state.tier_idx, -1)
+        if state.prefilling:
+            # a mid-prefill victim leaves the resume queue with its slot; the
+            # replay restarts its chunk plan from position 0
+            self._prefilling = [s for s in self._prefilling if s is not state]
         slot = state.slot
         if self._active[slot] is state:       # a successor may already own it
             self._active[slot] = None
@@ -1302,6 +1655,7 @@ class ServeSession:
             finish_reason=reason,
             admitted_tick=state.admitted_tick,
             finished_tick=self.clock,
+            tier=self.tiers[state.tier_idx] if self.tiers is not None else "",
             ttft=state.ttft,
         )
 
@@ -1330,6 +1684,13 @@ class ServeSession:
         return sum(s is not None for s in self._active)
 
     @property
+    def n_decoding(self) -> int:
+        """Resident rows that decode: a mid-prefill row (chunked path) holds
+        a slot but joins no decode chunk, so it neither starves nor scales
+        the interleaving budget."""
+        return sum(s is not None and not s.prefilling for s in self._active)
+
+    @property
     def drained(self) -> bool:
         return not (self._pending or self._ready or self.n_active or self._inflight)
 
@@ -1338,20 +1699,192 @@ class ServeSession:
         self._just_finished.clear()
         return done
 
+    def _eff_tier(self, req: Request) -> int:
+        """The ladder rung ``req`` is admitted at NOW: its requested rung,
+        demoted to the shed level when that is further down the ladder.  A
+        preemption victim replays at the rung it was first admitted at (its
+        accepted tokens came from that rung)."""
+        resume = self._preempt_resume.get(req.req_id)
+        if resume is not None:
+            return resume[2]
+        want = self.tiers.index(req.tier) if req.tier is not None else 0
+        return max(want, self._shed_level)
+
+    def _group_by_tier(self, batch: List[Request]) -> List[Tuple[int, List[Request]]]:
+        """An admission batch split by effective rung (admission order kept
+        within a group, groups in ladder order): each group prefills under
+        its own rung's config in one dispatch."""
+        groups: Dict[int, List[Request]] = {}
+        for r in batch:
+            groups.setdefault(self._eff_tier(r), []).append(r)
+        return sorted(groups.items())
+
     def _admit_phase(self) -> None:
         """Admit ready requests in policy order, subject to free slots,
         (paged) the block-pool reservation, and the interleaving budget
-        shared across every admission batch of this step."""
+        shared across every admission batch of this step.  Chunked prefill:
+        resident mid-prefill rows spend the budget FIRST (oldest first, no
+        skip-ahead; a stalled resident chunk closes admission for the
+        step), so every started prefill finishes before new prompts open."""
         budget = self._prefill_budget()
         stalled = False
+        if self._prefilling:
+            budget, stalled = self._resume_chunks(budget)
         while not stalled and self._ready and self.pool.free_count:
             batch, budget, stalled = self._pop_admissible(budget)
             if not batch:
                 break                 # head does not fit the pool or budget yet
-            self._admit_many(batch)
+            if self.tiers is not None:
+                for t, group in self._group_by_tier(batch):
+                    self._admit_many(group, tier_idx=t)
+                continue
+            chunked = [r for r in batch
+                       if self._chunks_prefill(int(self._eff_prompt(r).size))]
+            oneshot = [r for r in batch if r not in chunked]
+            if oneshot:
+                self._admit_many(oneshot)
+            if chunked:
+                # the first chunk goes out the step the budget was charged
+                # for it (_head_charge); later chunks resume above
+                self._dispatch_chunks([self._start_chunked(r) for r in chunked])
         if stalled:
             self.stats.prefill_stall_ticks += 1
         self.stats.peak_active = max(self.stats.peak_active, self.n_active)
+
+    # -- chunked prefill -------------------------------------------------------
+
+    def _resume_chunks(self, budget: float) -> Tuple[float, bool]:
+        """Dispatch the next chunk of every resident mid-prefill row the
+        budget covers, in start order (no skip-ahead: a stalled head blocks
+        younger rows' chunks, which bounds each prefill's finish).  One
+        chunk per row per step: decode interleaves between chunks."""
+        rows: List[_ActiveSlot] = []
+        stalled = False
+        for state in list(self._prefilling):
+            b = self.buckets.bucket(min(self.prefill_chunk,
+                                        state.prefill_len - state.prefill_pos))
+            if b > budget:
+                stalled = True
+                break
+            budget -= b
+            rows.append(state)
+        if rows:
+            self._dispatch_chunks(rows)
+        return budget, stalled
+
+    def _start_chunked(self, req: Request) -> _ActiveSlot:
+        """Make a chunked admission resident without prefilling anything
+        yet: acquire the slot, set its table row to the sentinel (blocks
+        come chunk by chunk in ``_dispatch_chunks``) and queue the row for
+        its chunks with its cursor at 0.  Without preemption the worst-case
+        reservation ``_pop_admissible`` took stays whole in ``_future`` and
+        ``_ensure_blocks`` converts it block by block."""
+        eff = self._eff_prompt(req)
+        slot = self.pool.acquire()
+        self._tables[slot, :] = self.num_blocks
+        self._held[slot] = []
+        self._cur_len[slot] = self._cl_true[slot] = 0
+        self._last_emit_work[slot] = self.stats.work_ticks
+        if not self.preempt:
+            self._future[slot] = self._worst_blocks(req.prompt.size, req.max_new)
+        # a replayed victim's accepted tokens are in its effective prompt AND
+        # its token list: the final chunk's sampled token appends after them
+        state = self._admitted_state(req, slot, [], sample_ttft=False)
+        state.prefill_pos, state.prefill_len, state.eff_prompt = 0, int(eff.size), eff
+        self._active[slot] = state
+        self._prefilling.append(state)
+        return state
+
+    def _dispatch_chunks(self, rows: List[_ActiveSlot]) -> None:
+        """ONE ``_prefill_chunk`` advancing every row of ``rows`` by its
+        next chunk: rows pad to ``num_slots``, chunks to their largest
+        bucket; each row reads its prefix through its table and writes this
+        chunk's K/V into blocks ensured first.  A row whose chunk ends its
+        prompt samples its first token and joins the decode set; for the
+        others the sampled token is ignored.  A row evicted by another
+        row's block append in this very dispatch (preemption) keeps an
+        all-sentinel table here, its writes landing in the trash block.
+
+        The JAX package pads to the admission width; here every dispatch
+        has ``num_slots`` rows, because the pass attends each position
+        through batched products whose rounding on the card follows the
+        batch's row count (cuBLAS picks its kernel by it).  At a fixed width
+        a row's chunk K/V and first token depend neither on the rows
+        sharing its dispatch nor on where the chunk boundaries fall (the
+        pass runs per position)."""
+        A = self.num_slots
+        clens = [min(self.prefill_chunk, s.prefill_len - s.prefill_pos) for s in rows]
+        cb = max(self.buckets.bucket(c) for c in clens)
+        for state, clen in zip(rows, clens):
+            if not (state.released or state.preempted):
+                self._ensure_blocks(state.slot, state.prefill_pos + clen - 1)
+        self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
+                                            self.blocks.busy_count)
+        live = [(i, s, c) for i, (s, c) in enumerate(zip(rows, clens))
+                if not (s.released or s.preempted)]
+        toks = np.full((A, cb), self.pad_id, np.int32)
+        starts = np.zeros((A,), np.int64)
+        chunk_lens = np.ones((A,), np.int64)
+        req_ids = np.zeros((A,), np.int64)
+        tables = np.full((A, self.table_width), self.num_blocks, np.int32)
+        for i, state, clen in live:
+            pos = state.prefill_pos
+            toks[i, :clen] = state.eff_prompt[pos:pos + clen]
+            starts[i], chunk_lens[i], req_ids[i] = pos, clen, state.req.req_id
+            tables[i] = self._tables[state.slot]
+        tok0s = _prefill_chunk(
+            self.cfg, self.params, self.cache, self._h2d(toks), self._h2d(starts),
+            self._h2d(chunk_lens), self._h2d(tables), self._h2d(req_ids),
+            sampling=self.sampling, seed=self.seed, block_size=self.block_size,
+        )
+        # each chunk is charged its own bucket, so the work clock (and the
+        # starvation gauge) meters what the device ran this step
+        self._charge_prefill([self.buckets.bucket(c) for _, _, c in live])
+        self.stats.prefill_chunks += len(live)
+        finals: List[Tuple[int, _ActiveSlot]] = []
+        for i, state, clen in live:
+            state.prefill_pos += clen
+            self._cur_len[state.slot] = self._cl_true[state.slot] = state.prefill_pos
+            if not state.prefilling:
+                finals.append((i, state))
+        for _, state in finals:
+            self._prefilling.remove(state)
+            self._last_emit_work[state.slot] = self.stats.work_ticks
+            if state.ttft < 0:
+                state.ttft = self.clock - state.req.arrival
+                self.stats.ttft_ticks.append(state.ttft)
+        if not finals:
+            return
+        if self.loop == "async":
+            # merge ONLY the final rows' first tokens into the device carry;
+            # the other rows borrow distinct unclaimed slot ids with
+            # valid False (an exact no-op, see merge_admit_carry)
+            final_slot = {i: s.slot for i, s in finals}
+            rest = [s for s in range(self.num_slots) if s not in final_slot.values()]
+            slots = np.asarray([final_slot[i] if i in final_slot else rest.pop()
+                                for i in range(A)], np.int64)
+            valid = np.asarray([i in final_slot for i in range(A)])
+            C.merge_admit_carry(self._lt_dev, self._req_dev, self._h2d(slots), tok0s,
+                                self._h2d(req_ids), self._h2d(valid))
+            for _, s in finals:
+                s.pending_first = True
+            self._pending_tok0.append(([s for _, s in finals], _HostCopy(tok0s),
+                                       [i for i, _ in finals]))
+            return
+        tok0s = self._wait(_HostCopy(tok0s))
+        now = time.perf_counter()
+        for i, state in finals:
+            tok0 = int(tok0s[i])
+            self._last_token[state.slot] = tok0
+            self._slot_req[state.slot] = state.req.req_id
+            self._take_first(state, tok0, now)
+
+    def _decode_states(self) -> List[Optional[_ActiveSlot]]:
+        """The rows a decode chunk serves: ``_active`` with mid-prefill rows
+        as ``None`` (their table rows are scrubbed at dispatch, and every
+        acceptance and advance loop then skips them as it skips empty
+        slots)."""
+        return [None if (s is not None and s.prefilling) else s for s in self._active]
 
     def _chunk_inputs(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """The active-row mask and (paged) this chunk's block tables, grown
@@ -1365,13 +1898,17 @@ class ServeSession:
         corrupt its sharers.  A speculative async chunk may write anywhere
         from the last harvested length ``_cl_true`` on.  Forks and appends
         may preempt other rows (preemption on); the mask is taken after
-        them, and a victim's table row is already the sentinel."""
+        them, and a victim's table row is already the sentinel.  A
+        mid-prefill row (chunked) is left out of the mask, and its row of
+        the tables' copy is scrubbed to the sentinel: the decode step
+        writes every row at its ``cur_len``, which would land in the prompt
+        K/V its table already holds."""
         if self.layout != "paged":
             return np.asarray([s is not None for s in self._active], bool), None
         span = self._draft_k_eff if self.spec else self.steps_per_tick - 1
         bs = self.block_size
         for slot, state in enumerate(self._active):
-            if state is None:
+            if state is None or state.prefilling:
                 continue
             hi = min(int(self._cur_len[slot]) + span,
                      state.req.prompt.size + state.req.max_new - 2)
@@ -1383,20 +1920,55 @@ class ServeSession:
             self._ensure_blocks(slot, hi)
         self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
                                             self.blocks.busy_count)
-        active = np.asarray([s is not None for s in self._active], bool)
-        return active, self._tables.copy()
+        active = np.asarray([s is not None and not s.prefilling for s in self._active], bool)
+        tables = self._tables.copy()
+        for slot, state in enumerate(self._active):
+            if state is not None and state.prefilling:
+                tables[slot] = self.num_blocks
+        return active, tables
 
     def _dispatch(self, active, tables, last_token, slot_req):
         """Issue one decode chunk; (toks (steps, N), last token) on the
         device.  ``cur_len`` is copied now, since the host advances it
-        while the chunk is in flight."""
+        while the chunk is in flight.  A tier session issues one chunk per
+        rung holding active rows (``_dispatch_tiers``)."""
+        if self.tiers is not None:
+            return self._dispatch_tiers(active, tables, last_token, slot_req)
+        return self._decode(self.cfg, active, tables, self._cur_len, last_token, slot_req)
+
+    def _decode(self, cfg, active, tables, cur_len, last_token, slot_req):
         return _decode_tick(
-            self.cfg, self.params, self.cache, last_token, self._h2d(self._cur_len),
+            cfg, self.params, self.cache, last_token, self._h2d(cur_len),
             self._h2d(active), slot_req, None if tables is None else self._h2d(tables),
             sampling=self.sampling, seed=self.seed, steps=self.steps_per_tick,
             block_size=self.block_size if tables is not None else 0,
             attn_impl=self.attn_impl,
         )
+
+    def _dispatch_tiers(self, active, tables, last_token, slot_req):
+        """One ``_decode_tick`` per ladder rung holding active rows, in
+        ladder order, chaining the last-token carry through them.  Each
+        dispatch masks ``active`` to its rung's rows and makes the other
+        rungs' rows write-inert: paged, their rows of the dispatch's table
+        copy are scrubbed to the sentinel (writes land in the trash block;
+        K2 and its plain version give an empty row exactly 0); slots, their
+        ``cur_len`` is pinned to ``max_len``, the stripe's trash column.
+        ``_decode_tick`` zeroes inactive rows' tokens and keeps their carry,
+        so the rung parts merge by elementwise sum (on the device, before
+        the one copy to the host)."""
+        toks = None
+        for t, tcfg in enumerate(self._tier_cfgs):
+            mask = active & (self._slot_tier == t)
+            if not mask.any():
+                continue
+            if tables is not None:
+                tb, cl = tables.copy(), self._cur_len
+                tb[~mask] = self.num_blocks
+            else:
+                tb, cl = None, np.where(mask, self._cur_len, self.max_len).astype(np.int32)
+            part, last_token = self._decode(tcfg, mask, tb, cl, last_token, slot_req)
+            toks = part if toks is None else toks + part
+        return toks, last_token
 
     def _dispatch_spec(self, active, tables, last_token, cur_len, slot_req):
         """Issue one speculative tick at the current draft window; returns
@@ -1517,6 +2089,59 @@ class ServeSession:
             self._accept_hist.clear()
         self.stats.draft_k_current = self._draft_k_eff
 
+    # -- quality tiers: the load shedder ---------------------------------------
+
+    def _current_decode_gap(self) -> int:
+        """The LIVE starvation signal: the worst work-tick gap since a
+        resident decoding row's latest accepted token
+        (``max_decode_gap_ticks`` is its high-water mark, which cannot show
+        recovery).  Mid-prefill rows have not emitted yet; TTFT meters
+        them."""
+        g = 0
+        for slot, state in enumerate(self._active):
+            if state is None or state.done or state.released or state.prefilling:
+                continue
+            g = max(g, int(self.stats.work_ticks - self._last_emit_work[slot]))
+        return g
+
+    def _update_shed(self) -> None:
+        """Load-adaptive shedding, once per step before admission.  A breach
+        (ready-queue depth above ``shed_queue_depth``, or the live decode
+        gap above ``shed_gap_ticks``) raises the shed level one rung; new
+        admissions then serve at ``max(requested, level)``.  The level drops
+        one rung only after ``shed_hold_steps`` CONSECUTIVE steps below
+        ``shed_restore_fraction`` of the thresholds, and that count clears
+        on every level change and every unhealthy step, so the level cannot
+        flap."""
+        if not self._shed_on:
+            return
+        depth = len(self._ready)
+        gap = self._current_decode_gap()
+        breach = ((self.shed_queue_depth is not None and depth > self.shed_queue_depth)
+                  or (self.shed_gap_ticks is not None and gap > self.shed_gap_ticks))
+        if breach:
+            self._shed_ok_steps = 0
+            if self._shed_level + 1 < len(self.tiers):
+                self._shed_level += 1
+                self.stats.tier_demotions += 1
+                self.stats.shed_level = self._shed_level
+            return
+        healthy = ((self.shed_queue_depth is None
+                    or depth <= self.shed_restore_fraction * self.shed_queue_depth)
+                   and (self.shed_gap_ticks is None
+                        or gap <= self.shed_restore_fraction * self.shed_gap_ticks))
+        if not healthy:
+            self._shed_ok_steps = 0
+            return
+        if self._shed_level == 0:
+            return
+        self._shed_ok_steps += 1
+        if self._shed_ok_steps >= self.shed_hold_steps:
+            self._shed_level -= 1
+            self.stats.tier_restorations += 1
+            self.stats.shed_level = self._shed_level
+            self._shed_ok_steps = 0
+
     def step(self) -> List[CompletedRequest]:
         """Admit what fits (under the interleaving budget), run one decode
         chunk, release finished slots.  Returns the requests completed
@@ -1540,6 +2165,7 @@ class ServeSession:
         """Dispatch one chunk (or speculative tick), block on its tokens,
         then do every piece of bookkeeping."""
         self._pull_arrivals()
+        self._update_shed()
         self._admit_phase()
         if self.n_active == 0:
             # idle: jump to the next arrival instead of burning empty ticks
@@ -1547,6 +2173,11 @@ class ServeSession:
                 self.clock = max(self.clock + 1, self._pending[0][0])
             else:
                 self.clock += 1
+            return self._drain_finished()
+        if self.n_decoding == 0:
+            # only mid-prefill rows resident (their chunks went out in
+            # _admit_phase): nothing to decode, but the clock advances
+            self.clock += 1
             return self._drain_finished()
         active, tables = self._chunk_inputs()
         if self.spec:
@@ -1562,7 +2193,7 @@ class ServeSession:
             self.clock += 1
             self.stats.ticks += 1
             self.stats.work_ticks += k + 1
-            states = list(self._active)
+            states = self._decode_states()
             self._accept_spec_chunk(states, toks, n_acc, self.stats.work_ticks, k)
             for slot, state in enumerate(states):
                 if state is None:
@@ -1581,7 +2212,7 @@ class ServeSession:
         self.clock += steps
         self.stats.ticks += steps
         self.stats.work_ticks += steps
-        states = list(self._active)
+        states = self._decode_states()
         self._accept_chunk(states, toks, steps, self.stats.work_ticks)
         for slot, state in enumerate(states):
             if state is None:
@@ -1621,9 +2252,10 @@ class ServeSession:
         for chunk N overlap the device computing N+1."""
         self._release_predicted_done()
         self._pull_arrivals()
+        self._update_shed()
         self._admit_phase()
         prev, new = self._inflight, None
-        if self.n_active:
+        if self.n_decoding:
             active, tables = self._chunk_inputs()
             if self.spec:
                 # cur_len is a device carry (_cl_dev): rows advance by their
@@ -1637,8 +2269,8 @@ class ServeSession:
                 self.clock += 1
                 self.stats.ticks += 1
                 self.stats.work_ticks += k + 1
-                new = _Inflight(_HostCopy(out_d), 1, list(self._active), self.stats.work_ticks,
-                                self._staged, draft_k=k)
+                new = _Inflight(_HostCopy(out_d), 1, self._decode_states(),
+                                self.stats.work_ticks, self._staged, draft_k=k)
                 advance = k + 1
             else:
                 steps = self.steps_per_tick
@@ -1647,7 +2279,7 @@ class ServeSession:
                 self.clock += steps
                 self.stats.ticks += steps
                 self.stats.work_ticks += steps
-                new = _Inflight(_HostCopy(toks_d), steps, list(self._active),
+                new = _Inflight(_HostCopy(toks_d), steps, self._decode_states(),
                                 self.stats.work_ticks, self._staged)
                 advance = steps
             self._staged = []
@@ -1655,6 +2287,10 @@ class ServeSession:
             # the clamp matches the sync loop's post-harvest update
             self._cur_len = np.minimum(self._cur_len + advance * active,
                                        self.max_len - 1).astype(np.int32)
+        elif self.n_active:
+            # only mid-prefill rows resident (their chunks went out in
+            # _admit_phase): nothing to decode, but the clock advances
+            self.clock += 1
         elif prev is None:
             # idle: jump to the next arrival instead of burning empty ticks
             if self._pending:
@@ -1676,22 +2312,19 @@ class ServeSession:
         of the rows it still owns up to their accepted counts."""
         toks = self._wait(fl.toks)
         pend, self._pending_tok0 = self._pending_tok0, []
-        drained = [(states, self._wait(copy)) for states, copy in pend]
+        drained = [(states, self._wait(copy), idxs) for states, copy, idxs in pend]
         now = time.perf_counter()
-        eos = self.sampling.eos_id
-        for states, tok0s in drained:
-            for i, state in enumerate(states):
+        for states, tok0s, idxs in drained:
+            # ``idxs``: each state's row of its dispatch (a chunk dispatch
+            # merges only its final rows)
+            for state, i in zip(states, idxs):
                 state.pending_first = False
                 if state.preempted:
                     continue
-                tok0 = int(tok0s[i])
-                state.tokens.append(tok0)
-                self.stats.generated_tokens += 1
-                self._first_token_held(state.req.req_id, now)
-                if len(state.tokens) >= state.req.max_new or (eos >= 0 and tok0 == eos):
-                    # discovered one chunk late: the row decoded one garbage
-                    # chunk meanwhile (skipped below through state.done)
-                    self._finish(state, "eos" if (eos >= 0 and tok0 == eos) else "length")
+                # a row finished here was discovered one chunk late: it
+                # decoded one garbage chunk meanwhile (skipped below
+                # through state.done)
+                self._take_first(state, int(tok0s[i]), now)
         if not fl.draft_k:
             self._accept_chunk(fl.states, toks, fl.steps, fl.work_end)
             return

@@ -91,7 +91,7 @@ def test_launcher_serves_on_cpu_when_asked(capsys):
     from repro_torch.launch import serve as launch
 
     results = launch.main(["--reduced", "--device", "cpu", "--requests", "3", "--new", "4",
-                           "--exec", "approx"])
+                           "--exec", "approx", "--freeze-weights"])
     assert len(results) == 3
     assert all(1 <= len(r.tokens) <= 4 for r in results.values())
     out = capsys.readouterr().out

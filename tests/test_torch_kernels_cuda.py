@@ -5,6 +5,8 @@ the card, run ``PYTHONPATH=src python -m pytest -q -m cuda tests/``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -222,3 +224,92 @@ def test_approx_mul_eltwise_kernel_takes_unaligned_views(dev):
     out = approx_mul_eltwise(av, bv, multiplier="mul8x8_1")
     torch.cuda.synchronize()
     assert torch.equal(out, approx_mul_eltwise_plain(av, bv, "mul8x8_1"))
+
+
+TIERS3 = ("exact", "approx", "approx_msr")
+
+
+def _tier_models(dev):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = reduced_config(get_config("granite-3-2b"))
+    return cfg, init_params(cfg, seed=0, device=dev)
+
+
+def _tier_session(cfg, params, dev, **kw):
+    from repro_torch.serve import ServeSession
+
+    return ServeSession(cfg, params, num_slots=3, max_len=32, prompt_buckets=(8,),
+                        block_size=8, loop="sync", attn_impl="kernel", device=dev, **kw)
+
+
+def test_tier_dispatch_scrubs_the_other_rungs_rows(dev, monkeypatch):
+    """One decode step of a 3-rung session through K1 and K2: each rung's
+    dispatch gives the other rungs' rows (scrubbed to all-sentinel tables)
+    exactly 0 from K2 and leaves their pool blocks untouched; each row
+    writes only its own position."""
+    from repro_torch.models import attention as A
+
+    cfg, params = _tier_models(dev)
+    calls, inner = [], A.paged_attention
+
+    def recorded(*args, **kw):
+        out = inner(*args, **kw)
+        calls.append((args[5].clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(A, "paged_attention", recorded)
+    sess = _tier_session(cfg, params, dev, tiers=TIERS3)
+    rng = np.random.default_rng(0)
+    for i, t in enumerate(TIERS3):
+        sess.submit(rng.integers(1, cfg.vocab_size, 6), max_new=4, req_id=i, tier=t)
+    sess._pull_arrivals()
+    sess._admit_phase()
+    before = {n: a.clone() for n, a in sess.cache.items()}
+    k1 = approx_matmul.launches
+    sess.step()
+    torch.cuda.synchronize()
+    assert approx_matmul.launches > k1
+    assert len(calls) == len(TIERS3) * cfg.num_layers
+    for table, out in calls:
+        scrubbed = (table == sess.num_blocks).all(dim=1)
+        assert int(scrubbed.sum()) == len(TIERS3) - 1
+        assert torch.equal(out[scrubbed], torch.zeros_like(out[scrubbed]))
+        assert (out[~scrubbed] != 0).any()
+    # every row wrote its first decode token's K/V at position 6 of its
+    # first block, through its own rung's dispatch only; nothing else moved
+    written = torch.zeros(before["k"].shape[1:3], dtype=torch.bool, device=dev)
+    for slot in range(3):
+        written[sess._held[slot][0], 6] = True
+    written[sess.num_blocks] = True                  # the trash block
+    for n, a in sess.cache.items():
+        assert torch.equal(a[:, ~written], before[n][:, ~written])
+        assert not torch.equal(a[:, written], before[n][:, written])
+
+
+def test_tier_session_equals_single_mode_sessions(dev):
+    """A mixed 3-rung session's tokens on the card equal single-mode
+    sessions of each rung serving their requests alone (per-row scales);
+    the exact rung launches no K1."""
+    from repro_torch.serve import resolve_execution_mode
+
+    cfg, params = _tier_models(dev)
+    rng = np.random.default_rng(1)
+    trace = [(rng.integers(1, cfg.vocab_size, int(rng.integers(2, 9))), 5,
+              None if i == 5 else TIERS3[i % 3]) for i in range(6)]
+
+    def serve(sess, reqs):
+        for rid, (p, n, t) in reqs:
+            sess.submit(p, max_new=n, req_id=rid, tier=t)
+        return {rid: r.tokens.tolist() for rid, r in sess.run().items()}
+
+    mixed = serve(_tier_session(cfg, params, dev, tiers=TIERS3), enumerate(trace))
+    for t in TIERS3:
+        mine = [(rid, (p, n, None)) for rid, (p, n, tt) in enumerate(trace) if (tt or TIERS3[0]) == t]
+        ocfg = dataclasses.replace(cfg, approx=resolve_execution_mode(t, act_per_row=True))
+        k1 = approx_matmul.launches
+        oracle = serve(_tier_session(ocfg, params, dev), mine)
+        assert (approx_matmul.launches > k1) == (t != "exact")
+        for rid, _ in mine:
+            assert mixed[rid] == oracle[rid], (t, rid)

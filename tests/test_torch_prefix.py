@@ -367,15 +367,6 @@ def test_sharing_and_preemption_require_the_paged_layout(bad):
     assert str(terr.value) == str(jerr.value)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(tiers=("exact", "approx")), "item 7"),
-                                     (dict(chunked_prefill=True), "item 8")],
-                         ids=["tiers", "chunked_prefill"])
-def test_unported_features_name_their_roadmap_item(kw, item):
-    _, _, tcfg, tp = _models("exact")
-    with pytest.raises(NotImplementedError, match=item):
-        ServeSession(tcfg, tp, device="cpu", **PAGED, **kw)
-
-
 def test_launcher_prefix_sharing_and_preemption(capsys):
     from repro_torch.launch.serve import main
 
