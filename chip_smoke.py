@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: granite-3-2b at full width served (on the paged pool and on
 per-slot stripes; with prefix sharing, preemption, spec decode, quality
-tiers and chunked prefill) and retrained, and the paper's CNNs (ResNet-19 at full
-width) trained and QAT-retrained, through the hand-written CUDA kernels,
+tiers and chunked prefill) and retrained, the paper's CNNs (ResNet-19 at full
+width) trained and QAT-retrained, and qwen2-moe-a2.7b, falcon-mamba-7b and
+zamba2-2.7b served at full width, through the hand-written CUDA kernels,
 each held against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed S] [--out report.json] [--profile]
@@ -122,7 +123,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            with --profile a steady async tick beside phase 4's sync tick.
 
 11. share  prefix sharing, preemption and self-speculative decoding at full
-           width (the weights re-created from the seed), served async on 4
+           width, FEATURE_LAYERS deep (the weights re-created from the
+           seed at that depth), served async on 4
            slots of 16-row blocks through K1 and K2: (a) 8 requests sharing
            a 64-token system prompt (tails of 8-40, 16-24 new) with and
            without ``prefix_sharing``: >= 28 prefix-hit blocks, fewer peak
@@ -158,7 +160,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            K2), and the sums are the paths' launches.  The baselines and
            oracles are not counted.
 12. tiers  quality tiers with the load shedder, and chunked prefill, at full
-           width (phase 4's model and seed, float weights re-created from
+           width ((a) and (b) FEATURE_LAYERS deep, (c) at 40 layers; phase
+           4's model and seed, float weights re-created from
            the seed: the ``exact`` rung needs them, the quantized rungs
            quantize them per call), async on 4 slots of 16-row blocks
            through K1 and K2: (a) the ladder exact / approx / approx_msr
@@ -180,8 +183,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            to the same session's on the CPU at reduced width (a schedule
            is shape-only: no eos, and no value reaches it), final level 0,
            and every request's tokens equal to its effective rung's
-           single-mode session; (c) chunked prefill on frozen codes of the
-           same weights: phase 4's trace and two 300-token prompts (past
+           single-mode session; (c) chunked prefill on phase 4's frozen
+           weights (40 layers): phase 4's trace and two 300-token prompts (past
            the largest bucket, 128), chunks of 64, prefill_decode_ratio
            1.0, max_len 336: async and sync bit-equal; chunks of 32
            bit-equal for every prompt both sizes chunk (the chunk pass runs
@@ -198,6 +201,55 @@ Phases, each of which fails the run (non-zero exit, no result line):
            mixed runs, the burst, the three chunked runs) and read just
            after; each must launch both.  The oracles, the CPU schedule
            and the unchunked session are not counted.
+13. families  the moe, ssm and hybrid families at full width, one model
+           at a time: qwen2-moe-a2.7b (24 layers, d 2048, 16/16 heads of
+           128, 60 experts top-4 of ff 1408, a shared expert of 5632) on
+           the paged pool through K1 and K2, falcon-mamba-7b (64 Mamba-1
+           layers, d 4096, d_inner 8192) and zamba2-2.7b (54 Mamba-2
+           layers in 9 groups of 6, each group followed by the shared
+           attention block) on the slot layout through K1; random weights
+           from the seed, built and frozen one layer at a time (approx,
+           mul8x8_2, per-row scales), a float32 cache, 4 slots, greedy.
+           The trace per model: 6 requests of 8-32 prompt tokens (buckets
+           16/32) and 8-12 new, 2 at tick 0, then 1 per tick (the moe
+           model's cut to its first 4 requests, 8 new tokens each).  (a) K1
+           bit-equal to its plain version at each new (K, N), at M = 4 and
+           the first admission's M (an expert's: its capacity); K2 at the
+           moe shape (B 4, H 16, Hkv 16, hd 128) within 1e-4 on both pool
+           dtypes with holes and cur_len on a block boundary, and one
+           served decode step's 24 calls timed beside the bound, the plain
+           version and SDPA.  (b) the trace at full depth on the async
+           loop: finite tokens in the vocabulary, K1's count (zeroed just
+           before) equal to the passes of the same session rehearsed on the
+           CPU at reduced width times one pass's calls (every expert's
+           three, empty ones included), K2's > 0 for the moe model and 0
+           for the others; tok/s, admission seconds (CUDA events), peak
+           memory, the dropped assignments per admission (moe), the scans
+           against the teacher-forced decode (printed), and with --profile
+           a steady tick's host ms and device idle share.  (c) 4 layers
+           deep (the hybrid: one group of 6), weights from seed + 1: the
+           session through K1 bit-equal to one through K1's plain version
+           and the sync loop to the async; the moe model's decode step
+           through K2 against the gather's (equal, or a recorded near tie
+           within NEAR_TIE); ssm/hybrid ``forward`` (the chunked scans)
+           within JAX's tolerance (|d| <= 2e-3 + 2e-2 |ref|) of the prompt
+           teacher-forced through ``decode_step``, float32 and float
+           execution, and each request's tokens equal to
+           ``generate(prefill_mode="decode")`` of its prompt alone or a
+           recorded near tie.
+
+Phases 1-7 run in this process, one after another, and so do the parts
+whose times go into the kernels line: phase 8's K1 at the CNN shapes,
+phase 10's stall probe (its gates are host times) and phase 13's K2 at the
+moe shape.  The rest of phases 8-13 then runs as units (phase 8; 9; 10;
+11; 12 (a)-(b), 12 (c) and its sync run; each model of 13) in up to
+POOL_WORKERS processes on the one card at once, as many as the units'
+memory peaks allow (POOL_GB), each unit in a fresh process: serving is
+host-bound, and processes sharing the card each serve at the speed of one
+alone (``scripts/shared_card_probe.py``), so the phases' seconds add up to
+more than the run's.  The tok/s, host ms and admission seconds those units
+print are taken while the other units run.  Each unit zeroes and reads its
+own kernels' counts; its log is printed when it ends.
 
 Activations use per-row scales (``act_per_row``), so a request's tokens do
 not depend on which other requests share its batch, and the oracle can
@@ -219,11 +271,16 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing as mp
+import os
+import queue
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -254,6 +311,7 @@ K3_DESIGNS = ("mul8x8_1", "mul8x8_2", "mul8x8_3")
 K3_TIMED_N = 1 << 26                 # 64 M elements
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 3
 ORACLE_LAYERS = 4
+FEATURE_LAYERS = 10                  # phase 11's and 12 (a)-(b)'s depth: the time limit
 SYSTEM_PROMPT = 64                   # phase 11's shared system prompt: 4 blocks
 COW_PROMPT = 72                      # phase 11's identical prompts, ending in a partial block
 PREEMPT_REQUESTS = 4                 # phase 11's preemption trace: phase 4's first requests
@@ -271,12 +329,25 @@ LONG_PROMPT, CHUNK, CHUNK_SMALL = 300, 64, 32  # phase 12's chunked prefill
 CHUNK_MAX_LEN = 336                  # covers a long prompt + 16 new, whole blocks
 WIDE_BUCKETS, WIDE_MAX_LEN = BUCKETS + (256, 512), 544   # the unchunked session's
 NEAR_TIE = 1.0                       # logits; the chunk pass and forward differed by up to 0.645
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "falcon-mamba-7b", "zamba2-2.7b")   # phase 13
+FAMILY_REQUESTS, FAMILY_BUCKETS = 6, (16, 32)
+FAMILY_MAX_LEN = 48                  # 32 prompt + 12 new, whole blocks
+MOE_REQUESTS, MOE_NEW = 4, 8         # phase 13's cut of the moe trace
 PAPER_BATCH, PAPER_TEST = 64, 256     # Table VIII's training and test batches
 RESNET_STEPS = 3
+POOL_WORKERS = 4                     # processes that run phases 8-13's units
+
+
+_UNIT_LOG = None                     # a pool worker's log lines, printed when its unit ends
 
 
 def log(*a):
-    print(*a, flush=True)
+    if _UNIT_LOG is None:
+        print(*a, flush=True)
+        return
+    line = " ".join(map(str, a))
+    _UNIT_LOG.append(line)
+    print(line[:200], file=sys.stderr, flush=True)      # progress, while the unit runs
 
 
 def cuda_ms(fn, min_s: float = 0.2, max_reps: int = 50) -> float:
@@ -781,11 +852,12 @@ def profile_decode(cfg, params, trace, dev, seed, ticks=6, cache_layout="paged",
     return out
 
 
-def decode_step_diff(cfg, params, trace, toks, dev, cache_dtype=torch.float32):
+def decode_step_diff(cfg, params, trace, toks, dev, cache_dtype=torch.float32, near_tie=0.0):
     """Prefill the first two prompts into a fresh pool of ``cache_dtype``,
     then run one decode step on copies of it through K2 and through its
     plain version (K1 in both): the logits' largest difference and whether
-    the argmax agrees."""
+    the argmax agrees.  Where it does not, each differing row's two tokens
+    must lie within ``near_tie`` in the plain step's logits (recorded)."""
     from repro_torch.models.transformer import forward, init_paged_cache, paged_decode_step
     from repro_torch.serve.cache import scatter_prompt_blocks
 
@@ -808,7 +880,14 @@ def decode_step_diff(cfg, params, trace, toks, dev, cache_dtype=torch.float32):
            "max_abs_logit": out["gather"].abs().max().item(),
            "argmax_equal": bool(torch.equal(out["kernel"].argmax(-1), out["gather"].argmax(-1)))}
     if not res["argmax_equal"]:
-        raise AssertionError(f"decode step through K2 picks other tokens than the plain one: {res}")
+        a, b = out["kernel"].argmax(-1), out["gather"].argmax(-1)
+        res["near_ties"] = [{"row": r, "tokens": [int(a[r]), int(b[r])],
+                             "logits": [out["gather"][r, a[r]].item(),
+                                        out["gather"][r, b[r]].item()]}
+                            for r in (a != b).nonzero()[:, 0].tolist()]
+        if any(abs(t["logits"][0] - t["logits"][1]) > near_tie for t in res["near_ties"]):
+            raise AssertionError(f"decode step through K2 picks other tokens than the plain "
+                                 f"one: {res}")
     return res
 
 
@@ -1090,8 +1169,9 @@ def k1_cnn_shapes(dev, gen, seed):
             "resnet19_shapes": list(timed.values()), "resnet19_forward": forward}
 
 
-def paper_phase(dev, gen, seed):
-    """Phase 8: the paper's experiment through K1 (see the module text)."""
+def paper_phase(dev, seed):
+    """Phase 8 (b)-(e): the paper's experiment through K1 (see the module
+    text); (a), ``k1_cnn_shapes``, runs in the parent process."""
     from repro_torch.core.approx import ApproxConfig
     from repro_torch.core.metrics import dal
     from repro_torch.data.synthetic import image_dataset
@@ -1101,7 +1181,7 @@ def paper_phase(dev, gen, seed):
     from repro_torch.train.tree import leaves, tree_map
 
     t_phase = time.perf_counter()
-    out = {"k1": k1_cnn_shapes(dev, gen, seed)}
+    out = {}
 
     # (b) Table VIII, every multiplier through K1; the count zeroed per net
     rows = []
@@ -1578,6 +1658,26 @@ def stall_probe(cfg, params, trace, dev, seed):
     return out
 
 
+def stall_check(cfg, params, trace, dev, seed, smi):
+    """Phase 10 (e): work queued behind a device stall; what the async loop
+    does must not wait on it.  Run with nothing else on the card: its gates
+    are host times."""
+    t0 = time.perf_counter()
+    probe = stall_probe(cfg, params, trace, dev, seed)
+    for name, row in probe.items():
+        log(f"[async] behind a queued {STALL_MS} ms device stall, {name} ({smi}): "
+            f"{json.dumps(row)}")
+    waits = {name: probe[name]["host_ms"] for name in ("stage_pinned", "fetch_event",
+                                                        "attention_core")}
+    waits["step_async waiting calls"] = probe["step_async"]["waiting_calls_ms"]
+    if probe["stage_pageable"]["host_ms"] < 0.5 * STALL_MS:
+        raise AssertionError(f"a pageable copy did not wait out the stall: the probe measured "
+                             f"nothing ({probe['stage_pageable']})")
+    if max(waits.values()) > 0.25 * STALL_MS:
+        raise AssertionError(f"the async path waited on the device: {waits}")
+    return probe, time.perf_counter() - t0
+
+
 def async_phase(cfg, dev, seed, trace, phase4, smi, profile_paged=None, profile=False):
     """Phase 10: the async loop and the multi-token paged pass at full width
     through K1 and K2 (see the module text).  ``phase4`` holds phase 4's
@@ -1645,20 +1745,7 @@ def async_phase(cfg, dev, seed, trace, phase4, smi, profile_paged=None, profile=
         log(f"[async] {name} ({smi}): {json.dumps(row)}")
     part("sessions")
 
-    # (e) work queued behind a device stall: what the async loop does must not wait on it
-    probe = out["stall_probe"] = stall_probe(cfg, params, trace, dev, seed)
-    for name, row in probe.items():
-        log(f"[async] behind a queued {STALL_MS} ms device stall, {name} ({smi}): "
-            f"{json.dumps(row)}")
-    waits = {name: probe[name]["host_ms"] for name in ("stage_pinned", "fetch_event",
-                                                        "attention_core")}
-    waits["step_async waiting calls"] = probe["step_async"]["waiting_calls_ms"]
-    if probe["stage_pageable"]["host_ms"] < 0.5 * STALL_MS:
-        raise AssertionError(f"a pageable copy did not wait out the stall: the probe measured "
-                             f"nothing ({probe['stage_pageable']})")
-    if max(waits.values()) > 0.25 * STALL_MS:
-        raise AssertionError(f"the async path waited on the device: {waits}")
-    part("stall_probe")
+    # (e), the stall probe, runs alone in the parent process: ``stall_check``
 
     # (d) the multi-token paged pass
     out["verify"] = verify_check(cfg, params, trace, phase4, dev)
@@ -2057,19 +2144,34 @@ def shed_schedule(sess, res, levels):
             "levels": runs(levels), "ticks": st.ticks}
 
 
+def tier_traces(seed, vocab):
+    """Phase 12's requests: (a)'s mixed-tier trace, (b)'s burst and (c)'s two
+    long prompts, drawn in that order from one generator."""
+    rng = np.random.default_rng(seed + 12)
+    # (a) mixed tiers: rungs round-robin, the last request at the best rung
+    atrace = [(rng.integers(0, vocab, int(rng.integers(16, 65))), int(rng.integers(8, 17)),
+               i // 2, None if i == TIER_REQUESTS - 1 else LADDER[i % len(LADDER)])
+              for i in range(TIER_REQUESTS)]
+    # (b) a burst of requests at the best rung
+    btrace = [(rng.integers(0, vocab, int(rng.integers(16, 65))), int(rng.integers(8, 17)),
+               i * 2 // SHED_REQUESTS) for i in range(SHED_REQUESTS)]
+    long_prompts = [rng.integers(0, vocab, LONG_PROMPT) for _ in range(2)]
+    return atrace, btrace, long_prompts
+
+
 def tiers_phase(cfg, dev, seed, trace, smi):
-    """Phase 12: quality tiers with the load shedder, and chunked prefill, at
-    full width through K1 and K2 (see the module text); ``trace`` is phase
-    4's."""
+    """Phase 12 (a) and (b): quality tiers and the load shedder at full width,
+    FEATURE_LAYERS deep (their gates are exact), through K1 and K2 (see the
+    module text); (c) is ``chunked_phase``."""
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.approx_matmul import approx_matmul
-    from repro_torch.models.transformer import forward, init_params
-    from repro_torch.serve import freeze_params, resolve_execution_mode
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import resolve_execution_mode
 
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=FEATURE_LAYERS)
     params = init_params(cfg, seed=seed, device=dev)      # float: the exact rung needs them
-    rng = np.random.default_rng(seed + 12)
-    vocab = cfg.vocab_size
+    atrace, btrace, _ = tier_traces(seed, cfg.vocab_size)
     out = {"launches": {}, "launches_by_run": {}, "seconds_by_part": {}}
     t_part = time.perf_counter()
 
@@ -2116,9 +2218,6 @@ def tiers_phase(cfg, dev, seed, trace, smi):
         return rows
 
     # (a) mixed tiers: rungs round-robin, the last request at the best rung
-    atrace = [(rng.integers(0, vocab, int(rng.integers(16, 65))), int(rng.integers(8, 17)),
-               i // 2, None if i == TIER_REQUESTS - 1 else LADDER[i % len(LADDER)])
-              for i in range(TIER_REQUESTS)]
     a = out["mixed"] = {}
     mixed = {}
     for loop in ("async", "sync"):
@@ -2141,8 +2240,6 @@ def tiers_phase(cfg, dev, seed, trace, smi):
     # (b) the shedder: a burst of requests at the best rung, against its
     # schedule on the CPU at reduced width (shape-only: no eos, no value
     # reaches the schedule)
-    btrace = [(rng.integers(0, vocab, int(rng.integers(16, 65))), int(rng.integers(8, 17)),
-               i * 2 // SHED_REQUESTS) for i in range(SHED_REQUESTS)]
     rcfg = reduced_config(cfg)
     cpu = torch.device("cpu")
     rsess, rres, _, rlevels = shed_session(rcfg, init_params(rcfg, seed=seed, device=cpu), cpu,
@@ -2159,16 +2256,44 @@ def tiers_phase(cfg, dev, seed, trace, smi):
     log(f"[tiers] (b) shedder oracles: {json.dumps(b['oracles'])}")
     lap("shed")
 
-    # (c) chunked prefill: phase 4's trace and two prompts past the largest
-    # bucket, on frozen codes of the same weights (as phases 4 and 10)
-    fparams = freeze_params(cfg, params)
-    ctrace = list(trace) + [(rng.integers(0, vocab, LONG_PROMPT), 16, 2) for _ in range(2)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+CHUNK_RUNS = {"async": ("async", CHUNK), "sync": ("sync", CHUNK),
+              f"chunk_{CHUNK_SMALL}": ("async", CHUNK_SMALL)}
+
+
+def chunked_phase(full, dev, seed, trace, smi, runs):
+    """Phase 12 (c): chunked prefill at full width and the model's depth (its
+    near-tie gates were sized there) through K1 and K2 (see the module
+    text); ``trace`` is phase 4's.  ``runs``: which of CHUNK_RUNS to serve;
+    with "async" also the unchunked session and the gates against it.  The
+    sync run is served by another call, and ``chunked_sync_gate`` holds it
+    to the async run."""
+    from repro_torch.models.transformer import forward, init_params
+
+    t_phase = time.perf_counter()
+    vocab = full.vocab_size
+    out = {"launches": {}, "launches_by_run": {}, "seconds_by_part": {}, "tokens": {}}
+
+    def counted(path, name, run):
+        return count_launches(out, path, name, run)
+
+    numbers = session_numbers
+    # phase 4's trace and two prompts past the largest bucket, on phase 4's
+    # frozen weights (as phases 4 and 10)
+    fparams = init_params(full, seed=seed, device=dev, freeze=True)
+    ctrace = list(trace) + [(p, 16, 2) for p in tier_traces(seed, vocab)[2]]
     ckw = dict(prefill_decode_ratio=1.0, max_len=CHUNK_MAX_LEN)
     c = out["chunked"] = {}
     cres = {}
-    for name, loop, chunk in (("async", "async", CHUNK), ("sync", "sync", CHUNK),
-                              (f"chunk_{CHUNK_SMALL}", "async", CHUNK_SMALL)):
-        sess = share_session(cfg, fparams, dev, seed, loop=loop, chunked_prefill=True,
+    for name in runs:
+        loop, chunk = CHUNK_RUNS[name]
+        sess = share_session(full, fparams, dev, seed, loop=loop, chunked_prefill=True,
                              prefill_chunk=chunk, **ckw)
         res, wall = counted("chunked", name, lambda: drive(sess, ctrace))
         plan = sum(-(-p.size // chunk) for p, _, _ in ctrace if p.size > chunk)
@@ -2181,7 +2306,14 @@ def tiers_phase(cfg, dev, seed, trace, smi):
         if st.prefill_chunks != plan:
             raise AssertionError(f"chunked {name}: {st.prefill_chunks} chunk rows, the plan "
                                  f"has {plan}")
-    sess = share_session(cfg, fparams, dev, seed, prompt_buckets=WIDE_BUCKETS,
+        out["tokens"][name] = {rid: r.tokens.tolist() for rid, r in res.items()}
+    if "async" not in runs:
+        del fparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t_phase
+        return out
+    sess = share_session(full, fparams, dev, seed, prompt_buckets=WIDE_BUCKETS,
                          **{**ckw, "max_len": WIDE_MAX_LEN})
     ures, wall = drive(sess, ctrace)
     st = sess.stats
@@ -2201,7 +2333,7 @@ def tiers_phase(cfg, dev, seed, trace, smi):
             raise AssertionError(f"{name}, request {rid}: {len(toks)} vs {len(want)} tokens")
         p = ctrace[rid][0]
         with torch.no_grad():
-            lg = forward(cfg, fparams, torch.as_tensor(
+            lg = forward(full, fparams, torch.as_tensor(
                 np.concatenate([p, np.asarray(want[:k], p.dtype)])[None], device=dev))[0, -1]
         top = torch.topk(lg[:vocab], 2)
         row = c["near_ties"][f"{name}/{rid}"] = {
@@ -2214,8 +2346,6 @@ def tiers_phase(cfg, dev, seed, trace, smi):
 
     for rid, r in cres["async"].items():
         toks = r.tokens.tolist()
-        # gate 1: the loops make the same dispatches
-        same_tokens(f"chunked, request {rid}: sync vs async", cres["sync"][rid].tokens, toks)
         # gate 2: a prompt both chunk sizes chunk goes through the chunk
         # pass in both, which is chunk-invariant at its fixed width
         small = cres[f"chunk_{CHUNK_SMALL}"][rid].tokens.tolist()
@@ -2230,12 +2360,503 @@ def tiers_phase(cfg, dev, seed, trace, smi):
         name: float(np.median([c[name]["ttft_ticks"][rid] for rid in short]))
         for name in ("async", "unchunked")}
     log(f"[tiers] (c) chunked prefill ({smi}): {json.dumps(c)}")
-    lap("chunked")
-    del params, fparams, sess
+    del fparams, sess
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+def chunked_sync_gate(sync, asyn):
+    """Phase 12 (c)'s first gate: the sync loop's chunked run makes the same
+    dispatches as the async loop's, so every request's tokens are equal."""
+    for rid, toks in asyn.items():
+        same_tokens(f"chunked, request {rid}: sync vs async", sync[rid], toks)
+
+
+
+
+# ---------------------------------------------------------------------------
+# phase 13: families
+# ---------------------------------------------------------------------------
+
+
+def k1_per_pass(cfg):
+    """K1 launches of one forward or decode pass of ``cfg``'s stack (frozen
+    weights): every projection of every layer, each routed expert's three
+    included, and the LM head."""
+    n = cfg.num_layers
+    if cfg.family == "moe":
+        return n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
+    if cfg.family == "ssm":
+        return 4 * n + 1
+    if cfg.family == "hybrid":
+        return 2 * n + 7 * (n // cfg.attn_every) + 1
+    return 7 * n + 1
+
+
+def family_trace(rng, vocab):
+    """FAMILY_REQUESTS requests of 8-32 prompt tokens and 8-12 new, two at
+    tick 0, then one per tick."""
+    return [(rng.integers(0, vocab, int(rng.integers(8, 33))), int(rng.integers(8, 13)),
+             max(0, i - 1)) for i in range(FAMILY_REQUESTS)]
+
+
+def family_session(cfg, params, dev, seed, **kw):
+    """Phase 13's session: 4 slots, buckets 16/32, async; moe on the paged
+    pool through K2, ssm and hybrid on the slot layout."""
+    layout = "paged" if cfg.family == "moe" else "slots"
+    kw = {"max_len": FAMILY_MAX_LEN, "prompt_buckets": FAMILY_BUCKETS, "cache_layout": layout,
+          "attn_impl": "kernel" if layout == "paged" else "gather", **kw}
+    return share_session(cfg, params, dev, seed, **kw)
+
+
+def rehearse_passes(cfg, trace, seed):
+    """The forward and decode passes phase 13's session makes on ``trace``:
+    the same session on the CPU at reduced width (a schedule is shape-only:
+    no eos), its K1 calls (the plain version's, counted) over one pass's."""
+    import repro_torch.core.approx as A
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import init_params
+
+    rcfg = dataclasses.replace(reduced_config(cfg), approx=cfg.approx)
+    params = init_params(rcfg, seed=seed, device="cpu", freeze=True)
+    calls, inner = [0], A.approx_matmul
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    A.approx_matmul = counting
+    try:
+        drive(family_session(rcfg, params, "cpu", seed),
+              [(p % rcfg.vocab_size, n, a) for p, n, a in trace])
+    finally:
+        A.approx_matmul = inner
+    per = k1_per_pass(rcfg)
+    if calls[0] % per:
+        raise AssertionError(f"{cfg.name}: {calls[0]} K1 calls at reduced width are not "
+                             f"whole passes of {per}")
+    return calls[0] // per
+
+
+def time_admissions(sess):
+    """Each admission's rows, host seconds and CUDA events around its
+    launches (read after the run: the async loop never waits on them)."""
+    rows, inner = [], sess._admit_many
+
+    def admit(reqs, tier_idx=0):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        inner(reqs, tier_idx)
+        rows.append((len(reqs), time.perf_counter() - t0, e0, e1))
+        e1.record()
+
+    sess._admit_many = admit
+    return rows
+
+
+def record_drops(admissions):
+    """The dropped assignments (past an expert's capacity) of every MoE
+    routing, as device counts, and where each admission's routings start
+    (``admissions`` is ``time_admissions``' list)."""
+    import repro_torch.models.moe as M
+
+    drops, inner = [], M.route
+
+    def route(x, router, top_k, capacity):
+        r = inner(x, router, top_k, capacity)
+        drops.append((len(admissions), x.shape[0], (~r.keep).sum()))
+        return r
+
+    M.route = route
+    return drops, lambda: setattr(M, "route", inner)
+
+
+def forward_vs_decode(cfg, params, prompt, dev):
+    """Logits of ``forward`` (the chunked scans) and of the prompt
+    teacher-forced through ``decode_step``: their largest difference and
+    the worst excess over JAX's tolerance (|d| <= 2e-3 + 2e-2 |forward|)."""
+    from repro_torch.models.transformer import decode_step, forward, init_cache
+
+    toks = torch.as_tensor(prompt[None], device=dev)
+    S0 = toks.shape[1]
+    with torch.no_grad():
+        ref = forward(cfg, params, toks)[0, :, :cfg.vocab_size].float()
+        cache = init_cache(cfg, 1, S0, device=dev)
+        got = torch.stack([decode_step(cfg, params, cache, toks[:, i:i + 1],
+                                       torch.full((1,), i, device=dev))[0, 0, :cfg.vocab_size]
+                           for i in range(S0)]).float()
+    d = (got - ref).abs()
+    return {"S": S0, "max_abs_diff": d.max().item(), "max_abs_logit": ref.abs().max().item(),
+            "excess_over_tol": (d - 2e-3 - 2e-2 * ref.abs()).max().item(),
+            "argmax_equal_share": (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+
+
+def family_phase(arch, dev, seed, smi, profile=False):
+    """Phase 13 for one of FAMILY_ARCHS (see the module text)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.serve import PromptBuckets, freeze_params, generate, resolve_execution_mode
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), approx=resolve_execution_mode(
+        "approx", TIER_MULTIPLIER, act_per_row=True))
+    rng = np.random.default_rng(seed + 13)
+    trace = family_trace(rng, cfg.vocab_size)
+    if cfg.family == "moe":
+        # the permitted cut (a qwen2-moe-a2.7b pass is over 3 s of host
+        # time): 4 requests of 8 new tokens, in (b) and (c) alike
+        trace = [(p, MOE_NEW, a) for p, _, a in trace[:MOE_REQUESTS]]
+    out = {"arch": arch, "family": cfg.family, "seconds_by_part": {}}
+    t_part = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds_by_part"][name] = now - t_part
+        t_part = now
+
+    # (a) K1 at every new (K, N), at M = 4 and at the first admission's M
+    d, L = cfg.d_model, cfg.num_layers
+    first_bucket = max(PromptBuckets(FAMILY_BUCKETS).bucket(p.size) for p, _, _ in trace[:2])
+    if cfg.family == "moe":
+        hq = cfg.num_heads * cfg.head_dim
+        adm = 2 * first_bucket
+        cap = moe_capacity(adm, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
+        kn_m = [((d, hq), adm), ((d, cfg.d_ff), cap), ((cfg.d_ff, d), cap),
+                ((d, cfg.moe_shared_ff), adm), ((cfg.moe_shared_ff, d), adm),
+                ((d, cfg.padded_vocab), adm)]
+    elif cfg.family == "ssm":
+        di = cfg.d_inner
+        kn_m = [((d, 2 * di), 2), ((di, cfg.dt_rank + 2 * cfg.ssm_state), 2),
+                ((cfg.dt_rank, di), 2), ((di, d), 2), ((d, cfg.padded_vocab), 2)]
+    else:
+        di, N = cfg.d_inner, cfg.ssm_state
+        kn_m = [((d, 2 * di + 2 * N + cfg.ssm_heads), 2), ((di, d), 2),
+                ((d, cfg.num_heads * cfg.head_dim), 2), ((d, cfg.d_ff), 2), ((cfg.d_ff, d), 2),
+                ((d, cfg.padded_vocab), 2)]
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    k1 = []
+    for (K, N), m_adm in kn_m:
+        for M in sorted({NUM_SLOTS, m_adm}):
+            a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
+            b = torch.randint(0, 256, (K, N), generator=gen, device=dev, dtype=torch.uint8)
+            got = approx_matmul(a, b, multiplier=TIER_MULTIPLIER)
+            want = approx_matmul_plain(a, b, multiplier=TIER_MULTIPLIER)
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"[families] {arch}: K1 at M={M} K={K} N={N} differs "
+                                     "from its plain version")
+            k1.append([M, K, N])
+    out["k1_equal_shapes"] = k1
+    log(f"[families] {arch} (a) K1 bit-equal at (M, K, N) {k1}")
+    lap("a")            # (a)'s K2 at the moe shape: ``family_k2``, in the parent process
+
+    # (b) full depth: the trace on the async loop through K1 (and K2)
+    passes = rehearse_passes(cfg, trace, seed)
+    predicted = passes * k1_per_pass(cfg)
+    lap("rehearsal")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev, freeze=True)
+    torch.cuda.synchronize()
+    out["init_freeze_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sess = family_session(cfg, params, dev, seed)
+    adm = time_admissions(sess)
+    drops, unpatch = record_drops(adm) if cfg.family == "moe" else ([], lambda: None)
+    approx_matmul.launches = paged_attention.launches = 0
+    try:
+        res, wall = drive(sess, trace)
+    finally:
+        unpatch()
+    n = {"approx_matmul": approx_matmul.launches, "paged_attention": paged_attention.launches}
+    b = {**session_numbers(sess, res, wall), "launches": n, "passes": passes,
+         "k1_per_pass": k1_per_pass(cfg), "k1_predicted": predicted,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "admissions": [{"rows": r, "host_s": h, "event_s": e0.elapsed_time(e1) / 1e3}
+                        for r, h, e0, e1 in adm]}
+    if cfg.family == "moe":
+        per_adm = {}
+        for i, T, nd in drops:
+            if T > NUM_SLOTS:                   # an admission's routings (decode: 4 rows)
+                per_adm[i] = per_adm.get(i, 0) + int(nd)
+        b["dropped_assignments_per_admission"] = [per_adm.get(i, 0) for i in range(len(adm))]
+        b["decode_drops"] = sum(int(nd) for _, T, nd in drops if T <= NUM_SLOTS)
+    out["serve"] = b
+    log(f"[families] {arch} (b) full depth ({smi}): {json.dumps(b)}")
+    for rid, r in res.items():
+        if r.tokens.shape != (trace[rid][1],) or not (
+                (r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"[families] {arch}, request {rid}: bad tokens "
+                                 f"{r.tokens.tolist()}")
+    if n["approx_matmul"] != predicted:
+        raise AssertionError(f"[families] {arch}: K1 launched {n['approx_matmul']} times, "
+                             f"predicted {predicted} ({passes} passes x {k1_per_pass(cfg)})")
+    if (n["paged_attention"] > 0) != (cfg.family == "moe"):
+        raise AssertionError(f"[families] {arch}: K2 launched {n['paged_attention']} times")
+    out["launches"] = n
+    prompt32 = rng.integers(0, cfg.vocab_size, 32)
+    if cfg.family != "moe":
+        # the scans against the teacher-forced decode at full depth, bf16
+        # activations through K1: printed, not gated
+        out["forward_vs_decode_full"] = forward_vs_decode(cfg, params, prompt32, dev)
+        log(f"[families] {arch} (b) forward vs decode, full depth, bf16 approx: "
+            f"{json.dumps(out['forward_vs_decode_full'])}")
+    if profile:
+        out["profile"] = profile_decode(cfg, params, trace, dev, seed, ticks=3, loop="async",
+                                        cache_layout="paged" if cfg.family == "moe" else "slots")
+        log(f"[families] {arch} (b) profiled tick: {json.dumps(out['profile'])}")
+    del params, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("b")
+
+    # (c) oracles at ORACLE_LAYERS of the full width (the hybrid: one
+    # group of its attn_every layers and the shared block)
+    depth = cfg.attn_every if cfg.family == "hybrid" else ORACLE_LAYERS
+    cfg4 = dataclasses.replace(cfg, num_layers=depth)
+    fparams = init_params(cfg4, seed=seed + 1, device=dev)
+    params4 = freeze_params(cfg4, fparams)
+    c = {"layers": depth}
+    runs_ = {}
+    for name, ccfg, loop in (("k1_async", cfg4, "async"), ("k1_sync", cfg4, "sync"),
+                             ("plain_async", dataclasses.replace(cfg4, approx=resolve_execution_mode(
+                                 "approx_lowrank", TIER_MULTIPLIER, act_per_row=True)), "async")):
+        runs_[name], _ = drive(family_session(ccfg, params4, dev, seed, loop=loop), trace)
+    for rid in range(len(trace)):
+        want = runs_["k1_async"][rid].tokens
+        same_tokens(f"[families] {arch} 4-layer request {rid}: plain K1 vs K1",
+                    runs_["plain_async"][rid].tokens, want)
+        same_tokens(f"[families] {arch} 4-layer request {rid}: sync vs async",
+                    runs_["k1_sync"][rid].tokens, want)
+    c["k1_vs_plain"] = c["sync_vs_async"] = "equal"
+    if cfg.family == "moe":
+        toks = np.zeros((2, BUCKETS[-1]), np.int32)
+        for i in (0, 1):
+            toks[i, :trace[i][0].size] = trace[i][0]
+        c["k2_vs_gather_step"] = decode_step_diff(cfg4, params4, trace,
+                                                  torch.as_tensor(toks, device=dev), dev,
+                                                  near_tie=NEAR_TIE)
+    else:
+        fcfg = dataclasses.replace(cfg4, dtype="float32", approx=ApproxConfig(mode="float"),
+                                   ssm_chunk=256)
+        fd = c["forward_vs_decode"] = forward_vs_decode(fcfg, fparams, prompt32, dev)
+        if fd["excess_over_tol"] > 0:
+            raise AssertionError(f"[families] {arch}: forward and decode part beyond JAX's "
+                                 f"tolerance: {fd}")
+        c["vs_generate"], c["near_ties"] = {}, {}
+        for rid, (p, n_new, _) in enumerate(trace):
+            got = runs_["k1_async"][rid].tokens.tolist()
+            alone = generate(cfg4, params4, p[None], max_new=n_new, prefill_mode="decode",
+                             device=dev)[0, p.size:].tolist()
+            if got == alone:
+                c["vs_generate"][rid] = "equal"
+                continue
+            k = next(i for i, (x, y) in enumerate(zip(got, alone)) if x != y)
+            with torch.no_grad():
+                lg = forward(cfg4, params4, torch.as_tensor(
+                    np.concatenate([p, np.asarray(alone[:k], p.dtype)])[None], device=dev))[0, -1]
+            tie = c["near_ties"][rid] = {"new_token_index": k, "tokens": [got[k], alone[k]],
+                                         "logits": [lg[got[k]].item(), lg[alone[k]].item()]}
+            c["vs_generate"][rid] = "near tie"
+            if abs(tie["logits"][0] - tie["logits"][1]) > NEAR_TIE:
+                raise AssertionError(f"[families] {arch}, request {rid}: the session and "
+                                     f"generate alone part, not at a near tie: {tie}")
+    out["oracle"] = c
+    log(f"[families] {arch} (c) {depth} layers: {json.dumps(c)}")
+    del fparams, params4
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def family_k2(cfg, dev, seed):
+    """K2 at the moe model's shape (B 4, H 16, Hkv 16, hd 128, 16-row
+    blocks): phase 3's cases on both pool dtypes, then one served decode
+    step's calls timed beside the bound and SDPA."""
+    rng = np.random.default_rng(seed + 130)
+    hkv, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    W = FAMILY_MAX_LEN // BLOCK_SIZE
+    worst = [0.0, 0.0]
+    for pool, pool_dtype in K2_POOLS.items():
+        case = lambda **kw: paged_case(rng, dev, NUM_SLOTS, W, BLOCK_SIZE, hkv, g, hd,
+                                       pool_dtype=pool_dtype, **kw)
+        cases = [(f"holes={h}", case(holes=h)) for h in (False, True)]
+        args = case()
+        nb = args[3].shape[0]
+        args[5] = torch.as_tensor(rng.permutation(nb)[:NUM_SLOTS * W].reshape(NUM_SLOTS, W),
+                                  dtype=torch.int32, device=dev)
+        args[6] = torch.as_tensor(BLOCK_SIZE * rng.integers(0, W, NUM_SLOTS), dtype=torch.int32,
+                                  device=dev)
+        cases.append(("cur_len on a block boundary", args))
+        for name, args in cases:
+            errs = k2_check(f"moe {pool} {name}", args, BLOCK_SIZE)
+            worst = [max(x, y) for x, y in zip(worst, errs)]
+    cur = rng.integers(FAMILY_MAX_LEN // 4, FAMILY_MAX_LEN, NUM_SLOTS)
+    step = {pool: k2_timed(dev, rng, calls=cfg.num_layers, B=NUM_SLOTS, W=W, hkv=hkv, g=g,
+                           hd=hd, cur=cur, pool_dtype=dt) for pool, dt in K2_POOLS.items()}
+    for row in step.values():
+        worst = [max(worst[0], row["max_abs_err_f32_q"]), max(worst[1], row["max_abs_err_bf16_q"])]
+    log(f"[families] K2 at H {cfg.num_heads}, Hkv {hkv}, hd {hd}: max abs err {worst}; "
+        f"decode step {json.dumps(step)}")
+    return {"max_abs_err": worst[0], "max_abs_err_bf16_q": worst[1], "decode_step": step}
+
+
+# ---------------------------------------------------------------------------
+# phases 8-13's units, run by a pool of processes on the one card
+# ---------------------------------------------------------------------------
+
+
+def serving_configs():
+    """Phase 4's config (approx, per-row activation scales) and its oracle's
+    (K1's plain version, ``approx_lowrank``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import resolve_execution_mode
+
+    cfg = get_config(ARCH)
+    return (dataclasses.replace(cfg, approx=resolve_execution_mode("approx", act_per_row=True)),
+            dataclasses.replace(cfg, approx=resolve_execution_mode("approx_lowrank",
+                                                                   act_per_row=True)))
+
+
+def _slots_unit(dev, sh):
+    cfg, ocfg = serving_configs()
+    return slots_phase(cfg, ocfg, dev, sh["seed"], sh["trace"], sh["paged_tokens"], sh["smi"],
+                       sh["profile_paged"], sh["profile"])
+
+
+def _async_unit(dev, sh):
+    return async_phase(serving_configs()[0], dev, sh["seed"], sh["trace"], sh["phase4"],
+                       sh["smi"], sh["profile_paged"], sh["profile"])
+
+
+def _share_unit(dev, sh):
+    # phase 11 runs FEATURE_LAYERS deep (a cut of depth, not width)
+    fcfg = dataclasses.replace(serving_configs()[0], num_layers=FEATURE_LAYERS)
+    return share_phase(fcfg, dev, sh["seed"], sh["trace"], sh["smi"])
+
+
+def _chunked_unit(runs):
+    return lambda dev, sh: chunked_phase(serving_configs()[0], dev, sh["seed"], sh["trace"],
+                                         sh["smi"], runs)
+
+
+def _family_unit(arch):
+    return lambda dev, sh: family_phase(arch, dev, sh["seed"], sh["smi"], sh["profile"])
+
+
+# each unit with the card memory (GB) it reserves at its peak (a granite
+# unit builds the model's f32 weights, 10.1 GB, before freezing them; the
+# qwen2-moe-a2.7b unit holds its frozen model, then a 4-layer f32 one),
+# started in this order whenever the units running leave it room: the
+# longest (phase 8, whose training shares the card's cycles) and the
+# largest first
+UNITS = {
+    "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
+    FAMILY_ARCHS[0]: (32, _family_unit(FAMILY_ARCHS[0])),
+    FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
+    "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
+    "slots": (22, _slots_unit),
+    "async": (22, _async_unit),
+    "chunked_sync": (22, _chunked_unit(("sync",))),
+    FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
+    "share": (6, _share_unit),
+    "tiers": (6, lambda dev, sh: tiers_phase(serving_configs()[0], dev, sh["seed"],
+                                             sh["trace"], sh["smi"])),
+}
+POOL_GB = 72                         # the units' peaks at once: the card's 85 GB less headroom
+
+
+def _watch_parent(parent):
+    """End this worker when the process that started it is gone."""
+    while os.getppid() == parent:
+        time.sleep(1.0)
+    os._exit(3)
+
+
+def _worker_init(parent):
+    from repro_torch.kernels._build import build_all
+
+    threading.Thread(target=_watch_parent, args=(parent,), daemon=True).start()
+    torch.set_num_threads(2)                    # the pool's workers share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all()                                 # loads the parent's libraries
+
+
+def run_unit(name, shared):
+    """One unit in a pool worker: (name, its report or None, the traceback
+    of its failure or None, its log lines, its seconds and peak memory)."""
+    global _UNIT_LOG
+    _UNIT_LOG = []
+    t0 = time.perf_counter()
+    try:
+        out, err = UNITS[name][1](torch.device("cuda", 0), shared), None
+    except Exception:
+        out, err = None, traceback.format_exc()
+    meta = {"seconds": time.perf_counter() - t0,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    return name, out, err, _UNIT_LOG, meta
+
+
+def _unit_process(name, shared, parent, results):
+    _worker_init(parent)
+    results.put(run_unit(name, shared))
+
+
+def run_units(shared):
+    """Every unit of UNITS, at most POOL_WORKERS at a time and within
+    POOL_GB of peaks together, each in a fresh process: {name: (report,
+    meta)}.  The first failure stops the others and raises."""
+    done = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pool] this process reserves {torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    # reserved memory near what is allocated, so that a unit stays near its peak
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    todo, running = list(UNITS), {}
+    try:
+        while todo or running:
+            for name in list(todo):
+                gb = sum(UNITS[n][0] for n in running) + UNITS[name][0]
+                if len(running) < POOL_WORKERS and gb <= POOL_GB:
+                    proc = running[name] = ctx.Process(
+                        target=_unit_process, args=(name, shared, os.getpid(), results),
+                        name=f"chip_smoke-{name}")
+                    proc.start()
+                    todo.remove(name)
+            try:
+                name, out, err, lines, meta = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [n for n, proc in running.items() if proc.exitcode is not None]
+                if not dead:
+                    continue
+                try:                            # a report may still be on its way
+                    name, out, err, lines, meta = results.get(timeout=30.0)
+                except queue.Empty:
+                    raise AssertionError(f"unit {dead[0]} ended (exit code "
+                                         f"{running[dead[0]].exitcode}) without a report")
+            running.pop(name).join()
+            for line in lines:
+                log(line)
+            log(f"[pool] {name}: {json.dumps(meta)}")
+            if err is not None:
+                raise AssertionError(f"unit {name} failed:\n{err}")
+            done[name] = (out, meta)
+    finally:
+        for proc in running.values():
+            proc.terminate()
+            proc.join()
+    return done
 
 
 def main(argv=None) -> int:
@@ -2258,7 +2879,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.approx_matmul import approx_matmul
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.models.transformer import forward, init_params
-    from repro_torch.serve import freeze_params, resolve_execution_mode
+    from repro_torch.serve import freeze_params
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32/f64
     torch.backends.cudnn.allow_tf32 = False
@@ -2276,8 +2897,7 @@ def main(argv=None) -> int:
     log(f"[build] {json.dumps(report['build_s'])}")
     log(smi)
 
-    cfg = get_config(ARCH)
-    cfg = dataclasses.replace(cfg, approx=resolve_execution_mode("approx", act_per_row=True))
+    cfg, ocfg = serving_configs()
     t0 = time.perf_counter()
     params = freeze_params(cfg, init_params(cfg, seed=args.seed, device=dev))
     torch.cuda.synchronize()
@@ -2332,9 +2952,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} was never launched on the served path")
 
     # -- 5. oracle -----------------------------------------------------------
-    ocfg = dataclasses.replace(cfg, approx=resolve_execution_mode("approx_lowrank",
-                                                                  act_per_row=True))
-    _, oracle, owall = serve(ocfg, params, trace[:2], dev, "gather", args.seed)
+    osess, oracle, owall = serve(ocfg, params, trace[:2], dev, "gather", args.seed)
     if (approx_matmul.launches, paged_attention.launches) != tuple(launches.values()):
         raise AssertionError("the oracle session launched a kernel")
     for rid in (0, 1):
@@ -2370,50 +2988,80 @@ def main(argv=None) -> int:
                                                    r.finished_tick)
                                              for rid, r in results.items()}}
 
+    # -- 10 (e). the stall probe, on phase 4's weights, alone on the card ---
+    stall, stall_s = stall_check(cfg, params, trace, dev, args.seed, smi)
+
     # -- 6. K3 ---------------------------------------------------------------
     report["k3"] = k3_phase(dev, gen)
 
     # -- 7. train ------------------------------------------------------------
     # free the serving weights, sessions and pools first: full-width f32
     # params, grads and Adam moments take about 42 GB of the card's 80
-    del params, sess, results, oracle, toks
+    del params, sess, osess, results, oracle, toks
     gc.collect()
     torch.cuda.empty_cache()
     report["train"] = train_phase(dev, args.seed)
     train = report["train"]
 
-    # -- 8. paper ------------------------------------------------------------
-    report["paper"] = paper_phase(dev, gen, args.seed)
-    paper = report["paper"]
-    log(f"[paper] phase 8 took {paper['seconds']:.1f}s")
+    # -- 8 (a) and 13 (a)'s K2: timed for the kernels line, alone on the card
+    k1_cnn = k1_cnn_shapes(dev, gen, args.seed)
+    moe_k2 = family_k2(get_config(FAMILY_ARCHS[0]), dev, args.seed)
 
-    # -- 9. slots ------------------------------------------------------------
-    report["slots"] = slots_phase(cfg, ocfg, dev, args.seed, trace, paged_tokens, smi,
-                                  report.get("profile"), args.profile)
-    slots = report["slots"]
+    # -- 8-13: the units, on a pool of processes -----------------------------
+    t_pool = time.perf_counter()
+    shared = {"seed": args.seed, "trace": trace, "paged_tokens": paged_tokens,
+              "phase4": phase4, "smi": smi, "profile_paged": report.get("profile"),
+              "profile": args.profile}
+    units = run_units(shared)
+    unit = {name: out for name, (out, _) in units.items()}
+    report["pool"] = {"workers": POOL_WORKERS, "wall_s": time.perf_counter() - t_pool,
+                      "units": {name: meta for name, (_, meta) in units.items()}}
+    log(f"[pool] {len(units)} units on {POOL_WORKERS} processes: "
+        f"{report['pool']['wall_s']:.1f}s")
+
+    paper = report["paper"] = {"k1": k1_cnn, **unit["paper"]}
+    log(f"[paper] phase 8 took {paper['seconds']:.1f}s (K1 at the CNN shapes apart)")
+    slots = report["slots"] = unit["slots"]
     log(f"[slots] phase 9 took {slots['seconds']:.1f}s")
-
-    # -- 10. async -----------------------------------------------------------
-    report["async"] = async_phase(cfg, dev, args.seed, trace, phase4, smi,
-                                  report.get("profile"), args.profile)
-    asy = report["async"]
-    log(f"[async] phase 10 took {asy['seconds']:.1f}s")
-
-    # -- 11. share -----------------------------------------------------------
-    report["share"] = share_phase(cfg, dev, args.seed, trace, smi)
+    asy = report["async"] = unit["async"]
+    asy["stall_probe"] = stall
+    asy["seconds_by_part"]["stall_probe"] = stall_s
+    log(f"[async] phase 10 took {asy['seconds']:.1f}s, its stall probe {stall_s:.1f}s")
+    report["share"] = unit["share"]
     share = report["share"]["launches"]
     log(f"[share] phase 11 took {report['share']['seconds']:.1f}s: "
         f"{json.dumps(report['share']['seconds_by_part'])}; launches by path "
         f"{json.dumps(share)}, by run {json.dumps(report['share']['launches_by_run'])}")
 
-    # -- 12. tiers -----------------------------------------------------------
-    report["tiers"] = tiers_phase(cfg, dev, args.seed, trace, smi)
-    tiers = report["tiers"]["launches"]
-    log(f"[tiers] phase 12 took {report['tiers']['seconds']:.1f}s: "
-        f"{json.dumps(report['tiers']['seconds_by_part'])}; launches by path "
-        f"{json.dumps(tiers)}, by run {json.dumps(report['tiers']['launches_by_run'])}")
+    # phase 12: (a)-(b), (c) and (c)'s sync run, held to its async run here
+    t12 = report["tiers"] = unit["tiers"]
+    chunked, chunked_sync = unit["chunked"], unit["chunked_sync"]
+    chunked_sync_gate(chunked_sync["tokens"]["sync"], chunked["tokens"]["async"])
+    t12["chunked"] = {**chunked["chunked"], "sync": chunked_sync["chunked"]["sync"]}
+    for part, u in (("chunked", chunked), ("chunked_sync", chunked_sync)):
+        t12["seconds_by_part"][part] = u["seconds"]
+        t12["seconds"] += u["seconds"]
+        t12["launches_by_run"].update(u["launches_by_run"])
+        for path, n in u["launches"].items():
+            tally = t12["launches"].setdefault(path, dict.fromkeys(n, 0))
+            for k, v in n.items():
+                tally[k] += v
+    tiers = t12["launches"]
+    log(f"[tiers] phase 12 took {t12['seconds']:.1f}s: "
+        f"{json.dumps(t12['seconds_by_part'])}; launches by path "
+        f"{json.dumps(tiers)}, by run {json.dumps(t12['launches_by_run'])}")
     # phases 11 and 12 count each feature path's sessions
     paths = {**share, **tiers}
+
+    # -- 13. families --------------------------------------------------------
+    families = {arch: unit[arch] for arch in FAMILY_ARCHS}
+    families[FAMILY_ARCHS[0]]["k2"] = moe_k2
+    report["families"] = {**families, "seconds": sum(f["seconds"] for f in families.values())}
+    fam = {f["family"]: f["launches"] for f in families.values()}
+    log(f"[families] phase 13 took {report['families']['seconds']:.1f}s: "
+        + json.dumps({a: f["seconds_by_part"] for a, f in families.items()})
+        + f"; launches by path {json.dumps(fam)}")
+    paths.update(fam)
 
     k3 = report["k3"]
     kernels = [
@@ -2455,8 +3103,8 @@ def main(argv=None) -> int:
          "launches_by_path": {"serve": launches["paged_attention"],
                               "async": asy["launches"]["paged_attention"],
                               **{path: n["paged_attention"] for path, n in paths.items()}},
-         "max_abs_err": k2_err,
-         "max_abs_err_bf16_q": k2_err16,
+         "max_abs_err": max(k2_err, moe_k2["max_abs_err"]),
+         "max_abs_err_bf16_q": max(k2_err16, moe_k2["max_abs_err_bf16_q"]),
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],
          "library_ms": k2_step["library_ms"], "device_ms": k2_step["device_ms"],
@@ -2465,7 +3113,10 @@ def main(argv=None) -> int:
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "long_context_per_call": {pool: {k: row.get(k + "_per_call") for k in (
              "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
-             for pool, row in k2_long.items()}},
+             for pool, row in k2_long.items()},
+         "moe_decode_step": {pool: {k: row[k] for k in (
+             "calls", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+             for pool, row in moe_k2["decode_step"].items()}},
         {"name": "approx_mul_eltwise", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/approx_mul_eltwise.cu",
          "replaces": "src/repro/kernels/approx_mul_eltwise/kernel.py:34",

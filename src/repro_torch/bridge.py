@@ -4,8 +4,11 @@
 ``jax.tree.map(np.asarray, ...)`` — dicts, the ``AttnParams``/``FFNParams``
 named tuples and, for frozen trees, JAX ``QWeight`` named tuples, all with
 numpy leaves — and returns the port's parameter dict of the same shape:
-named tuples of weights become dicts keyed by field name, and a frozen
-weight becomes the port's ``QWeight``.  ``state_from_numpy`` does the same
+named tuples of weights (``AttnParams``, ``FFNParams``, ``MoEParams``,
+``Mamba1Params``, ``Mamba2Params``) become dicts keyed by field name, a
+``None`` field (a MoE tree without a shared expert, as grok-1's) stays
+``None``, and a frozen weight (stacked experts' too) becomes the port's
+``QWeight``.  ``state_from_numpy`` does the same
 for a whole training state (``{"params", "opt": {"step", "m", "v"}}`` and
 ``grad_err``), so a test can start the port's step from the JAX step's
 exact parameters and optimizer state.  ``cnn_from_numpy`` takes the JAX
@@ -31,6 +34,8 @@ _QWEIGHT_FIELDS = ("codes", "scale", "zero_point", "col_sum")
 
 def params_from_numpy(tree: Any, device="cpu") -> Any:
     def conv(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         fields = getattr(node, "_fields", None)

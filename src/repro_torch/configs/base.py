@@ -2,8 +2,10 @@
 registered architecture), the registry, and ``reduced_config`` (the
 same-family CPU test variant with tiny dims).
 
-This slice of the port registers the dense family only (granite-3-2b);
-the fields of the other families arrive with their own slices.
+The port serves the dense, moe, ssm (Mamba-1) and hybrid (Mamba-2 with a
+weight-shared attention block) families.  The JAX package's vlm and audio
+stubs take embedding inputs and multimodal or sinusoidal positions, which
+the port has not ported (ROADMAP section 1, item 9c).
 """
 from __future__ import annotations
 
@@ -16,16 +18,20 @@ from repro_torch.core.approx import ApproxConfig
 __all__ = [
     "ModelConfig",
     "ARCH_REGISTRY",
+    "FAMILIES",
     "register",
     "get_config",
+    "list_archs",
     "reduced_config",
 ]
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # dense
+    family: str                       # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -33,20 +39,41 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                 # 0 -> d_model // num_heads
+    # --- MoE ---
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_shared_ff: int = 0
+    capacity_factor: float = 1.25
+    # --- SSM ---
+    ssm_state: int = 0
+    d_inner: int = 0                  # 0 -> 2*d_model for ssm/hybrid
+    dt_rank: int = 0                  # 0 -> ceil(d_model/16)
+    conv_width: int = 4
+    # --- hybrid (zamba2-style) ---
+    attn_every: int = 0               # shared attn block after every k ssm layers
     rope_theta: float = 10000.0
     # --- the paper's feature ---
     approx: ApproxConfig = ApproxConfig(mode="float")
     # --- numerics ---
     dtype: str = "bfloat16"           # activation dtype
+    ssm_chunk: int = 256              # time chunk of the Mamba scans in forward
     remat: bool = True                # recompute each layer in the backward
     embed_input: bool = True          # token inputs (the JAX package's vlm/audio stubs take embeddings)
     source: str = ""                  # citation tag
 
     def __post_init__(self):
-        if self.family != "dense":
-            raise ValueError(f"family {self.family!r}: this port serves the dense family only")
+        if self.family not in FAMILIES:
+            raise ValueError(
+                f"family {self.family!r}: the port serves {FAMILIES}; the vlm and "
+                "audio backbones (embedding inputs, m_rope and sinusoidal "
+                "positions) are ROADMAP section 1, item 9c")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.family in ("ssm", "hybrid"):
+            if self.d_inner == 0:
+                object.__setattr__(self, "d_inner", 2 * self.d_model)
+            if self.dt_rank == 0:
+                object.__setattr__(self, "dt_rank", -(-self.d_model // 16))
 
     @property
     def padded_vocab(self) -> int:
@@ -54,10 +81,24 @@ class ModelConfig:
         masked to -1e30 and embeddings stay at the true vocab."""
         return -(-self.vocab_size // 512) * 512
 
+    @property
+    def ssm_heads(self) -> int:
+        """Mamba-2 head count (d_inner / 64-dim heads, zamba2 convention)."""
+        return max(1, self.d_inner // 64)
+
 
 ARCH_REGISTRY: Dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ("granite_3_2b",)
+_ARCH_MODULES = (
+    "yi_34b",
+    "granite_3_2b",
+    "deepseek_7b",
+    "deepseek_coder_33b",
+    "falcon_mamba_7b",
+    "qwen2_moe_a2_7b",
+    "grok_1_314b",
+    "zamba2_2_7b",
+)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -80,19 +121,35 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; have {sorted(ARCH_REGISTRY)}")
 
 
+def list_archs():
+    if not ARCH_REGISTRY:
+        _load_all()
+    return sorted(ARCH_REGISTRY)
+
+
 def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
     """Tiny same-family variant for CPU tests (the JAX package's
-    ``reduced_config`` widths: 2 layers, d 128, 4 heads, <= 2 KV heads,
-    head_dim 32, d_ff 256, vocab <= 512, float32, no remat)."""
+    ``reduced_config`` widths: 2 layers (a hybrid 4), d 128, 4 heads, <= 2
+    KV heads, head_dim 32, d_ff 256, vocab <= 512, <= 4 experts top <= 2,
+    shared expert ff 128, d_inner 256, dt_rank 8, ssm_state <= 16,
+    attn_every 2, ssm_chunk 32, float32, no remat)."""
     kw = dict(
-        num_layers=min(cfg.num_layers, 2),
+        num_layers=min(cfg.num_layers, 2 if cfg.family != "hybrid" else 4),
         d_model=128,
         num_heads=4,
-        num_kv_heads=min(cfg.num_kv_heads, 2),
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
         head_dim=32,
         d_ff=256,
         vocab_size=min(cfg.vocab_size, 512),
+        moe_experts=min(cfg.moe_experts, 4),
+        moe_top_k=min(cfg.moe_top_k, 2),
+        moe_shared_ff=128 if cfg.moe_shared_ff else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        d_inner=256 if cfg.family in ("ssm", "hybrid") else 0,
+        dt_rank=8 if cfg.family == "ssm" else 0,
+        attn_every=2 if cfg.attn_every else 0,
         dtype="float32",
+        ssm_chunk=32,
         remat=False,
     )
     kw.update(over)

@@ -121,7 +121,12 @@ class QWeight(NamedTuple):
     col_sum: torch.Tensor      # (..., 1, N) f32: sum_k codes (zero-point term)
 
 
-_PREQUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+# the JAX package's ``_PREQUANT_LEAVES``: attention, the dense and routed
+# expert FFNs, the MoE shared expert, Mamba's projections and the LM head;
+# routers, convs, ``a_log``/``dt_bias``/``d_skip``/``norm_g`` stay float
+_PREQUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "shared_gate", "shared_up", "shared_down",
+                  "in_proj", "x_proj", "dt_proj", "out_proj", "lm_head")
 
 
 def w_dim(w, i: int) -> int:
@@ -159,8 +164,11 @@ def _freeze(leaf: torch.Tensor, cfg: ApproxConfig) -> QWeight:
 
 
 def prequantize_tree(params: Dict[str, Any], cfg: ApproxConfig) -> Dict[str, Any]:
-    """Freeze every projection weight (``wq/wk/wv/wo``, ``w_gate/w_up/
-    w_down``, ``lm_head``) to a QWeight; embeddings and norms stay float."""
+    """Freeze every projection weight (``_PREQUANT_KEYS``) to a QWeight;
+    embeddings, norms, routers and the Mamba blocks' conv and state
+    parameters stay float.  A stacked weight calibrates over its
+    second-to-last axis: one scale per output channel, per layer (and per
+    expert of a stacked (L, E, d, ff) expert weight)."""
 
     def walk(node, key=""):
         if isinstance(node, dict):

@@ -10,6 +10,17 @@ mixed-length trace through the continuous-batching ``ServeSession``.
         --engine scan --batch 4 --new 8            # generate; --engine legacy
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --engine continuous --cache-layout slots --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --reduced --device cpu --requests 6            # moe, paged, K1 and K2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --reduced --device cpu --cache-layout slots    # ssm; zamba2-2.7b: hybrid
+
+``--arch`` takes every registered config (``configs.list_archs()``): the
+dense, moe, ssm and hybrid families.  The ssm and hybrid families keep
+per-request conv/ssm state with no sequence axis, so they serve on the
+slot layout only (``--cache-layout slots``; the paged default refuses
+them, as the JAX session does) and prefill by teacher-forcing the prompt
+through the decode step.
 
 The JAX package's launcher less ``--tp``, which arrives with a later slice of
 the port.
@@ -69,7 +80,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.approx_matmul import approx_matmul
 from repro_torch.kernels.paged_attention import paged_attention
@@ -82,7 +93,6 @@ from repro_torch.serve import (
     SERVE_LOOPS,
     SamplingConfig,
     ServeSession,
-    freeze_params,
     generate,
     greedy_generate_legacy,
     resolve_execution_mode,
@@ -91,7 +101,8 @@ from repro_torch.serve import (
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help=f"registered config: {', '.join(list_archs())}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="scan/legacy engines: rows generated together")
@@ -207,9 +218,8 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     cfg = dataclasses.replace(cfg, approx=resolve_execution_mode(args.exec_mode,
                                                                  args.multiplier))
-    params = init_params(cfg, seed=args.seed, device=device)
-    if args.freeze_weights:
-        params = freeze_params(cfg, params)
+    # frozen layer by layer: a moe model's float32 weights never all exist
+    params = init_params(cfg, seed=args.seed, device=device, freeze=args.freeze_weights)
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               eos_id=args.eos_id)
     if args.engine != "continuous":

@@ -29,7 +29,7 @@ from repro_torch.kernels.approx_matmul import approx_matmul
 from repro_torch.train import optim as O
 from repro_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.train.fault import PreemptionGuard, StragglerMonitor, run_with_restarts
-from repro_torch.train.loop import as_batch, init_state, make_train_step
+from repro_torch.train.loop import as_batch, check_trainable, init_state, make_train_step
 
 
 def main(argv=None):
@@ -53,8 +53,9 @@ def main(argv=None):
                          "the plain versions)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    check_trainable(cfg)
+    dev = resolve_device(args.device)
     if args.reduced:
         cfg = reduced_config(cfg)
     cfg = dataclasses.replace(

@@ -16,6 +16,7 @@ __all__ = [
     "rotary",
     "apply_rope",
     "truncated_normal_init",
+    "unstack",
 ]
 
 
@@ -40,6 +41,24 @@ def dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     if isinstance(w, QWeight) or cfg.mode != "float":
         return approx_dense(x, w, cfg).to(x.dtype)
     return x @ w.to(x.dtype)
+
+
+def unstack(node, n: int):
+    """A tree stacked on a leading axis of ``n`` (dicts of tensors,
+    ``QWeight``s and ``None`` leaves) as a list of ``n`` per-entry trees of
+    views: the per-layer walk over stacked layers, and the per-expert walk
+    over stacked experts.  Under autograd the backward of ``unbind`` stacks
+    the per-entry gradients once, where indexing would add one zero-padded
+    full-size gradient per entry."""
+    if isinstance(node, dict):
+        per = {k: unstack(v, n) for k, v in node.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    if node is None:
+        return [None] * n
+    if isinstance(node, QWeight):
+        fields = [t.unbind(0) if t.dim() > 0 else (t,) * n for t in node]
+        return [QWeight(*(f[i] for f in fields)) for i in range(n)]
+    return list(node.unbind(0))
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

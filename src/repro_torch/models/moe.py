@@ -1,0 +1,164 @@
+"""Mixture-of-Experts FFN: a sigmoid-gated shared expert plus routed top-k
+experts with a capacity (the JAX package's ``models/moe.py``).
+
+Dispatch is sort-based with static shapes: token->expert assignments are
+stably sorted by expert, each takes a rank within its expert, and
+assignments past the expert's capacity are dropped (GShard semantics).
+Expert weights are stacked (E, ...); a frozen stack is a ``QWeight`` whose
+fields carry the expert axis, and each expert's slice is a view.
+
+Every expert runs one ``dense`` per projection over its ``capacity`` rows,
+all E of them, empty ones included: the JAX package scans its experts, and
+skipping an empty one would need its count on the host.  The router stays
+float32 (a control path; quantizing it is not part of the paper).  Nothing
+here waits on the device.
+
+The combine is deterministic: each token sums its k contributions in one
+fixed order, by expert ascending from zero, which is the order of the JAX
+package's scatter-add over the stably sorted assignments on the CPU (a
+CUDA ``index_add_`` on floats would sum in the order its atomics land).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.approx import ApproxConfig
+from repro_torch.models import layers as L
+
+__all__ = ["Routing", "init_moe", "load_balance_loss", "moe_capacity", "moe_ffn", "route"]
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, *,
+             shared_d_ff: int = 0, device=None) -> Dict[str, Any]:
+    """The JAX package's ``MoEParams`` as a dict; without a shared expert
+    (``shared_d_ff == 0``, as grok-1) its four fields are ``None``."""
+    def ed(i, o):
+        return L.truncated_normal_init((n_experts, i, o), gen, device=device)
+
+    def shared(i, o):
+        return L.init_dense(i, o, gen, device) if shared_d_ff else None
+
+    return {
+        "router": L.init_dense(d_model, n_experts, gen, device),
+        "w_gate": ed(d_model, d_ff),
+        "w_up": ed(d_model, d_ff),
+        "w_down": ed(d_ff, d_model),
+        "shared_gate": shared(d_model, shared_d_ff),
+        "shared_up": shared(d_model, shared_d_ff),
+        "shared_down": shared(shared_d_ff, d_model),
+        "shared_router": shared(d_model, 1),
+    }
+
+
+def load_balance_loss(router_probs: torch.Tensor, expert_mask: torch.Tensor) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * P_e."""
+    E = router_probs.shape[-1]
+    f = expert_mask.mean(dim=0)                 # fraction routed per expert
+    p = router_probs.mean(dim=0)                # mean router prob per expert
+    return float(E) * (f * p).sum()
+
+
+def moe_capacity(T: int, top_k: int, n_experts: int, capacity_factor: float) -> int:
+    """Rows per expert: ``top_k * T * capacity_factor / E``, at least 1 and
+    at most T, rounded down to a multiple of 8 and at least 8."""
+    capacity = int(max(top_k * T * capacity_factor / n_experts, 1))
+    capacity = min(capacity, T)
+    return max(8, (capacity // 8) * 8)
+
+
+class Routing(NamedTuple):
+    """One routing of T tokens: ``probs`` (T, E) and ``top_e`` (T, k), then
+    the T*k assignments stably sorted by expert: ``order`` (their flat
+    (token, choice) index), token ``st``, weight ``sw``, whether each is
+    ``keep``-t and its row ``slot`` of the (E * capacity) dispatch buffer."""
+
+    probs: torch.Tensor
+    top_e: torch.Tensor
+    order: torch.Tensor
+    st: torch.Tensor
+    sw: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+
+
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int) -> Routing:
+    """Top-k routing with capacity for (T, d) tokens: a float32 router,
+    softmax, top-k, renormalization, a stable sort by expert, the rank
+    within each expert, and drops past ``capacity``.
+
+    ``torch.topk`` promises no order among equal values (``jax.lax.top_k``
+    takes the lower index); float32 softmax probabilities of a real router
+    do not tie exactly, so the two pick the same experts."""
+    T = x.shape[0]
+    logits = x.to(torch.float32) @ router.to(torch.float32)            # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)                    # (T, k)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)                    # renorm
+    flat_e = top_e.reshape(-1)                                         # (T*k,)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], top_p.reshape(-1)[order]
+    # rank within expert: position minus the first position of its expert
+    # (a search of the sorted ids: bincount would read its size on the host)
+    rank = torch.arange(T * top_k, device=x.device) - torch.searchsorted(se, se)
+    keep = rank < capacity
+    slot = se * capacity + torch.where(keep, rank, torch.zeros_like(rank))
+    return Routing(probs, top_e, order, st, sw, keep, slot)
+
+
+def _expert_ffn(xb, wg, wu, wd, cfg: ApproxConfig):
+    h = F.silu(L.dense(xb, wg, cfg)) * L.dense(xb, wu, cfg)
+    return L.dense(h, wd, cfg)
+
+
+def moe_ffn(
+    x: torch.Tensor,                 # (T, d) tokens
+    p: Dict[str, Any],
+    *,
+    top_k: int,
+    cfg: ApproxConfig,
+    capacity_factor: float = 1.25,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out (T, d) in x's dtype, aux_loss float32 scalar)."""
+    T, d = x.shape
+    E = p["router"].shape[-1]
+    capacity = moe_capacity(T, top_k, E, capacity_factor)
+    r = route(x, p["router"], top_k, capacity)
+
+    # ---- dispatch: kept slots are unique; dropped assignments write one
+    # trash row past the buffer, which no expert reads
+    trash = torch.full_like(r.slot, E * capacity)
+    buf = x.new_zeros((E * capacity + 1, d))
+    buf[torch.where(r.keep, r.slot, trash)] = x[r.st]
+    buf = buf[:-1].reshape(E, capacity, d)
+
+    # ---- experts: one dense per projection and expert, empty ones included
+    per = [L.unstack(p[k], E) for k in ("w_gate", "w_up", "w_down")]
+    out_buf = torch.stack([_expert_ffn(buf[e], per[0][e], per[1][e], per[2][e], cfg)
+                           for e in range(E)]).reshape(E * capacity, d)
+
+    # ---- combine: back to (token, choice) order, then each token's k
+    # contributions summed by expert ascending (the sorted order)
+    w = torch.where(r.keep, r.sw, torch.zeros_like(r.sw))
+    gathered = out_buf[r.slot] * w[:, None].to(x.dtype)
+    contrib = torch.empty_like(gathered)
+    contrib[r.order] = gathered
+    contrib = contrib.reshape(T, top_k, d)
+    by_expert = torch.argsort(r.top_e, dim=1)
+    contrib = torch.take_along_dim(contrib, by_expert[..., None], dim=1)
+    out = torch.zeros_like(x)
+    for j in range(top_k):
+        out = out + contrib[:, j]
+
+    # ---- shared expert (qwen2-moe style, sigmoid-gated)
+    if p["shared_gate"] is not None:
+        sh = _expert_ffn(x, p["shared_gate"], p["shared_up"], p["shared_down"], cfg)
+        gate = torch.sigmoid(x.to(torch.float32) @ p["shared_router"].to(torch.float32))
+        out = out + sh * gate.to(x.dtype)
+
+    mask = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    mask.scatter_(1, r.top_e, 1.0)
+    return out, load_balance_loss(r.probs, mask)

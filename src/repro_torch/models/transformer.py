@@ -1,7 +1,13 @@
-"""Dense decoder stack (pre-RMSNorm GQA + SwiGLU FFN): the training and
-prefill forward, one-token decode on the slot layout (a per-row
-``max_len`` stripe) and on the paged pool, and the multi-token pass over
-the paged pool (speculative verification, chunked prefill).
+"""Decoder stack of every served family: the training and prefill
+forward, one-token decode on the slot layout (a per-row ``max_len`` stripe,
+plus per-row conv/ssm state) and on the paged pool, and the multi-token
+pass over the paged pool (speculative verification, chunked prefill).
+
+* dense  : pre-RMSNorm GQA + SwiGLU FFN
+* moe    : GQA + (shared + routed top-k) MoE FFN (``models/moe.py``)
+* ssm    : Mamba-1 blocks (``models/ssm.py``)
+* hybrid : Mamba-2 blocks + a weight-shared attention block applied after
+           every ``attn_every`` layers (Zamba2-style)
 
 Parameters are a dict with the JAX package's tree shape: layer weights are
 stacked on a leading layer axis under ``params["layers"]`` and the loop
@@ -9,7 +15,10 @@ below walks them (the JAX package scans them).  Under autograd with
 ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, as the JAX
 package wraps its scan body in ``jax.checkpoint``.  Both decode steps
 and the multi-token pass update their cache in place and return the
-logits only (the JAX package returns a new cache).
+logits only (the JAX package returns a new cache).  The SSM and hybrid
+families keep O(1) state per request (no sequence axis), so they have no
+paged layout and no fused prefill: they prefill by teacher-forcing the
+prompt through ``decode_step``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,9 +29,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.approx import ApproxConfig, QWeight
+from repro_torch.core.approx import ApproxConfig, QWeight, prequantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.attention import (
     decode_attention,
     paged_decode_attention,
@@ -30,6 +40,7 @@ from repro_torch.models.attention import (
     seed_kv_cache,
     self_attention,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = [
     "init_params",
@@ -56,16 +67,50 @@ def _ffn(x, p: Dict[str, Any], cfg: ApproxConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                freeze: bool = False) -> Dict[str, Any]:
     """Random float32 master weights at the config's widths from a seeded
     ``torch.Generator`` on ``device``, with the JAX package's init
-    (truncated normal, std 1/sqrt(fan_in); norms at one).  For runs
-    without JAX; the tests bring the JAX package's own weights across with
-    ``bridge.params_from_numpy`` instead.  ``device`` defaults to the CUDA
-    device (raising without one)."""
+    (truncated normal, std 1/sqrt(fan_in); norms at one; the Mamba blocks'
+    conv, decay and skip inits).  For runs without JAX; the tests bring the
+    JAX package's own weights across with ``bridge.params_from_numpy``
+    instead.  ``device`` defaults to the CUDA device (raising without one).
+
+    ``freeze`` returns ``engine.freeze_params`` of the same weights (equal
+    codes and scales: a stacked weight calibrates per layer; float
+    execution keeps them float).  The moe, ssm
+    and hybrid families build and freeze one layer at a time, so no more
+    than one layer's float32 weights are ever held (qwen2-moe-a2.7b's are
+    57 GB); the dense family draws each weight's stack whole, as before."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    freeze = freeze and cfg.approx.is_quantized
+    if cfg.family == "dense":
+        params = _init_dense(cfg, gen, dev)
+        return prequantize_tree(params, cfg.approx) if freeze else params
+
+    def frozen(tree):
+        return prequantize_tree(tree, cfg.approx) if freeze else tree
+
+    d = cfg.d_model
+    layers = [frozen(_init_layer(cfg, gen, dev)) for _ in range(cfg.num_layers)]
+    params = {"layers": _stack(layers)}
+    del layers
+    params["embed"] = L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev)
+    params["final_norm"] = torch.ones((d,), device=dev)
+    params.update(frozen({"lm_head": L.init_dense(d, cfg.padded_vocab, gen, dev)}))
+    if cfg.family == "hybrid":
+        params["shared_attn"] = frozen({
+            "ln1": torch.ones((d,), device=dev),
+            "ln2": torch.ones((d,), device=dev),
+            "attn": _init_attn(cfg, gen, dev),
+            "ffn": _init_ffn(d, cfg.d_ff, gen, dev),
+        })
+    return params
+
+
+def _init_dense(cfg: ModelConfig, gen: torch.Generator, dev) -> Dict[str, Any]:
     d, Lyr, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
     hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
 
@@ -87,18 +132,47 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict[str, An
     }
 
 
-def _layers(node, n: int):
-    """The stacked layer tree as a list of ``n`` per-layer trees (views).
-    Under autograd the backward of ``unbind`` stacks the per-layer weight
-    gradients once, where indexing would add one zero-padded full-size
-    gradient per layer."""
-    if isinstance(node, dict):
-        per = {k: _layers(v, n) for k, v in node.items()}
-        return [{k: per[k][i] for k in per} for i in range(n)]
-    if isinstance(node, QWeight):
-        fields = [t.unbind(0) if t.dim() > 0 else (t,) * n for t in node]
-        return [QWeight(*(f[i] for f in fields)) for i in range(n)]
-    return list(node.unbind(0))
+def _init_attn(cfg: ModelConfig, gen, dev) -> Dict[str, torch.Tensor]:
+    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    return {"wq": L.init_dense(d, hq, gen, dev), "wk": L.init_dense(d, hkv, gen, dev),
+            "wv": L.init_dense(d, hkv, gen, dev), "wo": L.init_dense(hq, d, gen, dev)}
+
+
+def _init_ffn(d: int, ff: int, gen, dev) -> Dict[str, torch.Tensor]:
+    return {"w_gate": L.init_dense(d, ff, gen, dev), "w_up": L.init_dense(d, ff, gen, dev),
+            "w_down": L.init_dense(ff, d, gen, dev)}
+
+
+def _init_layer(cfg: ModelConfig, gen, dev) -> Dict[str, Any]:
+    """One layer of the moe, ssm or hybrid family (the JAX package's
+    ``_init_layer``)."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln": torch.ones((d,), device=dev),
+                "mamba": S.init_mamba1(gen, d, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                                       cfg.conv_width, device=dev)}
+    if cfg.family == "hybrid":
+        return {"ln": torch.ones((d,), device=dev),
+                "mamba": S.init_mamba2(gen, d, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                                       cfg.conv_width, device=dev)}
+    return {"ln1": torch.ones((d,), device=dev), "ln2": torch.ones((d,), device=dev),
+            "attn": _init_attn(cfg, gen, dev),
+            "moe": init_moe(gen, d, cfg.d_ff, cfg.moe_experts, shared_d_ff=cfg.moe_shared_ff,
+                            device=dev)}
+
+
+def _stack(trees):
+    """Per-layer trees stacked on a new leading axis (``None`` stays)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if first is None:
+        return None
+    if isinstance(first, QWeight):
+        return QWeight(*(torch.stack(f) for f in zip(*trees)))
+    return torch.stack(trees)
+
 
 
 # ---------------------------------------------------------------------------
@@ -107,41 +181,101 @@ def _layers(node, n: int):
 
 
 def _attn_block(cfg: ModelConfig, x, layer):
+    """(x, (k, v), aux) of one dense or moe block."""
     h, kv = self_attention(
         L.rms_norm(x, layer["ln1"]), layer["attn"],
         n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=cfg.approx,
         rope_theta=cfg.rope_theta,
     )
     x = x + h
+    if cfg.family == "moe":
+        B, Sq, d = x.shape
+        h2, aux = moe_ffn(L.rms_norm(x, layer["ln2"]).reshape(B * Sq, d), layer["moe"],
+                          top_k=cfg.moe_top_k, cfg=cfg.approx,
+                          capacity_factor=cfg.capacity_factor)
+        return x + h2.reshape(B, Sq, d), kv, aux
     x = x + _ffn(L.rms_norm(x, layer["ln2"]), layer["ffn"], cfg.approx)
-    return x, kv
+    return x, kv, None
 
 
 def _block_out(cfg: ModelConfig, x, layer):
-    return _attn_block(cfg, x, layer)[0]
+    x, _, aux = _attn_block(cfg, x, layer)
+    return x, aux
+
+
+def _ssm_block(cfg: ModelConfig, x, layer):
+    mamba = S.mamba1_forward if cfg.family == "ssm" else S.mamba2_forward
+    h, _ = mamba(L.rms_norm(x, layer["ln"]), layer["mamba"], cfg=cfg.approx,
+                 chunk=cfg.ssm_chunk)
+    return x + h
+
+
+def _shared_attn_block(cfg: ModelConfig, x, shared):
+    """The hybrid's weight-shared attention block (attention then FFN)."""
+    h, _ = self_attention(L.rms_norm(x, shared["ln1"]), shared["attn"],
+                          n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=cfg.approx,
+                          rope_theta=cfg.rope_theta)
+    x = x + h
+    return x + _ffn(L.rms_norm(x, shared["ln2"]), shared["ffn"], cfg.approx)
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    """The hybrid's attention groups: ``attn_every`` layers each."""
+    if cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.num_layers} layers do not split into groups of "
+                         f"{cfg.attn_every}")
+    return cfg.num_layers // cfg.attn_every
+
+
+def _run_state_family(cfg: ModelConfig, params, x, remat: bool):
+    """The ssm stack, or the hybrid's groups of ``attn_every`` Mamba-2
+    layers each followed by the shared attention block."""
+    shared = params.get("shared_attn")
+    for i, layer in enumerate(L.unstack(params["layers"], cfg.num_layers)):
+        x = checkpoint(_ssm_block, cfg, x, layer, use_reentrant=False) if remat \
+            else _ssm_block(cfg, x, layer)
+        if shared is not None and (i + 1) % cfg.attn_every == 0:
+            x = checkpoint(_shared_attn_block, cfg, x, shared, use_reentrant=False) \
+                if remat else _shared_attn_block(cfg, x, shared)
+    return x
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
-            return_kv: bool = False):
-    """tokens (B, S) -> logits (B, S, Vp) float32, plus with ``return_kv``
-    the stacked (L, B, S, Hkv, hd) post-rope K and V — the fused-prefill
-    cache seed.  Differentiable in float parameters; the dense family has
-    no auxiliary loss (the JAX package's ``aux`` is 0 here)."""
+            return_kv: bool = False, return_aux: bool = False):
+    """tokens (B, S) -> logits (B, S, Vp) float32; with ``return_aux`` also
+    the MoE load-balance loss summed over layers (0 for the other
+    families), and with ``return_kv`` (attention families only) the stacked
+    (L, B, S, Hkv, hd) post-rope K and V — the fused-prefill cache seed —
+    in the JAX package's order ``(logits, aux, (k, v))``.  Differentiable
+    in float parameters."""
+    if return_kv and cfg.family == "ssm":
+        raise NotImplementedError("ssm has no attention KV; use decode-mode prefill")
+    if return_kv and cfg.family == "hybrid":
+        raise NotImplementedError(
+            "hybrid prefill needs conv/ssm state; use decode-mode prefill")
     x = F.embedding(tokens.long(), params["embed"]).to(getattr(torch, cfg.dtype))
     remat = cfg.remat and torch.is_grad_enabled() and not return_kv
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for layer in _layers(params["layers"], cfg.num_layers):
-        if remat:
-            x = checkpoint(_block_out, cfg, x, layer, use_reentrant=False)
-            continue
-        x, (k, v) = _attn_block(cfg, x, layer)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
-    logits = _head(cfg, params, x)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _run_state_family(cfg, params, x, remat)
+    else:
+        for layer in L.unstack(params["layers"], cfg.num_layers):
+            if remat:
+                x, a = checkpoint(_block_out, cfg, x, layer, use_reentrant=False)
+            else:
+                x, (k, v), a = _attn_block(cfg, x, layer)
+                if return_kv:
+                    ks.append(k)
+                    vs.append(v)
+            if a is not None:
+                aux = aux + a
+    out = (_head(cfg, params, x),)
+    if return_aux:
+        out += (aux,)
     if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+        out += ((torch.stack(ks), torch.stack(vs)),)
+    return out if len(out) > 1 else out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -149,31 +283,38 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def _dense_family_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{what} for the {cfg.family} family: its conv/ssm decode state "
-            "arrives with the MoE, SSM and hybrid slice of the port (ROADMAP "
-            "section 1, item 9)"
-        )
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, *,
                device=None) -> Dict[str, torch.Tensor]:
-    """Slot-layout KV cache: one ``max_len`` stripe per batch row, plus one
-    trash position at index ``max_len`` that absorbs the writes the JAX
-    package's scatter drops (a ``cur_len`` at or past ``max_len``).  Leaves
-    are (L, batch, max_len + 1, Hkv, hd); attention never reads the trash
-    position."""
-    _dense_family_only(cfg, "init_cache")
-    shape = (cfg.num_layers, batch, max_len + 1, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Slot-layout cache.  Attention K/V: one ``max_len`` stripe per batch
+    row, plus one trash position at index ``max_len`` that absorbs the
+    writes the JAX package's scatter drops (a ``cur_len`` at or past
+    ``max_len``); attention never reads it.  Leaves (L, batch, max_len + 1,
+    Hkv, hd), the hybrid's one per attention group.  The ssm and hybrid
+    families also hold each row's conv taps ``conv`` (L, batch, cw - 1, C)
+    in ``dtype`` and its float32 scan state ``ssm``."""
+    def kv(lead):
+        shape = (lead, batch, max_len + 1, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    Lyr, cw, di, N = cfg.num_layers, cfg.conv_width, cfg.d_inner, cfg.ssm_state
+    if cfg.family == "ssm":
+        return {"conv": torch.zeros((Lyr, batch, cw - 1, di), dtype=dtype, device=device),
+                "ssm": torch.zeros((Lyr, batch, di, N), dtype=torch.float32, device=device)}
+    if cfg.family == "hybrid":
+        nh = cfg.ssm_heads
+        return {"conv": torch.zeros((Lyr, batch, cw - 1, di + 2 * N), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((Lyr, batch, nh, di // nh, N), dtype=torch.float32,
+                                   device=device),
+                **kv(_n_groups(cfg))}
+    return kv(Lyr)
 
 
 def cache_max_len(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> int:
-    """The positions an ``init_cache`` stripe holds (its trash position aside)."""
-    return cache["k"].shape[2] - 1
+    """The positions an ``init_cache`` stripe holds (its trash position
+    aside); unbounded for a cache of conv/ssm state only."""
+    return cache["k"].shape[2] - 1 if "k" in cache else 1 << 20
 
 
 def seed_cache(cfg: ModelConfig, cache: Dict[str, torch.Tensor], kvs) -> None:
@@ -184,26 +325,70 @@ def seed_cache(cfg: ModelConfig, cache: Dict[str, torch.Tensor], kvs) -> None:
         seed_kv_cache(cache["k"][i], cache["v"][i], k[i], v[i])
 
 
+def _keep_rows(dst: torch.Tensor, new: torch.Tensor, write_rows) -> None:
+    """``dst`` (rows first) takes ``new`` IN PLACE, only on ``write_rows``
+    (all rows when it is None)."""
+    new = new.to(dst.dtype)
+    if write_rows is not None:
+        new = torch.where(write_rows.reshape((-1,) + (1,) * (new.dim() - 1)), new, dst)
+    dst.copy_(new)
+
+
+def _slot_attention(cfg: ModelConfig, x, p, kc, vc, cur_len, write_rows):
+    """``decode_attention`` on one layer's stripes; rows outside
+    ``write_rows`` attend with their new K/V but keep the stripe as it was."""
+    if write_rows is not None:
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        pos = cur_len.long().clamp(max=kc.shape[1] - 1)
+        old = kc[rows, pos], vc[rows, pos]
+    h = decode_attention(x, p, kc, vc, cur_len, n_heads=cfg.num_heads,
+                         n_kv=cfg.num_kv_heads, cfg=cfg.approx, rope_theta=cfg.rope_theta)
+    if write_rows is not None:
+        m = write_rows[:, None, None]
+        kc[rows, pos] = torch.where(m, kc[rows, pos], old[0])
+        vc[rows, pos] = torch.where(m, vc[rows, pos], old[1])
+    return h
+
+
 def decode_step(
     cfg: ModelConfig,
     params: Dict[str, Any],
     cache: Dict[str, torch.Tensor],
     tokens: torch.Tensor,               # (B, 1)
     cur_len: torch.Tensor,              # (B,)
+    *,
+    write_rows: Optional[torch.Tensor] = None,   # (B,) bool
 ) -> torch.Tensor:
-    """One-token decode against an ``init_cache`` stripe: each row writes
-    its new K/V at its ``cur_len`` and attends over positions
-    ``[0, cur_len]``.  Writes the cache in place; returns logits (B, 1, Vp)
-    float32."""
-    _dense_family_only(cfg, "decode_step")
+    """One-token decode against an ``init_cache`` cache: each row writes
+    its new K/V at its ``cur_len`` and attends over positions ``[0,
+    cur_len]``, and (ssm, hybrid) advances its conv taps and scan state.
+    Writes the cache in place; returns logits (B, 1, Vp) float32.
+
+    ``write_rows`` limits the writes to those rows: the others compute as
+    usual from the cache but leave it as it was (the teacher-forced
+    admission freezes each row past its prompt, as the JAX package does
+    with ``where(take, new, old)`` over every leaf)."""
     x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
     a = cfg.approx
-    for i, layer in enumerate(_layers(params["layers"], cfg.num_layers)):
-        h = decode_attention(
-            L.rms_norm(x, layer["ln1"]), layer["attn"], cache["k"][i], cache["v"][i],
-            cur_len, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=a,
-            rope_theta=cfg.rope_theta,
-        )
+    layers = L.unstack(params["layers"], cfg.num_layers)
+    if cfg.family in ("ssm", "hybrid"):
+        step = S.mamba1_decode_step if cfg.family == "ssm" else S.mamba2_decode_step
+        shared = params.get("shared_attn")
+        for i, layer in enumerate(layers):
+            y, (conv, h) = step(L.rms_norm(x, layer["ln"]), layer["mamba"],
+                                (cache["conv"][i], cache["ssm"][i]), cfg=a)
+            _keep_rows(cache["conv"][i], conv, write_rows)
+            _keep_rows(cache["ssm"][i], h, write_rows)
+            x = x + y
+            if shared is not None and (i + 1) % cfg.attn_every == 0:
+                g = i // cfg.attn_every
+                x = x + _slot_attention(cfg, L.rms_norm(x, shared["ln1"]), shared["attn"],
+                                        cache["k"][g], cache["v"][g], cur_len, write_rows)
+                x = x + _ffn(L.rms_norm(x, shared["ln2"]), shared["ffn"], a)
+        return _head(cfg, params, x)
+    for i, layer in enumerate(layers):
+        h = _slot_attention(cfg, L.rms_norm(x, layer["ln1"]), layer["attn"],
+                            cache["k"][i], cache["v"][i], cur_len, write_rows)
         x = _decode_mlp(cfg, x + h, layer, a)
     return _head(cfg, params, x)
 
@@ -219,13 +404,27 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     trash block at index ``num_blocks`` that absorbs the writes the JAX
     package's scatters drop (sentinel table entries, rows past their
     table).  Leaves are (L, num_blocks + 1, block_size, Hkv, hd); nothing
-    ever reads the trash block."""
+    ever reads the trash block.  Attention families only: ssm/hybrid state
+    has no sequence axis to page."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.family} caches carry per-request conv/ssm state with no "
+            "sequence axis; the paged layout applies to attention-family "
+            "KV caches only"
+        )
     shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _decode_mlp(cfg: ModelConfig, x, layer, a: ApproxConfig):
+    """The post-attention half of a decode-path dense or moe block; the moe
+    FFN routes the step's B tokens together."""
+    if cfg.family == "moe":
+        B = x.shape[0]
+        h2, _ = moe_ffn(L.rms_norm(x, layer["ln2"]).reshape(B, cfg.d_model), layer["moe"],
+                        top_k=cfg.moe_top_k, cfg=a, capacity_factor=cfg.capacity_factor)
+        return x + h2.reshape(B, 1, cfg.d_model)
     return x + _ffn(L.rms_norm(x, layer["ln2"]), layer["ffn"], a)
 
 
@@ -243,10 +442,12 @@ def paged_decode_step(
     """One-token decode against an ``init_paged_cache`` pool: each row's
     K/V reads and the new token's write go through its block table (shared
     by every layer).  Writes the pool in place; returns logits (B, 1, Vp)
-    float32."""
+    float32.  Attention families (dense, moe) only."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError("paged decode applies to attention-family caches only")
     x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
     a = cfg.approx
-    for i, layer in enumerate(_layers(params["layers"], cfg.num_layers)):
+    for i, layer in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = paged_decode_attention(
             L.rms_norm(x, layer["ln1"]), layer["attn"],
             cache["k"][i], cache["v"][i], block_tables, cur_len,
@@ -294,17 +495,18 @@ def paged_verify_step(
 
     Dense family only: MoE routing is capacity-coupled across the token
     batch, so a (B*S)-token pass would route differently than B sequential
-    single-token steps."""
+    single-token steps, and ssm/hybrid state has no paged layout."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError("paged verify applies to attention-family caches only")
     if cfg.family == "moe":
         raise NotImplementedError(
             "moe routing is capacity-coupled across the token batch — a "
             "batched verify pass routes differently than sequential decode, "
             "breaking the speculative acceptance contract"
         )
-    _dense_family_only(cfg, "paged_verify_step")
     x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
     a = cfg.approx
-    for i, layer in enumerate(_layers(params["layers"], cfg.num_layers)):
+    for i, layer in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = paged_verify_attention(
             _norm_per_position(x, layer["ln1"]), layer["attn"],
             cache["k"][i], cache["v"][i], block_tables, cur_len,
@@ -358,4 +560,4 @@ def params_to(node, device):
         return {k: params_to(v, device) for k, v in node.items()}
     if isinstance(node, QWeight):
         return QWeight(*(t.to(device) for t in node))
-    return node.to(device)
+    return None if node is None else node.to(device)

@@ -248,7 +248,9 @@ def generate(
     Returns (B, S0 + max_new) int64 tokens on ``device`` (prompt included);
     rows that hit ``sampling.eos_id`` are padded with it.
     ``prefill_mode="decode"`` teacher-forces the prompt through the decode
-    path; ``"fused"`` seeds the cache in one full-sequence pass.  The JAX
+    path (the ssm and hybrid families always do, as in the JAX package:
+    their conv/ssm state has no fused seeding); ``"fused"`` seeds the cache
+    in one full-sequence pass.  The JAX
     package compiles this into one program; here it is a Python loop of
     ``decode_step`` calls, issued without waiting on the device.  Temperature
     sampling draws row ``b``'s token at position ``p`` from the positional
@@ -269,6 +271,8 @@ def generate(
     max_len = max_len or (S0 + max_new)
     if max_len < S0 + max_new:
         raise ValueError(f"max_len={max_len} < prompt_len + max_new = {S0 + max_new}")
+    if cfg.family in ("ssm", "hybrid"):
+        prefill_mode = "decode"
     params = params_to(params, dev)
     cache = init_cache(cfg, B, max_len, cache_dtype, device=dev)
     prefill = _prefill_fused if prefill_mode == "fused" else _prefill_decode

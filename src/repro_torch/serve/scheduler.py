@@ -20,6 +20,13 @@ prefill (``forward(return_kv=True)``): prompts pad to the largest bucket of
 the batch and rows pad to a power-of-two admission width, as in the JAX
 package — under per-tensor activation scales the padding rows share the
 quantization of the real ones, so the same padding gives the same codes.
+The ssm and hybrid families (``prefill_mode == "decode"``) carry conv/ssm
+state that no fused pass seeds: their admission teacher-forces the bucket
+through ``decode_step`` on a fresh batch cache, freezing each row past its
+prompt (``_prefill_decode``, the JAX package's ``_admit_decode``), and
+they serve on the slot layout only.  A moe batch routes every token of
+the admission (padding included) and, in decode, every slot's row
+together, as the JAX package does: capacity couples them.
 Then it runs one decode chunk of ``steps_per_tick`` steps across all slots
 (``_decode_tick``).  Two host loops (``loop=``):
 
@@ -839,7 +846,15 @@ class ServeSession:
                     "shed_restore_fraction must be in (0, 1], got "
                     f"{shed_restore_fraction}"
                 )
+        # SSM/hybrid caches carry conv/ssm state -> masked teacher-forced admit
+        self.prefill_mode = "decode" if cfg.family in ("ssm", "hybrid") else "fused"
         if cache_layout == "paged":
+            if cfg.family in ("ssm", "hybrid"):
+                raise ValueError(
+                    f"{cfg.family} decode state is O(1) per request (no KV "
+                    "sequence axis) — there is nothing to page; use "
+                    'cache_layout="slots"'
+                )
             if zero_on_evict:
                 raise ValueError(
                     "zero_on_evict applies to the slot layout only (freed "
@@ -853,6 +868,7 @@ class ServeSession:
                     "(fixed-width block tables)"
                 )
         self.layout = cache_layout
+        self.cache_dtype = cache_dtype
         self.zero_on_evict = bool(zero_on_evict)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -1421,24 +1437,50 @@ class ServeSession:
         return batch, budget, stalled
 
     def _prefill(self, cfg: ModelConfig, prompts, prompt_lens, req_ids, seat) -> torch.Tensor:
-        """One fused prefill of an admission batch under ``cfg`` (a tier
-        session's rung): seed each row's cache and sample its first token
-        (at position ``prompt_len``); (A,) tokens on the device.  ``seat``
-        is the paged layout's (A, nb) block ids, or the slot layout's
-        (slots, valid): rows to write and which of them are real (the
-        others rewrite what they hold, ``cache.scatter_rows``)."""
+        """One prefill of an admission batch under ``cfg`` (a tier session's
+        rung): seed each row's cache and sample its first token (at
+        position ``prompt_len``); (A,) tokens on the device.  ``seat`` is
+        the paged layout's (A, nb) block ids, or the slot layout's (slots,
+        valid): rows to write and which of them are real (the others
+        rewrite what they hold, ``cache.scatter_rows``).  Attention
+        families prefill fused (``forward(return_kv=True)``); ssm and
+        hybrid teacher-force (``_prefill_decode``)."""
         dev = self.device
-        logits, kvs = forward(cfg, self.params, self._h2d(prompts), return_kv=True)
         lens = self._h2d(prompt_lens).long()
-        last = logits[torch.arange(len(prompt_lens), device=dev), lens - 1]
-        if self.layout == "paged":
-            C.scatter_prompt_blocks(self.cache, kvs, self._h2d(seat), self.block_size)
+        if self.prefill_mode == "decode":
+            last = self._prefill_decode(cfg, self._h2d(prompts), lens, *seat)
         else:
-            slots, valid = seat
-            for name, part in zip(("k", "v"), kvs):
-                C.scatter_rows(self.cache[name], part, slots, valid, s_cap=prompts.shape[1])
+            logits, kvs = forward(cfg, self.params, self._h2d(prompts), return_kv=True)
+            last = logits[torch.arange(len(prompt_lens), device=dev), lens - 1]
+            if self.layout == "paged":
+                C.scatter_prompt_blocks(self.cache, kvs, self._h2d(seat), self.block_size)
+            else:
+                slots, valid = seat
+                for name, part in zip(("k", "v"), kvs):
+                    C.scatter_rows(self.cache[name], part, slots, valid,
+                                   s_cap=prompts.shape[1])
         return select_token(last, self.sampling, seed=self.seed,
                             req_ids=self._h2d(req_ids), positions=lens)
+
+    def _prefill_decode(self, cfg: ModelConfig, prompts: torch.Tensor, lens: torch.Tensor,
+                        slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """The teacher-forced admission of the ssm and hybrid families (the
+        JAX package's ``_admit_decode``): the bucket's positions one at a
+        time through ``decode_step`` on a fresh batch-A cache, each row's
+        state (every leaf) frozen once ``t >= prompt_len``, then every row
+        scattered into its slot.  Returns each row's logits at ``t ==
+        prompt_len - 1``, (A, Vp); nothing waits on the device."""
+        A, Sb = prompts.shape
+        part = init_cache(cfg, A, self.max_len, self.cache_dtype, device=self.device)
+        last = torch.zeros((A, cfg.padded_vocab), dtype=torch.float32, device=self.device)
+        for t in range(Sb):
+            logits = decode_step(cfg, self.params, part, prompts[:, t:t + 1],
+                                 torch.full((A,), t, dtype=torch.long, device=self.device),
+                                 write_rows=t < lens)
+            last = torch.where((t == lens - 1)[:, None], logits[:, 0], last)
+        for name, leaf in part.items():
+            C.scatter_rows(self.cache[name], leaf, slots, valid)
+        return last
 
     def _admit_many(self, reqs: List[Request], tier_idx: int = 0) -> None:
         """Admit ``reqs`` with ONE prefill: effective prompts (a replayed

@@ -23,8 +23,8 @@ from repro_torch.train import optim as O
 from repro_torch.train.compression import compress_decompress
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
-__all__ = ["TrainState", "as_batch", "cross_entropy", "init_state", "make_loss_fn",
-           "make_train_step", "train_loop"]
+__all__ = ["TrainState", "as_batch", "check_trainable", "cross_entropy", "init_state",
+           "make_loss_fn", "make_train_step", "train_loop"]
 
 TrainState = Dict[str, Any]   # {"params": ..., "opt": {"step", "m", "v"}, ["grad_err"]}
 
@@ -61,7 +61,21 @@ def _band_reg_term(cfg: ModelConfig, params) -> torch.Tensor:
     return a.band_reg * total / max(n, 1)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training is ported for the dense family only: the moe family's loss
+    needs its load-balance term and the ssm/hybrid blocks their remat, which
+    the training slice of these families adds (ROADMAP section 1, item 9b).
+    Refuse them rather than train them differently from the JAX package."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family} family (the MoE load-balance loss, remat "
+            "over the MoE and Mamba blocks) is not ported yet: ROADMAP section 1, "
+            "item 9b")
+
+
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01) -> Callable:
+    check_trainable(cfg)
+
     def loss_fn(params, batch):
         logits = forward(cfg, params, batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # dense: no aux

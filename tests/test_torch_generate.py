@@ -140,12 +140,17 @@ def test_argument_checks_raise():
     stub = types.SimpleNamespace(**{**vars(tcfg), "embed_input": False})
     with pytest.raises(ValueError, match="embed-input"):
         generate(stub, tp, PROMPT, device="cpu")
-    ssm = types.SimpleNamespace(**{**vars(tcfg), "family": "ssm"})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        init_cache(ssm, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        decode_step(ssm, tp, {}, torch.zeros((1, 1), dtype=torch.long),
-                    torch.zeros((1,), dtype=torch.long))
+    # the ssm family's conv/ssm cache and decode step run (they refused
+    # before the MoE, SSM and hybrid slice), on a reduced falcon-mamba
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.transformer import init_params
+
+    ssm = reduced_config(get_config("falcon-mamba-7b"))
+    cache = init_cache(ssm, 1, 8)
+    assert set(cache) == {"conv", "ssm"} and cache["ssm"].shape == (2, 1, 256, 16)
+    logits = decode_step(ssm, init_params(ssm, device="cpu"), cache,
+                         torch.zeros((1, 1), dtype=torch.long), torch.zeros((1,), dtype=torch.long))
+    assert logits.shape == (1, 1, ssm.padded_vocab) and cache["ssm"].abs().sum() > 0
 
 
 def test_temperature_is_deterministic_and_respects_top_k():

@@ -32,7 +32,9 @@ def test_port_files_exist():
                 "models/cnn.py", "paper/table_v.py", "paper/table_vi_vii.py",
                 "paper/table_viii.py", "paper/kernel_bench.py", "examples/quickstart.py",
                 "examples/lenet_mnist_qat.py", "paper/ablation_removal.py",
-                "examples/approx_qat_lm.py", "examples/llm_approx_serve.py"):
+                "examples/approx_qat_lm.py", "examples/llm_approx_serve.py",
+                "models/moe.py", "models/ssm.py", "configs/qwen2_moe_a2_7b.py",
+                "configs/falcon_mamba_7b.py", "configs/zamba2_2_7b.py"):
         assert f"repro_torch/{mod}" in names, mod
     assert (ROOT / "chip_smoke.py").is_file()
     srcs = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}

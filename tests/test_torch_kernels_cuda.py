@@ -151,8 +151,11 @@ def _k2_check(args, bs, q_dtype, zero_rows=()):
 
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=["q32", "q16"])
 @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+# granite's served shape, the tests' shapes, and qwen2-moe-a2.7b's (H 16
+# over Hkv 16, hd 128, a table of 3 blocks as phase 13 serves it)
 @pytest.mark.parametrize("B,W,bs,n_kv,g,hd", [(4, 10, 16, 8, 4, 64), (3, 5, 4, 2, 2, 32),
-                                              (2, 6, 1, 1, 3, 16), (4, 3, 8, 1, 2, 4)])
+                                              (2, 6, 1, 1, 3, 16), (4, 3, 8, 1, 2, 4),
+                                              (4, 3, 16, 16, 1, 128)])
 def test_paged_attention_kernel_within_1e4_of_plain(dev, B, W, bs, n_kv, g, hd, pool_dtype,
                                                     q_dtype):
     q, kn, vn, kp, vp, tbl, nb = _k2_case(dev, B, W, bs, n_kv, g, hd, pool_dtype, B * W)
@@ -178,6 +181,32 @@ def test_paged_attention_kernel_long_table_with_empty_later_chunks(dev, pool_dty
     assert splits > 1
     _k2_check((q, kn, vn, kp, vp, tbl, cur), bs, torch.bfloat16, zero_rows=[3])
     _k2_check((q, kn, vn, kp, vp, tbl, cur), bs, torch.float32, zero_rows=[3])
+
+
+def test_moe_ffn_through_k1_equals_plain_and_repeats(dev):
+    """The MoE FFN on frozen experts at reduced width, with a router skewed
+    until the capacity binds: through K1 (``kernel``) bit-equal to K1's
+    plain version (``lowrank``), one K1 launch per expert and projection
+    plus the shared expert's three, and bit-equal across repeats (the
+    combine sums in a fixed order; nothing uses float atomics)."""
+    from repro_torch.core.approx import ApproxConfig, prequantize_tree
+    from repro_torch.models.moe import init_moe, moe_capacity, moe_ffn, route
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    T, d, E, ff, k = 64, 128, 4, 256, 2
+    p = init_moe(g, d, ff, E, shared_d_ff=128, device=dev)
+    p["router"][:, 0] += 4.0
+    x = torch.randn(T, d, generator=g, device=dev) + 1.0
+    kcfg = ApproxConfig(mode="kernel", act_per_row=True)
+    frozen = prequantize_tree(p, kcfg)
+    assert not route(x, p["router"], k, moe_capacity(T, k, E, 1.25)).keep.all()
+    before = approx_matmul.launches
+    out, aux = moe_ffn(x, frozen, top_k=k, cfg=kcfg)
+    assert approx_matmul.launches == before + 3 * E + 3
+    plain, plain_aux = moe_ffn(x, frozen, top_k=k,
+                               cfg=dataclasses.replace(kcfg, mode="lowrank"))
+    again, _ = moe_ffn(x, frozen, top_k=k, cfg=kcfg)
+    assert torch.equal(out, plain) and torch.equal(aux, plain_aux) and torch.equal(out, again)
 
 
 def test_paged_attention_kernel_refuses_what_it_does_not_take(dev):

@@ -20,7 +20,6 @@ positional sampling keys.
 from __future__ import annotations
 
 import dataclasses
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,14 +130,15 @@ def test_validation_raises_the_jax_errors(case):
 
 
 def test_moe_is_refused_with_the_jax_reason():
-    """The port registers no moe config yet (ROADMAP item 9, and its
-    ``ModelConfig`` refuses the family): a stand-in carrying only the
-    family reaches the gate, which runs before the config is used."""
+    """Spec decode refuses the moe family (its routing is capacity-coupled
+    across the token batch) with JAX's message, on the real reduced
+    qwen2-moe-a2.7b config of both packages."""
     from repro.configs import get_config as jget_config
     from repro.configs import reduced_config as jreduced
+    from repro_torch.configs import get_config, reduced_config
 
     jmoe = jreduced(jget_config("qwen2-moe-a2.7b"))
-    tmoe = types.SimpleNamespace(family="moe")
+    tmoe = reduced_config(get_config("qwen2-moe-a2.7b"))
     kw = dict(cache_layout="paged", block_size=4, max_len=32, prompt_buckets=(4, 8),
               spec_decode=True)
     with pytest.raises(ValueError, match="moe") as jerr:

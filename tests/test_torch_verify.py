@@ -162,7 +162,17 @@ def test_verify_family_gates():
     for fn in (T.paged_verify_step, T.paged_chunk_prefill_step):
         with pytest.raises(NotImplementedError, match="capacity-coupled"):
             fn(moe, *args, block_size=4)
-    for fam in ("ssm", "hybrid"):
-        other = types.SimpleNamespace(**{**vars(tcfg), "family": fam})
-        with pytest.raises(NotImplementedError, match="item 9"):
-            T.paged_verify_step(other, *args, block_size=4)
+    # ssm and hybrid: the real reduced configs, with the JAX package's message
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced_config as jreduced
+    from repro_torch.configs import get_config, reduced_config
+
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError) as jerr:
+            jT.paged_verify_step(jreduced(jget_config(arch)), {}, {},
+                                 {"tokens": jnp.zeros((1, 2), jnp.int32)},
+                                 jnp.zeros((1,), jnp.int32), jnp.zeros((1, 1), jnp.int32),
+                                 block_size=4)
+        with pytest.raises(NotImplementedError) as terr:
+            T.paged_verify_step(reduced_config(get_config(arch)), *args, block_size=4)
+        assert str(terr.value) == str(jerr.value)
