@@ -3,9 +3,11 @@
 Hopper GPU: granite-3-2b at full width served (on the paged pool and on
 per-slot stripes; with prefix sharing, preemption, spec decode, quality
 tiers and chunked prefill) and retrained, the paper's CNNs (ResNet-19 at full
-width) trained and QAT-retrained, and qwen2-moe-a2.7b, falcon-mamba-7b and
-zamba2-2.7b served at full width, through the hand-written CUDA kernels,
-each held against its plain PyTorch version.
+width) trained and QAT-retrained, qwen2-moe-a2.7b, falcon-mamba-7b and
+zamba2-2.7b served and retrained at full width, and the qwen2-vl-2b and
+musicgen-large backbones run, decoded and retrained on embeddings at full
+width, through the hand-written CUDA kernels, each held against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed S] [--out report.json] [--profile]
 
@@ -237,14 +239,56 @@ Phases, each of which fails the run (non-zero exit, no result line):
            execution, and each request's tokens equal to
            ``generate(prefill_mode="decode")`` of its prompt alone or a
            recorded near tie.
+14. train  QAT retraining of the moe, ssm and hybrid families at full width
+           through K1, as ``launch/train.py`` trains (mul8x8_2, band_reg
+           1e-4, AdamW, remat on, batch 8 x seq 64): qwen2-moe-a2.7b 4
+           layers deep, falcon-mamba-7b 16, zamba2-2.7b all 54
+           (TRAIN_DEPTHS: the cuts fit a unit's float32 parameters,
+           gradients and both moments beside the pool).  2 steps with K1's
+           count zeroed just before and read just after: finite losses,
+           the moe's load-balance term > 0, K1's launches equal to the
+           steps times ``k1_per_train_step`` (every projection, then the
+           recompute of each layer in the backward); step seconds, peak
+           memory, one profiled step's device ms by kernel.  Oracle, 4
+           layers deep (the hybrid: one group of 6), from one fresh state
+           and batch: a step through K1, the same step through K1 again
+           and through K1's plain version (``lowrank``): losses and whole
+           new states (``state_digest``) bit-identical.  Then
+           ``launch/train.py --arch <family> --reduced`` runs 2 steps and a
+           second call resumes from its checkpoint for 2 more.
+15. backbones  qwen2-vl-2b (28 layers, d 1536, 12/2 heads of 128, m_rope
+           sections 16/24/24) and musicgen-large (48 layers, d 2048, 32/32
+           heads of 64, sinusoidal positions) at full width on seeded
+           embeddings (2 rows of 32): first K1 bit-equal to its plain
+           version at every (K, N) of the model's projections, at M = 2
+           (a decode step), 4 and 64 (a forward pass of 2 x 32); then
+           (a) ``forward`` through K1 with
+           frozen weights (approx, per-row scales; qwen2-vl with a
+           ``positions_thw`` grid: an image of 4 x 4 patches after an
+           8-token prefix, which must move the logits): finite logits, K1
+           launched once per projection (197 and 337); (c) the embeddings
+           teacher-forced through ``decode_step`` on the slot layout (the
+           gather), each step's logits within JAX's tolerance of
+           ``forward``'s at default positions (m_rope with equal streams
+           is rope) or the same argmax or a near tie (NEAR_TIE); (d) the
+           same through ``paged_decode_step`` through K2, every K2 call
+           held against its plain version (within 1e-4, plus bf16
+           rounding for the bf16 query), each step's logits equal to the
+           slot step's or near ties; K1's and K2's counts, zeroed before
+           (a) and read after (d), equal to the passes times one pass's
+           calls and to layers x steps; then 4 layers deep in float32 the
+           teacher-forced decode within JAX's tolerance of ``forward``;
+           (b) training on embeddings as in phase 14 (musicgen 24 of its
+           48 layers; qwen2-vl with a positions grid) with its 4-layer
+           oracle.
 
 Phases 1-7 run in this process, one after another, and so do the parts
 whose times go into the kernels line: phase 8's K1 at the CNN shapes,
 phase 10's stall probe (its gates are host times) and phase 13's K2 at the
-moe shape.  The rest of phases 8-13 then runs as units (phase 8; 9; 10;
-11; 12 (a)-(b), 12 (c) and its sync run; each model of 13) in up to
-POOL_WORKERS processes on the one card at once, as many as the units'
-memory peaks allow (POOL_GB), each unit in a fresh process: serving is
+moe shape.  The rest of phases 8-15 then runs as units (phase 8; 9; 10;
+11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14 and 15) in
+up to POOL_WORKERS processes on the one card at once, as many as the
+units' memory peaks allow (POOL_GB), each unit in a fresh process: serving is
 host-bound, and processes sharing the card each serve at the speed of one
 alone (``scripts/shared_card_probe.py``), so the phases' seconds add up to
 more than the run's.  The tok/s, host ms and admission seconds those units
@@ -335,7 +379,13 @@ FAMILY_MAX_LEN = 48                  # 32 prompt + 12 new, whole blocks
 MOE_REQUESTS, MOE_NEW = 4, 8         # phase 13's cut of the moe trace
 PAPER_BATCH, PAPER_TEST = 64, 256     # Table VIII's training and test batches
 RESNET_STEPS = 3
-POOL_WORKERS = 4                     # processes that run phases 8-13's units
+POOL_WORKERS = 4                     # processes that run phases 8-15's units
+BACKBONE_ARCHS = ("qwen2-vl-2b", "musicgen-large")                    # phase 15
+BACKBONE_SEQ = 32                    # phase 15's embeddings per row: 8 text, a 4 x 4 image, 8
+TRAIN_STEPS_FAMILY = 2               # phases 14 and 15's steps through K1
+TRAIN_DEPTHS = {                     # phases 14 and 15: each model's trained depth (PERF.md 4)
+    "qwen2-moe-a2.7b": 4, "falcon-mamba-7b": 16, "zamba2-2.7b": 54,
+    "qwen2-vl-2b": 28, "musicgen-large": 24}
 
 
 _UNIT_LOG = None                     # a pool worker's log lines, printed when its unit ends
@@ -2710,7 +2760,466 @@ def family_k2(cfg, dev, seed):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-13's units, run by a pool of processes on the one card
+# phase 14: training of the moe, ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+
+def k1_per_train_step(cfg):
+    """K1 launches of one training step of ``cfg`` (float weights, remat
+    on): every projection in the forward, then each layer's recompute in
+    the backward, which stops once the tensors the backward saved are back
+    (torch's non-reentrant checkpoint), so it skips a block's last
+    projection when nothing after it is saved (the FFN's ``w_down``,
+    Mamba's ``out_proj``); the MoE block recomputes all of its own (the
+    shared expert and the load-balance terms come after the experts).  The
+    LM head runs once."""
+    n = cfg.num_layers
+    if cfg.family == "moe":
+        return 2 * n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
+    if cfg.family == "ssm":
+        return (4 + 3) * n + 1
+    if cfg.family == "hybrid":
+        return (2 + 1) * n + (7 + 6) * (n // cfg.attn_every) + 1
+    return (7 + 6) * n + 1
+
+
+def state_digest(tree, chunk=1 << 24):
+    """Per leaf of a training state, exact integer sums over its 32-bit
+    words: of their low and high 16 bits, plain and each times two fixed
+    pseudo-random weights per position (drawn from a seed per chunk).  Two
+    states bit-identical give equal digests; one word that differs changes
+    them with certainty, and the weighted sums catch words that differ in
+    pairs.  Nothing here holds a second copy of a state (a 4-layer
+    qwen2-moe-a2.7b state is 35 GB)."""
+    from repro_torch.train.tree import leaves
+
+    out = []
+    for leaf in leaves(tree):
+        words = leaf.detach().reshape(-1).view(torch.int32)
+        sums = [0] * 6
+        gen = torch.Generator(device=words.device)
+        for i in range(0, words.numel(), chunk):
+            c = words[i:i + chunk].to(torch.int64)
+            lo, hi = c & 0xFFFF, (c >> 16) & 0xFFFF
+            gen.manual_seed(i)
+            r = torch.randint(1, 1 << 16, (2,) + c.shape, generator=gen, device=c.device)
+            parts = torch.stack([lo.sum(), hi.sum(), (lo * r[0]).sum(), (hi * r[0]).sum(),
+                                 (lo * r[1]).sum(), (hi * r[1]).sum()])
+            sums = [a + b for a, b in zip(sums, parts.tolist())]
+        out.append(tuple(sums))
+    return out
+
+
+def one_step(cfg, opt, seed, batch, dev):
+    """A fresh ``init_state(cfg, seed)`` stepped once on ``batch``: (loss,
+    grad norm, the new state's digest, K1 launches)."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.train.loop import init_state, make_train_step
+
+    state = init_state(cfg, opt, seed, device=dev)
+    n0 = approx_matmul.launches
+    state, m = make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    n = approx_matmul.launches - n0
+    out = (m["loss"].item(), m["grad_norm"].item(), state_digest(state), n)
+    del state, m
+    gc.collect()                # the next run reuses the allocator's cached blocks
+    return out
+
+
+def train_oracle(cfg, opt, seed, batch, dev, name):
+    """The 4-layer oracle (the hybrid: one group of ``attn_every``): one
+    step through K1, the same step through K1 again and through its plain
+    version (``lowrank``), each from the same fresh state on the same
+    batch; their losses and whole new states must be bit-identical."""
+    depth = cfg.attn_every if cfg.family == "hybrid" else ORACLE_LAYERS
+    cfg4 = dataclasses.replace(cfg, num_layers=depth)
+    plain = dataclasses.replace(cfg4, approx=dataclasses.replace(cfg4.approx, mode="lowrank"))
+    runs = {k: one_step(c, opt, seed + 1, batch, dev)
+            for k, c in (("kernel", cfg4), ("kernel_again", cfg4), ("plain", plain))}
+    res = {"layers": depth, **{f"loss_{k}": r[0] for k, r in runs.items()},
+           "k1_launches": {k: r[3] for k, r in runs.items()},
+           "k1_predicted": k1_per_train_step(cfg4),
+           "leaves": len(runs["kernel"][2]),
+           "kernel_again_identical": runs["kernel_again"][:3] == runs["kernel"][:3],
+           "plain_identical": runs["plain"][:3] == runs["kernel"][:3]}
+    log(f"[{name}] oracle: {json.dumps(res)}")
+    if not (res["kernel_again_identical"] and res["plain_identical"]):
+        raise AssertionError(f"[{name}] a {depth}-layer training step through K1 is not "
+                             f"bit-identical to {'its plain version' if res['kernel_again_identical'] else 'itself'}: {res}")
+    if res["k1_launches"] != {"kernel": res["k1_predicted"], "kernel_again": res["k1_predicted"],
+                              "plain": 0}:
+        raise AssertionError(f"[{name}] oracle launches {res['k1_launches']}, predicted "
+                             f"{res['k1_predicted']} per K1 step and none for the plain one")
+    return res
+
+
+def train_steps(cfg, opt, state, batches, dev, name):
+    """TRAIN_STEPS_FAMILY steps through K1 with K1's count zeroed just
+    before and read just after (the path's launches), then one profiled
+    step: its device ms by kernel."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.train.loop import make_train_step
+
+    from repro_torch.train.tree import leaves
+
+    step = make_train_step(cfg, opt)
+    out = {"layers": cfg.num_layers, "params": sum(p.numel() for p in leaves(state["params"])),
+           "k1_predicted_per_step": k1_per_train_step(cfg), "steps": []}
+    todo = [next(batches) for _ in range(TRAIN_STEPS_FAMILY + 1)]
+    approx_matmul.launches = 0
+    for batch in todo[:-1]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        out["steps"].append({"loss": m["loss"].item(), "ce": m["ce"].item(),
+                             "aux": m["aux"].item(), "band_reg": m["band_reg"].item(),
+                             "host_s": time.perf_counter() - t0})
+    torch.cuda.synchronize()
+    out["launches"] = approx_matmul.launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    holder = {}
+
+    def one():
+        holder["state"], holder["m"] = step(state, todo[-1])
+    out["profiled_step"] = profile_step(one)
+    del holder
+    log(f"[{name}] {json.dumps(out)}")
+    losses = [s["loss"] for s in out["steps"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[{name}] training losses not finite: {losses}")
+    if cfg.family == "moe" and not all(s["aux"] > 0 for s in out["steps"]):
+        raise AssertionError(f"[{name}] the load-balance term is not positive: {out['steps']}")
+    if out["launches"] != TRAIN_STEPS_FAMILY * out["k1_predicted_per_step"]:
+        raise AssertionError(f"[{name}] K1 launched {out['launches']} times in "
+                             f"{TRAIN_STEPS_FAMILY} steps, predicted "
+                             f"{out['k1_predicted_per_step']} per step")
+    if not out["profiled_step"].get("k1_device_ms", 0) > 0:
+        raise AssertionError(f"[{name}] the profiled step shows no device time for "
+                             "approx_matmul_kernel")
+    return out
+
+
+def train_config(arch, depth):
+    """``arch`` at its registered widths and ``depth`` layers, trained as
+    ``launch/train.py`` trains: mul8x8_2 through K1, band_reg 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import ApproxConfig
+
+    return dataclasses.replace(get_config(arch), num_layers=depth, approx=ApproxConfig(
+        multiplier=TIER_MULTIPLIER, mode="kernel", band_reg=1e-4))
+
+
+def train_family_phase(arch, dev, seed):
+    """Phase 14 for one of FAMILY_ARCHS (see the module text)."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import as_batch, init_state
+
+    t_phase = time.perf_counter()
+    name = f"train {arch}"
+    seconds = {}
+    t_part = t_phase
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[part] = now - t_part
+        t_part = now
+
+    cfg = train_config(arch, TRAIN_DEPTHS[arch])
+    opt = O.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS_FAMILY)        # as launch/train.py
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pairs = token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    out = {"arch": arch, "family": cfg.family, "init_s": init_s, "seconds_by_part": seconds,
+           **train_steps(cfg, opt, state, (as_batch(p, dev) for p in pairs), dev, name)}
+    del state
+    gc.collect()
+    lap("steps")
+    batch = as_batch(next(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                        seed=seed + 1)), dev)
+    out["oracle"] = train_oracle(cfg, opt, seed, batch, dev, name)
+    lap("oracle")
+
+    # the launcher at reduced size, then resumed from its checkpoint
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
+    try:
+        common = ["--arch", arch, "--reduced", "--ckpt", tmp, "--ckpt-every", "2",
+                  "--seed", str(seed)]
+        first = launch_train.main(common + ["--steps", "2"])
+        second = launch_train.main(common + ["--steps", "4"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launcher"] = {"first_losses": first["losses"], "resumed_at": second["start"],
+                       "second_losses": second["losses"]}
+    log(f"[{name}] launcher: {json.dumps(out['launcher'])}")
+    if first["start"] != 0 or second["start"] != 2 or len(second["losses"]) != 2 or not all(
+            math.isfinite(x) for x in first["losses"] + second["losses"]):
+        raise AssertionError(f"[{name}] the launcher did not resume from its checkpoint: "
+                             f"{out['launcher']}")
+    lap("launcher")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the vlm and audio backbones
+# ---------------------------------------------------------------------------
+
+
+def thw_grid(B, S, prefix):
+    """Multimodal rope positions (B, 3, S): ``prefix`` text tokens, then an
+    image of 4 x 4 patches (t held, h and w over the grid), then text from
+    the next free position: three streams that differ."""
+    thw = torch.empty((3, S), dtype=torch.long)
+    thw[:, :prefix] = torch.arange(prefix)
+    h, w = torch.arange(16) // 4, torch.arange(16) % 4
+    img = slice(prefix, prefix + 16)
+    thw[0, img], thw[1, img], thw[2, img] = prefix, prefix + h, prefix + w
+    thw[:, prefix + 16:] = prefix + 4 + torch.arange(S - prefix - 16)
+    return thw[None].expand(B, 3, S).clone()
+
+
+def embedding_batch(cfg, B, S, gen, dev):
+    """Seeded embeddings (B, S, d) on the card, and for the vlm a
+    ``positions_thw`` grid (an image after an 8-token prefix)."""
+    emb = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    thw = thw_grid(B, S, 8).to(dev) if cfg.pos_embedding == "m_rope" else None
+    return emb, thw
+
+
+def logits_agree(got, ref, near_tie):
+    """Per position, ``got`` within JAX's forward-vs-decode tolerance of
+    ``ref`` (|d| <= 2e-3 + 2e-2 |ref|), or, where not, the same argmax or a
+    near tie: ``got``'s argmax within ``near_tie`` of ``ref``'s top logit
+    in ``ref``.  Returns the numbers and the positions beyond both."""
+    d = (got - ref).abs()
+    beyond = (d > 2e-3 + 2e-2 * ref.abs()).any(-1)
+    a, b = got.argmax(-1), ref.argmax(-1)
+    gap = ref.max(-1).values - ref.gather(-1, a[..., None])[..., 0]
+    bad = beyond & (a != b) & (gap > near_tie)
+    return {"max_abs_diff": d.max().item(), "max_abs_logit": ref.abs().max().item(),
+            "beyond_tol_positions": int(beyond.sum()), "argmax_equal_share":
+            (a == b).float().mean().item(), "worst_near_tie_gap": gap.max().item()}, bad
+
+
+class K2Check:
+    """Wraps ``models.attention.paged_attention`` for a run: each call
+    launches K2 and is held against its plain version on the same inputs
+    (within K2_TOL plus the bf16 rounding of |ref| for a bf16 query, as
+    phase 3 holds it); the plain calls do not count as launches."""
+
+    def __init__(self):
+        import repro_torch.models.attention as A
+        from repro_torch.kernels.paged_attention import paged_attention_plain
+
+        self.mod, self.inner, self.plain = A, A.paged_attention, paged_attention_plain
+        self.calls, self.err = 0, 0.0
+
+    def __call__(self, q, *rest, block_size):
+        out = self.inner(q, *rest, block_size=block_size)
+        ref = self.plain(q, *rest, block_size=block_size)
+        dev_ = (out.float() - ref).abs()
+        slack = ref.abs() * 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
+        if not bool((dev_ <= K2_TOL + slack).all()):
+            raise AssertionError(f"K2 call {self.calls}: max abs err {dev_.max().item()} "
+                                 "beyond its plain version's tolerance")
+        self.calls += 1
+        self.err = max(self.err, dev_.max().item())
+        return out
+
+    def __enter__(self):
+        self.mod.paged_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.paged_attention = self.inner
+
+
+def backbone_phase(arch, dev, seed):
+    """Phase 15 for one of BACKBONE_ARCHS (see the module text)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.transformer import (decode_step, forward, init_cache,
+                                                init_paged_cache, init_params,
+                                                paged_decode_step)
+    from repro_torch.serve import resolve_execution_mode
+    from repro_torch.train import optim as O
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), approx=resolve_execution_mode(
+        "approx", TIER_MULTIPLIER, act_per_row=True))
+    out = {"arch": arch, "family": cfg.family, "k1_per_pass": k1_per_pass(cfg),
+           "seconds_by_part": {}}
+    t_part = time.perf_counter()
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds_by_part"][part] = now - t_part
+        t_part = now
+
+    # K2 at this model's shape, as phase 3 holds it: f32 and bf16 queries,
+    # both pool dtypes, with and without sentinel holes
+    rng = np.random.default_rng(seed + 150)
+    hkv, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    worst = [0.0, 0.0]
+    for pool, pool_dtype in K2_POOLS.items():
+        for holes in (False, True):
+            args = paged_case(rng, dev, NUM_SLOTS, FAMILY_MAX_LEN // BLOCK_SIZE, BLOCK_SIZE,
+                              hkv, g, hd, holes=holes, pool_dtype=pool_dtype)
+            errs = k2_check(f"{arch} {pool} holes={holes}", args, BLOCK_SIZE)
+            worst = [max(x, y) for x, y in zip(worst, errs)]
+    out["k2_check"] = {"H": cfg.num_heads, "Hkv": hkv, "hd": hd, "max_abs_err": worst[0],
+                       "max_abs_err_bf16_q": worst[1]}
+    log(f"[{arch}] K2 at H {cfg.num_heads}, Hkv {hkv}, hd {hd}: max abs err {worst}")
+    lap("k2")
+
+    # K1 at every (K, N) of this model's projections, at the M of a decode
+    # step (B), of a slot pool and of a forward pass (B * S)
+    B, S = 2, BACKBONE_SEQ
+    d, hq, hkv_w = cfg.d_model, cfg.num_heads * cfg.head_dim, hkv * cfg.head_dim
+    kn = sorted({(d, hq), (d, hkv_w), (hq, d), (d, cfg.d_ff), (cfg.d_ff, d),
+                 (d, cfg.padded_vocab)})
+    gen = torch.Generator(device=dev).manual_seed(seed + 151)
+    k1 = []
+    for K, N in kn:
+        for M in sorted({B, NUM_SLOTS, B * S}):
+            a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
+            b = torch.randint(0, 256, (K, N), generator=gen, device=dev, dtype=torch.uint8)
+            got = approx_matmul(a, b, multiplier=TIER_MULTIPLIER)
+            want = approx_matmul_plain(a, b, multiplier=TIER_MULTIPLIER)
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"[{arch}] K1 at M={M} K={K} N={N} differs from its "
+                                     "plain version")
+            k1.append([M, K, N])
+    out["k1_equal_shapes"] = k1
+    log(f"[{arch}] K1 bit-equal at (M, K, N) {k1}")
+    lap("k1")
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    emb, thw = embedding_batch(cfg, B, S, gen, dev)
+    # (a) forward at full depth
+    params = init_params(cfg, seed=seed, device=dev, freeze=True)
+    with torch.no_grad():
+        approx_matmul.launches = paged_attention.launches = 0
+        logits = forward(cfg, params, embeddings=emb, positions_thw=thw)
+        torch.cuda.synchronize()
+        a = {"k1_launches": approx_matmul.launches, "shape": list(logits.shape),
+             "finite": bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())}
+        ref = forward(cfg, params, embeddings=emb)[..., :cfg.vocab_size].float()
+        if thw is not None:
+            a["max_abs_diff_vs_default_positions"] = (
+                logits[..., :cfg.vocab_size] - ref).abs().max().item()
+    out["forward"] = a
+    log(f"[{arch}] (a) forward: {json.dumps(a)}")
+    if not a["finite"] or a["k1_launches"] != k1_per_pass(cfg):
+        raise AssertionError(f"[{arch}] forward: {a}, {k1_per_pass(cfg)} K1 launches "
+                             "predicted")
+    if thw is not None and not a["max_abs_diff_vs_default_positions"] > 0:
+        raise AssertionError(f"[{arch}] the positions grid changes nothing")
+    lap("a")
+
+    # (c) teacher-forced decode on the slot layout (gather), then (d) paged
+    # through K2, each step held to the slot step
+    W = S // BLOCK_SIZE
+    with torch.no_grad():
+        cache = init_cache(cfg, B, S, device=dev)
+        pool = init_paged_cache(cfg, B * W, BLOCK_SIZE, device=dev)
+        tables = torch.arange(B * W, dtype=torch.int32, device=dev).reshape(B, W)
+        slot, paged, k1 = [], [], []
+        with K2Check() as chk:
+            for i in range(S):
+                cur = torch.full((B,), i, device=dev)
+                n0 = approx_matmul.launches
+                slot.append(decode_step(cfg, params, cache, None, cur,
+                                        embeddings=emb[:, i:i + 1])[:, 0, :cfg.vocab_size])
+                k1.append(approx_matmul.launches - n0)
+                paged.append(paged_decode_step(cfg, params, pool, None, cur, tables,
+                                               block_size=BLOCK_SIZE, attn_impl="kernel",
+                                               embeddings=emb[:, i:i + 1])
+                             [:, 0, :cfg.vocab_size])
+        torch.cuda.synchronize()
+    slot, paged = torch.stack(slot, 1).float(), torch.stack(paged, 1).float()
+    c, c_bad = logits_agree(slot, ref, NEAR_TIE)
+    dpg, d_bad = logits_agree(paged, slot, NEAR_TIE)
+    out["launches"] = {"approx_matmul": approx_matmul.launches,
+                       "paged_attention": paged_attention.launches}
+    out["decode"] = {"steps": S, "k1_per_step": sorted(set(k1)), "vs_forward": c,
+                     "k2_calls": chk.calls, "k2_max_abs_err": chk.err, "paged_vs_slot": dpg}
+    log(f"[{arch}] (c)-(d) decode: {json.dumps(out['decode'])}; launches "
+        f"{json.dumps(out['launches'])}")
+    if c_bad.any():
+        raise AssertionError(f"[{arch}] teacher-forced decode parts from forward beyond "
+                             f"tolerance and near ties at {c_bad.nonzero().tolist()}: {c}")
+    if d_bad.any():
+        raise AssertionError(f"[{arch}] paged decode through K2 parts from the slot step "
+                             f"at {d_bad.nonzero().tolist()}: {dpg}")
+    if k1 != [k1_per_pass(cfg)] * S or chk.calls != S * cfg.num_layers \
+            or out["launches"] != {"approx_matmul": (2 + 2 * S) * k1_per_pass(cfg),
+                                   "paged_attention": chk.calls}:
+        raise AssertionError(f"[{arch}] decode launches: K1 {sorted(set(k1))} per slot "
+                             f"step, K2 {chk.calls} calls ({out['launches']})")
+    del params, cache, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c-d")
+
+    # the same, 4 layers deep in float32 and float: within JAX's tolerance
+    fcfg = dataclasses.replace(get_config(arch), num_layers=ORACLE_LAYERS, dtype="float32")
+    fparams = init_params(fcfg, seed=seed + 1, device=dev)
+    with torch.no_grad():
+        fref = forward(fcfg, fparams, embeddings=emb)[..., :cfg.vocab_size]
+        cache = init_cache(fcfg, B, S, device=dev)
+        fdec = torch.stack([decode_step(fcfg, fparams, cache, None,
+                                        torch.full((B,), i, device=dev),
+                                        embeddings=emb[:, i:i + 1])[:, 0, :cfg.vocab_size]
+                            for i in range(S)], 1)
+    fd, f_bad = logits_agree(fdec, fref, 0.0)
+    out["decode"]["vs_forward_4_layers_f32"] = fd
+    log(f"[{arch}] 4 layers, float32: decode vs forward {json.dumps(fd)}")
+    if fd["beyond_tol_positions"]:
+        raise AssertionError(f"[{arch}] 4-layer float32 decode parts from forward beyond "
+                             f"JAX's tolerance: {fd}")
+    del fparams, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("f32")
+
+    # (b) training on embeddings through K1, then the 4-layer oracle
+    tcfg = train_config(arch, TRAIN_DEPTHS[arch])
+    opt = O.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS_FAMILY)
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.train.loop import init_state
+
+    state = init_state(tcfg, opt, seed, device=dev)
+
+    def batches():
+        while True:
+            e, p = embedding_batch(tcfg, TRAIN_BATCH, TRAIN_SEQ, gen, dev)
+            labels = torch.randint(0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                   generator=gen, device=dev)
+            yield {"embeddings": e, "labels": labels,
+                   **({"positions_thw": p} if p is not None else {})}
+    it = batches()
+    out["train"] = train_steps(tcfg, opt, state, it, dev, f"train {arch}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"]["oracle"] = train_oracle(tcfg, opt, seed, next(it), dev, f"train {arch}")
+    lap("b")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8-15's units, run by a pool of processes on the one card
 # ---------------------------------------------------------------------------
 
 
@@ -2752,24 +3261,41 @@ def _family_unit(arch):
     return lambda dev, sh: family_phase(arch, dev, sh["seed"], sh["smi"], sh["profile"])
 
 
+def _train_unit(arch):
+    return lambda dev, sh: train_family_phase(arch, dev, sh["seed"])
+
+
+def _backbone_unit(arch):
+    return lambda dev, sh: backbone_phase(arch, dev, sh["seed"])
+
+
 # each unit with the card memory (GB) it reserves at its peak (a granite
 # unit builds the model's f32 weights, 10.1 GB, before freezing them; the
-# qwen2-moe-a2.7b unit holds its frozen model, then a 4-layer f32 one),
-# started in this order whenever the units running leave it room: the
-# longest (phase 8, whose training shares the card's cycles) and the
-# largest first
+# qwen2-moe-a2.7b unit holds its frozen model, then a 4-layer f32 one; a
+# training unit of phase 14 or 15 holds its float32 parameters, gradients
+# and both moments, 16 bytes per parameter, and the step's transients;
+# each measured alone on an H100 80GB, see PERF.md), started in this order whenever
+# the units running leave it room: a training unit leaves room for the
+# small serving units only, so each starts beside them, and the longest of
+# the rest (phase 8, whose training shares the card's cycles) before the
+# others
 UNITS = {
-    "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
-    FAMILY_ARCHS[0]: (32, _family_unit(FAMILY_ARCHS[0])),
-    FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
-    "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
-    "slots": (22, _slots_unit),
-    "async": (22, _async_unit),
-    "chunked_sync": (22, _chunked_unit(("sync",))),
-    FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
+    f"train {FAMILY_ARCHS[0]}": (65, _train_unit(FAMILY_ARCHS[0])),
     "share": (6, _share_unit),
     "tiers": (6, lambda dev, sh: tiers_phase(serving_configs()[0], dev, sh["seed"],
                                              sh["trace"], sh["smi"])),
+    f"train {FAMILY_ARCHS[2]}": (60, _train_unit(FAMILY_ARCHS[2])),
+    "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
+    f"train {FAMILY_ARCHS[1]}": (54, _train_unit(FAMILY_ARCHS[1])),
+    "async": (22, _async_unit),
+    "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
+    "chunked_sync": (22, _chunked_unit(("sync",))),
+    "slots": (22, _slots_unit),
+    FAMILY_ARCHS[0]: (32, _family_unit(FAMILY_ARCHS[0])),
+    BACKBONE_ARCHS[0]: (35, _backbone_unit(BACKBONE_ARCHS[0])),
+    BACKBONE_ARCHS[1]: (37, _backbone_unit(BACKBONE_ARCHS[1])),
+    FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
+    FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
 }
 POOL_GB = 72                         # the units' peaks at once: the card's 85 GB less headroom
 
@@ -2866,6 +3392,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few steady decode ticks (see profile_decode)")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 2
@@ -3007,7 +3534,7 @@ def main(argv=None) -> int:
     k1_cnn = k1_cnn_shapes(dev, gen, args.seed)
     moe_k2 = family_k2(get_config(FAMILY_ARCHS[0]), dev, args.seed)
 
-    # -- 8-13: the units, on a pool of processes -----------------------------
+    # -- 8-15: the units, on a pool of processes -----------------------------
     t_pool = time.perf_counter()
     shared = {"seed": args.seed, "trace": trace, "paged_tokens": paged_tokens,
               "phase4": phase4, "smi": smi, "profile_paged": report.get("profile"),
@@ -3063,6 +3590,21 @@ def main(argv=None) -> int:
         + f"; launches by path {json.dumps(fam)}")
     paths.update(fam)
 
+    # -- 14. training of the families; 15. the vlm and audio backbones -------
+    tf = report["train_families"] = {arch: unit[f"train {arch}"] for arch in FAMILY_ARCHS}
+    bb = report["backbones"] = {arch: unit[arch] for arch in BACKBONE_ARCHS}
+    for arch, r in tf.items():
+        paths[f"train_{r['family']}"] = {"approx_matmul": r["launches"], "paged_attention": 0}
+    for arch, b in bb.items():
+        paths[b["family"]] = b["launches"]
+        paths[f"train_{b['family']}"] = {"approx_matmul": b["train"]["launches"],
+                                         "paged_attention": 0}
+    log(f"[train families] phase 14 took "
+        f"{sum(r['seconds'] for r in tf.values()):.1f}s; [backbones] phase 15 took "
+        f"{sum(b['seconds'] for b in bb.values()):.1f}s; launches by path "
+        + json.dumps({k: v for k, v in paths.items() if k.startswith("train_")
+                      or k in ("vlm", "audio")}))
+
     k3 = report["k3"]
     kernels = [
         {"name": "approx_matmul", "route": "cuda",
@@ -3103,8 +3645,11 @@ def main(argv=None) -> int:
          "launches_by_path": {"serve": launches["paged_attention"],
                               "async": asy["launches"]["paged_attention"],
                               **{path: n["paged_attention"] for path, n in paths.items()}},
-         "max_abs_err": max(k2_err, moe_k2["max_abs_err"]),
-         "max_abs_err_bf16_q": max(k2_err16, moe_k2["max_abs_err_bf16_q"]),
+         "max_abs_err": max(k2_err, moe_k2["max_abs_err"],
+                            *(b["k2_check"]["max_abs_err"] for b in bb.values())),
+         "max_abs_err_bf16_q": max(k2_err16, moe_k2["max_abs_err_bf16_q"],
+                                   *(b["k2_check"]["max_abs_err_bf16_q"] for b in bb.values())),
+         "max_abs_err_served_bf16_q": max(b["decode"]["k2_max_abs_err"] for b in bb.values()),
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],
          "library_ms": k2_step["library_ms"], "device_ms": k2_step["device_ms"],
@@ -3127,6 +3672,8 @@ def main(argv=None) -> int:
          "per": f"one call of {k3['timed']['n']} elements"},
     ]
     report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_main
+    log(f"[done] the run took {report['seconds']:.1f}s, its pool {report['pool']['wall_s']:.1f}s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -2,16 +2,17 @@
 registered architecture), the registry, and ``reduced_config`` (the
 same-family CPU test variant with tiny dims).
 
-The port serves the dense, moe, ssm (Mamba-1) and hybrid (Mamba-2 with a
-weight-shared attention block) families.  The JAX package's vlm and audio
-stubs take embedding inputs and multimodal or sinusoidal positions, which
-the port has not ported (ROADMAP section 1, item 9c).
+Every family of the JAX package: dense, moe, ssm (Mamba-1), hybrid
+(Mamba-2 with a weight-shared attention block), and the vlm and audio
+backbones, whose frontends are stubs: they take embeddings (``embed_input``
+False) and position them with multimodal rope (``m_rope``, over
+``m_rope_sections`` of the rotary half) or sinusoids added to the input.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.core.approx import ApproxConfig
 
@@ -25,13 +26,13 @@ __all__ = [
     "reduced_config",
 ]
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # dense | moe | ssm | hybrid
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -51,22 +52,22 @@ class ModelConfig:
     conv_width: int = 4
     # --- hybrid (zamba2-style) ---
     attn_every: int = 0               # shared attn block after every k ssm layers
+    # --- positions / input ---
+    pos_embedding: str = "rope"       # rope | m_rope | sinusoidal
     rope_theta: float = 10000.0
+    m_rope_sections: Tuple[int, ...] = ()
     # --- the paper's feature ---
     approx: ApproxConfig = ApproxConfig(mode="float")
     # --- numerics ---
     dtype: str = "bfloat16"           # activation dtype
     ssm_chunk: int = 256              # time chunk of the Mamba scans in forward
     remat: bool = True                # recompute each layer in the backward
-    embed_input: bool = True          # token inputs (the JAX package's vlm/audio stubs take embeddings)
+    embed_input: bool = True          # False: the caller gives embeddings (vlm/audio stubs)
     source: str = ""                  # citation tag
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise ValueError(
-                f"family {self.family!r}: the port serves {FAMILIES}; the vlm and "
-                "audio backbones (embedding inputs, m_rope and sinusoidal "
-                "positions) are ROADMAP section 1, item 9c")
+            raise ValueError(f"family {self.family!r} not in {FAMILIES}")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.family in ("ssm", "hybrid"):
@@ -98,6 +99,8 @@ _ARCH_MODULES = (
     "qwen2_moe_a2_7b",
     "grok_1_314b",
     "zamba2_2_7b",
+    "qwen2_vl_2b",
+    "musicgen_large",
 )
 
 
@@ -132,7 +135,8 @@ def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
     ``reduced_config`` widths: 2 layers (a hybrid 4), d 128, 4 heads, <= 2
     KV heads, head_dim 32, d_ff 256, vocab <= 512, <= 4 experts top <= 2,
     shared expert ff 128, d_inner 256, dt_rank 8, ssm_state <= 16,
-    attn_every 2, ssm_chunk 32, float32, no remat)."""
+    attn_every 2, m_rope_sections (4, 6, 6), ssm_chunk 32, float32, no
+    remat)."""
     kw = dict(
         num_layers=min(cfg.num_layers, 2 if cfg.family != "hybrid" else 4),
         d_model=128,
@@ -148,6 +152,7 @@ def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
         d_inner=256 if cfg.family in ("ssm", "hybrid") else 0,
         dt_rank=8 if cfg.family == "ssm" else 0,
         attn_every=2 if cfg.attn_every else 0,
+        m_rope_sections=(4, 6, 6) if cfg.m_rope_sections else (),
         dtype="float32",
         ssm_chunk=32,
         remat=False,

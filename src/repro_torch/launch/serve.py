@@ -218,6 +218,9 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     cfg = dataclasses.replace(cfg, approx=resolve_execution_mode(args.exec_mode,
                                                                  args.multiplier))
+    if not cfg.embed_input:
+        raise SystemExit(f"{args.arch} takes embedding inputs (frontend stub); "
+                         "use an embed-input arch for token serving")
     # frozen layer by layer: a moe model's float32 weights never all exist
     params = init_params(cfg, seed=args.seed, device=device, freeze=args.freeze_weights)
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,

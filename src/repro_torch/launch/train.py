@@ -4,6 +4,8 @@ checkpoint/restart and fault monitoring, on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --steps 20 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+        --reduced --device cpu --steps 2     # also falcon-mamba-7b, zamba2-2.7b
 
 The JAX package's launcher less its mesh (tensor parallelism is a later
 slice of the port), plus ``--device``.  ``--mode kernel`` (the default)
@@ -11,7 +13,11 @@ runs every projection's integer simulation through the CUDA
 approximate-matmul kernel; ``lowrank`` is that kernel's plain version, and
 on ``--device cpu`` both take the plain version.  Without ``--device`` the
 run needs a CUDA device and raises without one.  A run resumes from the
-newest checkpoint under ``--ckpt``.
+newest checkpoint under ``--ckpt``.  Every token-input family trains (the
+moe loss adds its load-balance term); the vlm and audio backbones take
+embeddings, which this launcher's token stream cannot feed, so it refuses
+them before it builds any weights (the JAX launcher fails inside
+``forward`` on the missing ``batch["embeddings"]``).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch.kernels.approx_matmul import approx_matmul
 from repro_torch.train import optim as O
 from repro_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.train.fault import PreemptionGuard, StragglerMonitor, run_with_restarts
-from repro_torch.train.loop import as_batch, check_trainable, init_state, make_train_step
+from repro_torch.train.loop import as_batch, init_state, make_train_step
 
 
 def main(argv=None):
@@ -54,7 +60,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    check_trainable(cfg)
+    if not cfg.embed_input:
+        raise ValueError(f"{cfg.name} takes embedding inputs (frontend stub); this "
+                         "launcher trains on token batches: use an embed-input arch")
     dev = resolve_device(args.device)
     if args.reduced:
         cfg = reduced_config(cfg)

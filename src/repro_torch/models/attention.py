@@ -75,30 +75,40 @@ def self_attention(
     n_heads: int,
     n_kv: int,
     cfg: ApproxConfig,
+    m_rope: Optional[Tuple[torch.Tensor, Tuple[int, ...]]] = None,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill self-attention at positions 0..S-1.  Returns (out, (k, v))
-    so the caller can seed the decode cache (k post-rope)."""
+    so the caller can seed the decode cache (k post-rope).  ``m_rope`` is
+    ``(positions_thw (B, 3, S), sections)`` for multimodal rope in place of
+    rope; without ``use_rope`` (sinusoidal positions, added to the input)
+    q and k are not rotated."""
     B, S, _ = x.shape
     hd = w_dim(p["wq"], -1) // n_heads
     q = L.dense(x, p["wq"], cfg).reshape(B, S, n_heads, hd)
     k = L.dense(x, p["wk"], cfg).reshape(B, S, n_kv, hd)
     v = L.dense(x, p["wv"], cfg).reshape(B, S, n_kv, hd)
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q, k = L.apply_rope(q, k, positions, theta=rope_theta)
+    if use_rope and m_rope is not None:
+        q, k = L.apply_m_rope(q, k, m_rope[0], m_rope[1], theta=rope_theta)
+    elif use_rope:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        q, k = L.apply_rope(q, k, positions, theta=rope_theta)
     out = attention_core(q, k, v, causal=True)
     out = L.dense(out.reshape(B, S, n_heads * hd), p["wo"], cfg)
     return out, (k, v)
 
 
-def _decode_qkv(x, p, cur_len, *, n_heads, n_kv, cfg, rope_theta):
-    """Project the new token's q/k/v and rotate q/k at each row's cur_len."""
+def _decode_qkv(x, p, cur_len, *, n_heads, n_kv, cfg, rope_theta, use_rope):
+    """Project the new token's q/k/v and rotate q/k at each row's cur_len
+    (with ``use_rope``)."""
     B = x.shape[0]
     hd = w_dim(p["wq"], -1) // n_heads
     q = L.dense(x, p["wq"], cfg).reshape(B, 1, n_heads, hd)
     k = L.dense(x, p["wk"], cfg).reshape(B, 1, n_kv, hd)
     v = L.dense(x, p["wv"], cfg).reshape(B, 1, n_kv, hd)
-    q, k = L.apply_rope(q, k, cur_len[:, None], theta=rope_theta)
+    if use_rope:
+        q, k = L.apply_rope(q, k, cur_len[:, None], theta=rope_theta)
     return q, k, v
 
 
@@ -129,6 +139,7 @@ def decode_attention(
     n_kv: int,
     cfg: ApproxConfig,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
 ) -> torch.Tensor:
     """One decode step on the slot layout: write the new K/V at each row's
     ``cur_len`` IN PLACE, then attend over the stripe with ``kv_len =
@@ -143,7 +154,7 @@ def decode_attention(
     them valid for such a row, as in the JAX package."""
     B = x.shape[0]
     q, k, v = _decode_qkv(x, p, cur_len, n_heads=n_heads, n_kv=n_kv, cfg=cfg,
-                          rope_theta=rope_theta)
+                          rope_theta=rope_theta, use_rope=use_rope)
     hd = q.shape[3]
     smax = k_cache.shape[1] - 1
     rows = torch.arange(B, device=x.device)
@@ -168,6 +179,7 @@ def paged_decode_attention(
     n_kv: int,
     cfg: ApproxConfig,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
     attn_impl: str = "kernel",
 ) -> torch.Tensor:
     """One decode step against the paged pool: attend over row b's blocks
@@ -183,7 +195,7 @@ def paged_decode_attention(
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     B = x.shape[0]
     q, k, v = _decode_qkv(x, p, cur_len, n_heads=n_heads, n_kv=n_kv, cfg=cfg,
-                          rope_theta=rope_theta)
+                          rope_theta=rope_theta, use_rope=use_rope)
     hd = q.shape[3]
     num_blocks = k_blocks.shape[0] - 1
     phys, off = _paged_slot(cur_len.long()[:, None], block_table, num_blocks, block_size)
@@ -225,6 +237,7 @@ def paged_verify_attention(
     n_kv: int,
     cfg: ApproxConfig,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
 ) -> torch.Tensor:
     """Score ``S`` consecutive tokens of each row at cache positions
     ``cur_len + j`` in one pass against the paged pool.
@@ -246,7 +259,8 @@ def paged_verify_attention(
     k = L.dense(x, p["wk"], cfg).reshape(B, S, n_kv, hd)
     v = L.dense(x, p["wv"], cfg).reshape(B, S, n_kv, hd)
     pos = cur_len.long()[:, None] + torch.arange(S, device=x.device)[None, :]
-    q, k = L.apply_rope(q, k, pos, theta=rope_theta)
+    if use_rope:
+        q, k = L.apply_rope(q, k, pos, theta=rope_theta)
     num_blocks = k_blocks.shape[0] - 1
     phys, off = _paged_slot(pos, block_table, num_blocks, block_size)
     kn = k.to(k_blocks.dtype)

@@ -3,7 +3,7 @@ the approximate-multiplier pipeline when configured."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -15,6 +15,9 @@ __all__ = [
     "rms_norm",
     "rotary",
     "apply_rope",
+    "apply_m_rope",
+    "sinusoidal_at",
+    "sinusoidal_positions",
     "truncated_normal_init",
     "unstack",
 ]
@@ -86,3 +89,42 @@ def apply_rope(q, k, positions, theta: float = 10000.0):
     cos = cos[:, :, None, :].to(q.dtype)
     sin = sin[:, :, None, :].to(q.dtype)
     return _rope_rotate(q, cos, sin), _rope_rotate(k, cos, sin)
+
+
+def apply_m_rope(q, k, positions_thw: torch.Tensor, sections: Sequence[int],
+                 theta: float = 1000000.0):
+    """Qwen2-VL multimodal rope: ``positions_thw`` (B, 3, S) temporal,
+    height and width position ids; ``sections`` split the rotary half
+    (head_dim // 2) into three groups, each rotated by its own stream.
+    With equal streams it is ``apply_rope``: the sections' frequencies
+    concatenate to rope's."""
+    hd = q.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"m_rope sections {tuple(sections)} do not sum to head_dim/2 "
+                         f"= {hd // 2}")
+    cos_parts, sin_parts, start = [], [], 0
+    for i, sec in enumerate(sections):
+        inv = 1.0 / (theta ** (torch.arange(start, start + sec, dtype=torch.float32,
+                                            device=q.device) * 2.0 / hd))
+        ang = positions_thw[:, i, :].to(torch.float32)[..., None] * inv
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        start += sec
+    cos = torch.cat(cos_parts, dim=-1)[:, :, None, :].to(q.dtype)
+    sin = torch.cat(sin_parts, dim=-1)[:, :, None, :].to(q.dtype)
+    return _rope_rotate(q, cos, sin), _rope_rotate(k, cos, sin)
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """(...,) int positions -> (..., dim) float32 sinusoidal embeddings,
+    sin and cos interleaved (even columns sin, odd cos)."""
+    inv = 1.0 / (10000 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.to(torch.float32)[..., None] * inv              # (..., dim/2)
+    out = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)     # (..., dim/2, 2)
+    return out.reshape(*positions.shape, dim)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, offset: int = 0, *,
+                         device=None) -> torch.Tensor:
+    return sinusoidal_at(torch.arange(offset, offset + seq_len, device=device), dim)

@@ -17,6 +17,12 @@ The combine is deterministic: each token sums its k contributions in one
 fixed order, by expert ascending from zero, which is the order of the JAX
 package's scatter-add over the stably sorted assignments on the CPU (a
 CUDA ``index_add_`` on floats would sum in the order its atomics land).
+So is the backward: no read on the forward path gathers two nonzero
+cotangents into one row.  The dispatch reads each token's k copies as a
+permutation of its rows repeated k times (an ``expand``, whose backward
+sums the k copies in one fixed order).  The combine's read repeats a row
+only for dropped assignments, whose weight is 0: their cotangents are
+exact zeros, which add the same in any order.
 """
 from __future__ import annotations
 
@@ -72,13 +78,12 @@ def moe_capacity(T: int, top_k: int, n_experts: int, capacity_factor: float) -> 
 class Routing(NamedTuple):
     """One routing of T tokens: ``probs`` (T, E) and ``top_e`` (T, k), then
     the T*k assignments stably sorted by expert: ``order`` (their flat
-    (token, choice) index), token ``st``, weight ``sw``, whether each is
+    (token, choice) index), weight ``sw``, whether each is
     ``keep``-t and its row ``slot`` of the (E * capacity) dispatch buffer."""
 
     probs: torch.Tensor
     top_e: torch.Tensor
     order: torch.Tensor
-    st: torch.Tensor
     sw: torch.Tensor
     keep: torch.Tensor
     slot: torch.Tensor
@@ -98,15 +103,14 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int) -> R
     top_p, top_e = torch.topk(probs, top_k, dim=-1)                    # (T, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)                    # renorm
     flat_e = top_e.reshape(-1)                                         # (T*k,)
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(top_k)
     order = torch.argsort(flat_e, stable=True)
-    se, st, sw = flat_e[order], flat_t[order], top_p.reshape(-1)[order]
+    se, sw = flat_e[order], top_p.reshape(-1)[order]
     # rank within expert: position minus the first position of its expert
     # (a search of the sorted ids: bincount would read its size on the host)
     rank = torch.arange(T * top_k, device=x.device) - torch.searchsorted(se, se)
     keep = rank < capacity
     slot = se * capacity + torch.where(keep, rank, torch.zeros_like(rank))
-    return Routing(probs, top_e, order, st, sw, keep, slot)
+    return Routing(probs, top_e, order, sw, keep, slot)
 
 
 def _expert_ffn(xb, wg, wu, wd, cfg: ApproxConfig):
@@ -129,10 +133,13 @@ def moe_ffn(
     r = route(x, p["router"], top_k, capacity)
 
     # ---- dispatch: kept slots are unique; dropped assignments write one
-    # trash row past the buffer, which no expert reads
+    # trash row past the buffer, which no expert reads.  The sorted
+    # assignments' rows are a permutation of the (token, choice) rows of x
+    # repeated top_k times
     trash = torch.full_like(r.slot, E * capacity)
     buf = x.new_zeros((E * capacity + 1, d))
-    buf[torch.where(r.keep, r.slot, trash)] = x[r.st]
+    repeated = x[:, None, :].expand(T, top_k, d).reshape(T * top_k, d)
+    buf[torch.where(r.keep, r.slot, trash)] = repeated[r.order]
     buf = buf[:-1].reshape(E, capacity, d)
 
     # ---- experts: one dense per projection and expert, empty ones included

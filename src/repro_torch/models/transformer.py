@@ -8,6 +8,14 @@ pass over the paged pool (speculative verification, chunked prefill).
 * ssm    : Mamba-1 blocks (``models/ssm.py``)
 * hybrid : Mamba-2 blocks + a weight-shared attention block applied after
            every ``attn_every`` layers (Zamba2-style)
+* vlm    : the dense stack over patch embeddings, multimodal rope
+           (``positions_thw``; qwen2-vl)
+* audio  : the dense stack over frame embeddings, sinusoidal positions
+           added to the input and no rope (musicgen)
+
+The vlm and audio backbones have no embedding table: every entry point
+takes ``embeddings=`` (B, S, d) in place of ``tokens``, exactly one of the
+two as ``cfg.embed_input`` says.
 
 Parameters are a dict with the JAX package's tree shape: layer weights are
 stacked on a leading layer axis under ``params["layers"]`` and the loop
@@ -78,10 +86,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 
     ``freeze`` returns ``engine.freeze_params`` of the same weights (equal
     codes and scales: a stacked weight calibrates per layer; float
-    execution keeps them float).  The moe, ssm
-    and hybrid families build and freeze one layer at a time, so no more
-    than one layer's float32 weights are ever held (qwen2-moe-a2.7b's are
-    57 GB); the dense family draws each weight's stack whole, as before."""
+    execution keeps them float).  The moe, ssm, hybrid, vlm and audio
+    families build and freeze one layer at a time, so no more than one
+    layer's float32 weights are ever held (qwen2-moe-a2.7b's are 57 GB);
+    the dense family draws each weight's stack whole, as before.  A model
+    without token inputs (vlm, audio) has no ``embed``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -97,7 +106,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     layers = [frozen(_init_layer(cfg, gen, dev)) for _ in range(cfg.num_layers)]
     params = {"layers": _stack(layers)}
     del layers
-    params["embed"] = L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev)
+    if cfg.embed_input:
+        params["embed"] = L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev)
     params["final_norm"] = torch.ones((d,), device=dev)
     params.update(frozen({"lm_head": L.init_dense(d, cfg.padded_vocab, gen, dev)}))
     if cfg.family == "hybrid":
@@ -145,8 +155,8 @@ def _init_ffn(d: int, ff: int, gen, dev) -> Dict[str, torch.Tensor]:
 
 
 def _init_layer(cfg: ModelConfig, gen, dev) -> Dict[str, Any]:
-    """One layer of the moe, ssm or hybrid family (the JAX package's
-    ``_init_layer``)."""
+    """One layer of the moe, ssm, hybrid, vlm or audio family (the JAX
+    package's ``_init_layer``)."""
     d = cfg.d_model
     if cfg.family == "ssm":
         return {"ln": torch.ones((d,), device=dev),
@@ -156,10 +166,14 @@ def _init_layer(cfg: ModelConfig, gen, dev) -> Dict[str, Any]:
         return {"ln": torch.ones((d,), device=dev),
                 "mamba": S.init_mamba2(gen, d, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
                                        cfg.conv_width, device=dev)}
-    return {"ln1": torch.ones((d,), device=dev), "ln2": torch.ones((d,), device=dev),
-            "attn": _init_attn(cfg, gen, dev),
-            "moe": init_moe(gen, d, cfg.d_ff, cfg.moe_experts, shared_d_ff=cfg.moe_shared_ff,
-                            device=dev)}
+    layer = {"ln1": torch.ones((d,), device=dev), "ln2": torch.ones((d,), device=dev),
+             "attn": _init_attn(cfg, gen, dev)}
+    if cfg.family == "moe":
+        layer["moe"] = init_moe(gen, d, cfg.d_ff, cfg.moe_experts,
+                                shared_d_ff=cfg.moe_shared_ff, device=dev)
+    else:
+        layer["ffn"] = _init_ffn(d, cfg.d_ff, gen, dev)
+    return layer
 
 
 def _stack(trees):
@@ -180,12 +194,18 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 
 
-def _attn_block(cfg: ModelConfig, x, layer):
-    """(x, (k, v), aux) of one dense or moe block."""
+def _use_rope(cfg: ModelConfig) -> bool:
+    return cfg.pos_embedding in ("rope", "m_rope")
+
+
+def _attn_block(cfg: ModelConfig, x, layer, positions_thw=None):
+    """(x, (k, v), aux) of one dense, moe, vlm or audio block;
+    ``positions_thw`` (B, 3, S) for a model with multimodal rope."""
     h, kv = self_attention(
         L.rms_norm(x, layer["ln1"]), layer["attn"],
         n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=cfg.approx,
-        rope_theta=cfg.rope_theta,
+        m_rope=None if positions_thw is None else (positions_thw, cfg.m_rope_sections),
+        rope_theta=cfg.rope_theta, use_rope=_use_rope(cfg),
     )
     x = x + h
     if cfg.family == "moe":
@@ -198,8 +218,8 @@ def _attn_block(cfg: ModelConfig, x, layer):
     return x, kv, None
 
 
-def _block_out(cfg: ModelConfig, x, layer):
-    x, _, aux = _attn_block(cfg, x, layer)
+def _block_out(cfg: ModelConfig, x, layer, positions_thw=None):
+    x, _, aux = _attn_block(cfg, x, layer, positions_thw)
     return x, aux
 
 
@@ -240,20 +260,53 @@ def _run_state_family(cfg: ModelConfig, params, x, remat: bool):
     return x
 
 
-def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
+def _inputs(cfg: ModelConfig, params, tokens, embeddings, cur_len=None):
+    """The stack's input (B, S, d) in the activation dtype: the embedded
+    ``tokens``, or the caller's ``embeddings`` for a model without an
+    embedding table (exactly one of the two, as ``cfg.embed_input`` says),
+    plus sinusoidal positions for the audio family, from ``cur_len`` (B,)
+    on in a decode pass and from 0 in ``forward``."""
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.embed_input:
+        if tokens is None or embeddings is not None:
+            raise ValueError(f"{cfg.name} takes token inputs, not embeddings")
+        x = F.embedding(tokens.long(), params["embed"]).to(dtype)
+    else:
+        if embeddings is None or tokens is not None:
+            raise ValueError(f"{cfg.name} takes embeddings (B, S, d_model), not tokens")
+        x = embeddings.to(dtype)
+    if cfg.pos_embedding == "sinusoidal":
+        pos = torch.arange(x.shape[1], device=x.device)
+        if cur_len is not None:
+            pos = cur_len.long()[:, None] + pos
+        x = x + L.sinusoidal_at(pos, cfg.d_model).to(dtype)
+    return x
+
+
+def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: Optional[torch.Tensor] = None,
+            *, embeddings: Optional[torch.Tensor] = None,
+            positions_thw: Optional[torch.Tensor] = None,
             return_kv: bool = False, return_aux: bool = False):
-    """tokens (B, S) -> logits (B, S, Vp) float32; with ``return_aux`` also
-    the MoE load-balance loss summed over layers (0 for the other
-    families), and with ``return_kv`` (attention families only) the stacked
-    (L, B, S, Hkv, hd) post-rope K and V — the fused-prefill cache seed —
-    in the JAX package's order ``(logits, aux, (k, v))``.  Differentiable
-    in float parameters."""
+    """tokens (B, S), or ``embeddings`` (B, S, d) for the vlm and audio
+    families, -> logits (B, S, Vp) float32; with ``return_aux`` also the
+    MoE load-balance loss summed over layers (0 for the other families),
+    and with ``return_kv`` (attention families only) the stacked (L, B, S,
+    Hkv, hd) post-rope K and V — the fused-prefill cache seed — in the JAX
+    package's order ``(logits, aux, (k, v))``.  ``positions_thw`` (B, 3,
+    S) are the multimodal rope's position ids (default: ``arange(S)`` in
+    all three streams, which is plain rope); other families ignore them,
+    as the JAX package does.  Differentiable in float parameters."""
     if return_kv and cfg.family == "ssm":
         raise NotImplementedError("ssm has no attention KV; use decode-mode prefill")
     if return_kv and cfg.family == "hybrid":
         raise NotImplementedError(
             "hybrid prefill needs conv/ssm state; use decode-mode prefill")
-    x = F.embedding(tokens.long(), params["embed"]).to(getattr(torch, cfg.dtype))
+    x = _inputs(cfg, params, tokens, embeddings)
+    if cfg.pos_embedding != "m_rope":
+        positions_thw = None
+    elif positions_thw is None:
+        B, S = x.shape[:2]
+        positions_thw = torch.arange(S, device=x.device)[None, None, :].expand(B, 3, S)
     remat = cfg.remat and torch.is_grad_enabled() and not return_kv
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
@@ -262,9 +315,10 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
     else:
         for layer in L.unstack(params["layers"], cfg.num_layers):
             if remat:
-                x, a = checkpoint(_block_out, cfg, x, layer, use_reentrant=False)
+                x, a = checkpoint(_block_out, cfg, x, layer, positions_thw,
+                                  use_reentrant=False)
             else:
-                x, (k, v), a = _attn_block(cfg, x, layer)
+                x, (k, v), a = _attn_block(cfg, x, layer, positions_thw)
                 if return_kv:
                     ks.append(k)
                     vs.append(v)
@@ -342,7 +396,8 @@ def _slot_attention(cfg: ModelConfig, x, p, kc, vc, cur_len, write_rows):
         pos = cur_len.long().clamp(max=kc.shape[1] - 1)
         old = kc[rows, pos], vc[rows, pos]
     h = decode_attention(x, p, kc, vc, cur_len, n_heads=cfg.num_heads,
-                         n_kv=cfg.num_kv_heads, cfg=cfg.approx, rope_theta=cfg.rope_theta)
+                         n_kv=cfg.num_kv_heads, cfg=cfg.approx, rope_theta=cfg.rope_theta,
+                         use_rope=_use_rope(cfg))
     if write_rows is not None:
         m = write_rows[:, None, None]
         kc[rows, pos] = torch.where(m, kc[rows, pos], old[0])
@@ -354,10 +409,11 @@ def decode_step(
     cfg: ModelConfig,
     params: Dict[str, Any],
     cache: Dict[str, torch.Tensor],
-    tokens: torch.Tensor,               # (B, 1)
+    tokens: Optional[torch.Tensor],     # (B, 1)
     cur_len: torch.Tensor,              # (B,)
     *,
     write_rows: Optional[torch.Tensor] = None,   # (B,) bool
+    embeddings: Optional[torch.Tensor] = None,   # (B, 1, d) in place of tokens
 ) -> torch.Tensor:
     """One-token decode against an ``init_cache`` cache: each row writes
     its new K/V at its ``cur_len`` and attends over positions ``[0,
@@ -367,8 +423,11 @@ def decode_step(
     ``write_rows`` limits the writes to those rows: the others compute as
     usual from the cache but leave it as it was (the teacher-forced
     admission freezes each row past its prompt, as the JAX package does
-    with ``where(take, new, old)`` over every leaf)."""
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    with ``where(take, new, old)`` over every leaf).  A model without token
+    inputs takes ``embeddings`` (``tokens`` None); the audio family adds
+    the sinusoid of ``cur_len``, and the vlm family rotates at ``cur_len``
+    in all three rope streams."""
+    x = _inputs(cfg, params, tokens, embeddings, cur_len)
     a = cfg.approx
     layers = L.unstack(params["layers"], cfg.num_layers)
     if cfg.family in ("ssm", "hybrid"):
@@ -432,20 +491,22 @@ def paged_decode_step(
     cfg: ModelConfig,
     params: Dict[str, Any],
     cache: Dict[str, torch.Tensor],
-    tokens: torch.Tensor,               # (B, 1)
+    tokens: Optional[torch.Tensor],     # (B, 1)
     cur_len: torch.Tensor,              # (B,)
     block_tables: torch.Tensor,         # (B, W) int32
     *,
     block_size: int,
     attn_impl: str = "kernel",
+    embeddings: Optional[torch.Tensor] = None,   # (B, 1, d) in place of tokens
 ) -> torch.Tensor:
     """One-token decode against an ``init_paged_cache`` pool: each row's
     K/V reads and the new token's write go through its block table (shared
     by every layer).  Writes the pool in place; returns logits (B, 1, Vp)
-    float32.  Attention families (dense, moe) only."""
+    float32.  Attention families (dense, moe, vlm, audio) only; inputs as
+    in ``decode_step``."""
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError("paged decode applies to attention-family caches only")
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = _inputs(cfg, params, tokens, embeddings, cur_len)
     a = cfg.approx
     for i, layer in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = paged_decode_attention(
@@ -453,7 +514,7 @@ def paged_decode_step(
             cache["k"][i], cache["v"][i], block_tables, cur_len,
             block_size=block_size, n_heads=cfg.num_heads,
             n_kv=cfg.num_kv_heads, cfg=a, rope_theta=cfg.rope_theta,
-            attn_impl=attn_impl,
+            use_rope=_use_rope(cfg), attn_impl=attn_impl,
         )
         x = _decode_mlp(cfg, x + h, layer, a)
     return _head(cfg, params, x)
@@ -477,11 +538,12 @@ def paged_verify_step(
     cfg: ModelConfig,
     params: Dict[str, Any],
     cache: Dict[str, torch.Tensor],
-    tokens: torch.Tensor,               # (B, S)
+    tokens: Optional[torch.Tensor],     # (B, S)
     cur_len: torch.Tensor,              # (B,) position of the first token
     block_tables: torch.Tensor,         # (B, W) int32
     *,
     block_size: int,
+    embeddings: Optional[torch.Tensor] = None,   # (B, S, d) in place of tokens
 ) -> torch.Tensor:
     """Score ``S`` consecutive tokens per row against the paged pool in one
     pass: row ``b``'s token ``j`` sits at position ``cur_len[b] + j``.
@@ -504,7 +566,7 @@ def paged_verify_step(
             "batched verify pass routes differently than sequential decode, "
             "breaking the speculative acceptance contract"
         )
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = _inputs(cfg, params, tokens, embeddings, cur_len)
     a = cfg.approx
     for i, layer in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = paged_verify_attention(
@@ -512,6 +574,7 @@ def paged_verify_step(
             cache["k"][i], cache["v"][i], block_tables, cur_len,
             block_size=block_size, n_heads=cfg.num_heads,
             n_kv=cfg.num_kv_heads, cfg=a, rope_theta=cfg.rope_theta,
+            use_rope=_use_rope(cfg),
         )
         x = x + h
         x = x + _ffn(_norm_per_position(x, layer["ln2"]), layer["ffn"], a)

@@ -731,6 +731,8 @@ class ServeSession:
         prefill_chunk: Optional[int] = None,
         device=None,
     ):
+        if not cfg.embed_input:
+            raise ValueError(f"{cfg.name}: token serving requires an embed-input arch")
         if cache_layout not in CACHE_LAYOUTS:
             raise ValueError(f"cache_layout {cache_layout!r} not in {CACHE_LAYOUTS}")
         if policy not in ADMISSION_POLICIES:

@@ -2,9 +2,11 @@
 forward semantics (every projection's value from the integer simulation,
 K1 on the card, its gradient from the straight-through estimator),
 microbatched gradient accumulation, the paper's band regularizer, optional
-int8 gradient compression.  The JAX package's ``train/loop.py`` is the
-reference; where it traces one jitted step, the port runs the same
-operations eagerly and takes gradients with ``torch.autograd.grad``.
+int8 gradient compression, for every family: the loss adds the MoE
+load-balance term, and the vlm and audio backbones train on embeddings.
+The JAX package's ``train/loop.py`` is the reference; where it traces one
+jitted step, the port runs the same operations eagerly and takes gradients
+with ``torch.autograd.grad``.
 """
 from __future__ import annotations
 
@@ -21,10 +23,10 @@ from repro_torch.quant.affine import calibrate
 from repro_torch.quant.qat import band_regularizer
 from repro_torch.train import optim as O
 from repro_torch.train.compression import compress_decompress
-from repro_torch.train.tree import leaves, tree_map, unflatten
+from repro_torch.train.tree import LEAF_CHUNK, leaves, tree_map, unflatten
 
-__all__ = ["TrainState", "as_batch", "check_trainable", "cross_entropy", "init_state",
-           "make_loss_fn", "make_train_step", "train_loop"]
+__all__ = ["TrainState", "as_batch", "cross_entropy", "init_state", "make_loss_fn",
+           "make_train_step", "train_loop"]
 
 TrainState = Dict[str, Any]   # {"params": ..., "opt": {"step", "m", "v"}, ["grad_err"]}
 
@@ -44,41 +46,56 @@ def _band_term(leaf: torch.Tensor, qmax: int) -> torch.Tensor:
     return band_regularizer(leaf, qp, band=(0, 31))
 
 
+def _leaf_band_term(leaf: torch.Tensor, qmax: int) -> torch.Tensor:
+    """One weight's band term, the mean over its elements.  A stacked
+    weight (layers, experts) calibrates each (K, N) matrix alone (its
+    scales are per output channel), so its mean is taken over chunks of
+    matrices of at most ``LEAF_CHUNK`` elements, each weighted by its
+    share: the same value up to float32 summation order.  Under autograd
+    each chunk is recomputed in the backward instead of holding its
+    intermediates, so no more than a few copies of one chunk exist at once
+    (a whole stack's would be about five copies of 5.8 GB for zamba2-2.7b's
+    stacked ``in_proj``)."""
+    if leaf.dim() == 2:
+        return checkpoint(_band_term, leaf, qmax, use_reentrant=False)
+    mats = leaf.reshape(-1, *leaf.shape[-2:])
+    per = max(1, LEAF_CHUNK // (leaf.shape[-2] * leaf.shape[-1]))
+    total = None
+    for chunk in mats.split(per):
+        t = checkpoint(_band_term, chunk, qmax, use_reentrant=False) * (
+            chunk.shape[0] / mats.shape[0])
+        total = t if total is None else total + t
+    return total
+
+
 def _band_reg_term(cfg: ModelConfig, params) -> torch.Tensor:
     """The paper's weight-band regularizer over every 2-D+ weight, in the JAX
-    package's leaf order.  Under autograd each leaf's term is recomputed in
-    the backward instead of holding its full-size intermediates (about four
-    copies of every weight at full width)."""
+    package's leaf order, each weight's term recomputed in the backward
+    (``_leaf_band_term``)."""
     a = cfg.approx
-    dev = params["embed"].device
+    dev = leaves(params)[0].device
     if a.band_reg <= 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
     total, n = torch.zeros((), dtype=torch.float32, device=dev), 0
     for leaf in leaves(params):
         if leaf.dim() >= 2 and leaf.shape[-1] > 1:
-            total = total + checkpoint(_band_term, leaf, a.w_qmax, use_reentrant=False)
+            total = total + _leaf_band_term(leaf, a.w_qmax)
             n += 1
     return a.band_reg * total / max(n, 1)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense family only: the moe family's loss
-    needs its load-balance term and the ssm/hybrid blocks their remat, which
-    the training slice of these families adds (ROADMAP section 1, item 9b).
-    Refuse them rather than train them differently from the JAX package."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family} family (the MoE load-balance loss, remat "
-            "over the MoE and Mamba blocks) is not ported yet: ROADMAP section 1, "
-            "item 9b")
-
-
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01) -> Callable:
-    check_trainable(cfg)
+    """loss_fn(params, batch) -> (loss, {"ce", "aux", "band_reg"}): token
+    CE plus ``aux_weight`` times the MoE load-balance loss (0 for the other
+    families) plus the band regularizer, as in the JAX package.  ``batch``
+    holds ``"labels"`` and ``"tokens"``, or ``"embeddings"`` (and, for
+    multimodal rope, ``"positions_thw"``) for a model without token
+    inputs."""
 
     def loss_fn(params, batch):
-        logits = forward(cfg, params, batch["tokens"])
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # dense: no aux
+        logits, aux = forward(cfg, params, batch.get("tokens"),
+                              embeddings=batch.get("embeddings"),
+                              positions_thw=batch.get("positions_thw"), return_aux=True)
         ce = cross_entropy(logits, batch["labels"])
         reg = _band_reg_term(cfg, params)
         loss = ce + aux_weight * aux + reg
@@ -100,7 +117,9 @@ def make_train_step(
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``batch``: {"tokens", "labels"} (B, S) tensors on the params' device.
+    ``batch``: {"tokens", "labels"} (B, S) tensors on the params' device,
+    or {"embeddings" (B, S, d), "labels"[, "positions_thw" (B, 3, S)]} for
+    a model without token inputs (the JAX package's batch dict).
     ``microbatch``: if > 1, split the batch into that many accumulation
     steps, run one after another (the JAX package's ``lax.scan``), and
     average their gradients and losses; the other metrics are the last
@@ -119,7 +138,7 @@ def make_train_step(
     def compute_grads(params, batch):
         if microbatch <= 1:
             return grads_of(params, batch)
-        B = batch["tokens"].shape[0]
+        B = batch["labels"].shape[0]
         if B % microbatch:
             raise ValueError(f"batch {B} does not split into {microbatch} microbatches")
         size = B // microbatch

@@ -7,7 +7,11 @@ agrees with it to float32 roundoff; ``torch.optim.AdamW`` orders its
 operations differently.  Unlike the JAX package, ``apply_updates`` writes
 the parameters and moments in place: at granite-3-2b's full width a second
 copy of the float32 parameters and both moments (about 32 GB) would not fit
-beside the first on one 80 GB card.
+beside the first on one 80 GB card.  It also walks each leaf in flat chunks
+of at most ``LEAF_CHUNK`` elements, so its temporaries stay a few chunks
+in size where a stacked weight's would be a few copies of the stack
+(zamba2-2.7b's stacked ``in_proj`` is 5.8 GB); the update is elementwise,
+so the chunks change no value.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.train.tree import leaves, tree_map
+from repro_torch.train.tree import LEAF_CHUNK, leaves, tree_map
 
 __all__ = [
     "OptConfig",
@@ -83,6 +87,14 @@ def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
     return tree_map(lambda x: x * scale, tree), gn
 
 
+def _chunks(*trees_leaves):
+    """Corresponding flat chunks (views) of each leaf list's leaves, at most
+    ``LEAF_CHUNK`` elements each; in-place ops on them write the leaves."""
+    for ts in zip(*trees_leaves):
+        flat = [t.view(-1) for t in ts]
+        yield from zip(*(f.split(LEAF_CHUNK) for f in flat))
+
+
 @torch.no_grad()
 def apply_updates(
     cfg: OptConfig, params: Any, grads: Any, state: Dict[str, Any]
@@ -94,7 +106,8 @@ def apply_updates(
     scale = _clip_scale(gn, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    ps, gs, ms = leaves(params), leaves(grads), leaves(state["m"])
+    ps, ms = leaves(params), leaves(state["m"])
+    gs = [g.contiguous() for g in leaves(grads)]
 
     def clipped(g):
         return g * scale if scale is not None else g
@@ -102,14 +115,14 @@ def apply_updates(
     if cfg.kind == "adamw":
         b1, b2 = cfg.beta1, cfg.beta2
         vs = leaves(state["v"])
-        for g, m_, v_ in zip(gs, ms, vs):
+        for g, m_, v_ in _chunks(gs, ms, vs):
             g = clipped(g).to(torch.float32)
             m_.mul_(b1).add_((1 - b1) * g)
             v_.mul_(b2).add_((1 - b2) * g.square())
         stepf = step.to(torch.float32)
         c1 = 1 - b1 ** stepf
         c2 = 1 - b2 ** stepf
-        for p, m_, v_ in zip(ps, ms, vs):
+        for p, m_, v_ in _chunks(ps, ms, vs):
             den = (v_ / c2).sqrt_().add_(cfg.eps)
             u = (m_ / c1).div_(den)
             del den
@@ -117,7 +130,7 @@ def apply_updates(
             p.copy_((p.to(torch.float32) - lr * u).to(p.dtype))
         new_state = {"step": step, "m": state["m"], "v": state["v"]}
     else:  # sgd + momentum
-        for p, g, m_ in zip(ps, gs, ms):
+        for p, g, m_ in _chunks(ps, gs, ms):
             m_.mul_(cfg.momentum).add_(clipped(g).to(torch.float32))
             p.copy_((p.to(torch.float32) - lr * m_).to(p.dtype))
         new_state = {"step": step, "m": state["m"]}

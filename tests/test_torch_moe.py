@@ -278,16 +278,6 @@ def test_moe_paged_verify_refused_as_jax():
         assert str(terr.value) == str(jerr.value)
 
 
-def test_moe_training_is_refused():
-    from repro_torch.train import optim as O
-    from repro_torch.train.loop import make_loss_fn, make_train_step
-
-    _, _, tcfg, _ = _models()
-    for fn in (lambda: make_loss_fn(tcfg), lambda: make_train_step(tcfg, O.OptConfig())):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            fn()
-
-
 def test_launcher_serves_moe(capsys):
     """The moe recipe: the paged pool through K1 and K2 (their plain
     versions on the CPU)."""

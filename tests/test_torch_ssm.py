@@ -12,8 +12,8 @@ tokens and ticks and in the stats on both loops, a pad id changes nothing
 (JAX's ``test_pad_id_is_semantics_preserving``), and ``generate`` equals
 JAX's.  The cache-row ops take the conv/ssm leaves, and every family
 refusal (the paged layout, tiers, paged decode and verify, a fused
-prefill; the vlm/audio configs and training, not ported) has JAX's
-message or names its ROADMAP item.
+prefill) has JAX's message.  Their training is held to JAX's in
+``tests/test_torch_train_families.py``.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from repro.serve.engine import generate as jgenerate
 from repro.serve.engine import resolve_execution_mode as jresolve
 from repro.serve.scheduler import ServeSession as JServeSession
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs import ModelConfig, get_config, reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.approx import ApproxConfig
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -353,27 +353,6 @@ def test_family_refusals_match_jax(arch):
     _same_error(NotImplementedError,
                 lambda: jT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, return_kv=True),
                 lambda: T.forward(tcfg, tp, _t(toks), return_kv=True))
-
-
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_vlm_and_audio_configs_are_refused(family):
-    with pytest.raises(ValueError, match="item 9c"):
-        ModelConfig(name="x", family=family, num_layers=1, d_model=8, num_heads=1,
-                    num_kv_heads=1, d_ff=8, vocab_size=8)
-
-
-@pytest.mark.parametrize("arch", [SSM, HYBRID])
-def test_training_is_refused(arch):
-    from repro_torch.launch.train import main as train_main
-    from repro_torch.train import optim as O
-    from repro_torch.train.loop import make_loss_fn, make_train_step
-
-    _, _, tcfg, _ = _models(arch)
-    for fn in (lambda: make_loss_fn(tcfg), lambda: make_train_step(tcfg, O.OptConfig()),
-               lambda: train_main(["--arch", arch, "--reduced", "--device", "cpu",
-                                   "--steps", "1"])):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            fn()
 
 
 def test_launcher_serves_ssm(capsys):
