@@ -281,15 +281,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (b) training on embeddings as in phase 14 (musicgen 24 of its
            48 layers; qwen2-vl with a positions grid) with its 4-layer
            oracle.
+16. roofline  the launch tooling (``launch/roofline.py``, ``specs.py``,
+           ``dryrun.py``) held to the card on granite-3-2b at full width:
+           one fused admission prefill (2 rows at bucket 128 into a 40-block
+           f32 pool) and one paged decode step of 4 rows (K1 and K2) on
+           phase 4's frozen weights, and phase 7's 8 x 64 QAT step (K1,
+           remat) on its state (the step phase 7 profiles), each counted
+           from 1 and 2 layers (``dryrun.in_depth``; on meta, the decode
+           step on the CPU, where K2's work is read from the table and
+           lengths), then run with the launch counts zeroed just before:
+           the launches equal the counted calls (decode 281 and 40,
+           prefill 281 and 0, train 521 and 0), the counted argument bytes
+           equal the real tensors', the bound is at most 1.05x the
+           profiler's device time, and the counted temporaries are within
+           TEMP_TOL of those ``max_memory_allocated`` shows; printed beside
+           each: device, CUDA-event and host ms, the bound and its term,
+           and the model-FLOP share of the device time (2 N tokens, 6 N
+           tokens for training, over the bf16 peak).  The dry run of every
+           cell on meta needs no card: ``tests/test_torch_dryrun_cells.py``
+           and ``python -m repro_torch.launch.dryrun --all`` run it.
 
 Phases 1-7 run in this process, one after another, and so do the parts
 whose times go into the kernels line: phase 8's K1 at the CNN shapes,
 phase 10's stall probe (its gates are host times) and phase 13's K2 at the
-moe shape.  The rest of phases 8-15 then runs as units (phase 8; 9; 10;
-11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14 and 15) in
-up to POOL_WORKERS processes on the one card at once, as many as the
-units' memory peaks allow (POOL_GB), each unit in a fresh process: serving is
-host-bound, and processes sharing the card each serve at the speed of one
+moe shape, and phase 16 (its serving steps after phase 5, its training
+step inside phase 7).  The rest of phases 8-15 then runs as units (phase
+8; 9; 10; 11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14
+and 15) in up to POOL_WORKERS processes on the one card at once, as many
+as the units' memory peaks allow (POOL_GB), each unit in a fresh process:
+serving is host-bound, and processes sharing the card each serve at the speed of one
 alone (``scripts/shared_card_probe.py``), so the phases' seconds add up to
 more than the run's.  The tok/s, host ms and admission seconds those units
 print are taken while the other units run.  Each unit zeroes and reads its
@@ -301,12 +321,15 @@ replay a subset of the trace.  The weights are random, from ``--seed``.
 
 Timings are CUDA-event means over repeated launches; a bound is the larger
 of the bytes the call must move over 3.35 TB/s and its operations over the
-peak rate of their type (int8 1979 TOP/s for the uint8 codes of K1, f32
-67 TFLOP/s for K2, which computes in f32 from either pool dtype; K3 moves 2 bytes in and 4 out per element and its
-integer logic has no rate in the data sheet), the H100 SXM data-sheet
-rates at 700 W.  The line
-before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+peak rate of their type (int8 1978.9 TOP/s for the uint8 codes of K1, f32
+67 TFLOP/s for K2, which computes in f32 from either pool dtype; K3 moves
+2 bytes in and 4 out per element and its integer logic has no rate in the
+data sheet).  The rates, ``bound`` and ``k2_bound`` come from
+``repro_torch/launch/roofline.py`` (the H100 SXM data sheet at 700 W, by
+``torch.cuda.get_device_name()``); the card's name and power limit, as
+``nvidia-smi`` gives them, are printed beside them.  The line before the
+last is {"kernels": [...]}; the last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -332,10 +355,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_FLOPS_PER_S = 67e12
+if (SRC / "repro_torch").is_dir():      # outside a checkout main() says so and exits 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.dryrun import k1_per_pass, k1_per_train_step
+    from repro_torch.kernels.work import k2_valid_positions
+    from repro_torch.launch.roofline import INT8_OPS_PER_S, bound, k2_bound
 
 ARCH = "granite-3-2b"
 NUM_SLOTS = 4
@@ -380,6 +404,7 @@ MOE_REQUESTS, MOE_NEW = 4, 8         # phase 13's cut of the moe trace
 PAPER_BATCH, PAPER_TEST = 64, 256     # Table VIII's training and test batches
 RESNET_STEPS = 3
 POOL_WORKERS = 4                     # processes that run phases 8-15's units
+TEMP_TOL = (0.02, 1 << 18)           # phase 16: counted temporaries vs measured, rel + bytes
 BACKBONE_ARCHS = ("qwen2-vl-2b", "musicgen-large")                    # phase 15
 BACKBONE_SEQ = 32                    # phase 15's embeddings per row: 8 text, a 4 x 4 image, 8
 TRAIN_STEPS_FAMILY = 2               # phases 14 and 15's steps through K1
@@ -429,12 +454,6 @@ def warm_up(dev, seconds: float = 1.0) -> None:
         for _ in range(10):
             x = torch.tanh(x @ x)
         torch.cuda.synchronize()
-
-
-def bound(nbytes: float, ops: float, peak: float):
-    """(ms, 'bytes' | 'operations'): the least time for the work."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def profile_step(fn, match="approx_matmul_kernel", key="k1_device_ms"):
@@ -593,25 +612,6 @@ def paged_case(rng, dev, B, W, bs, n_kv, g, hd, *, holes=False, pool_dtype=torch
             cur[b] = int(rng.integers(0, W * bs))
     as_i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)
     return [q, kn, vn, kp, vp, as_i32(tbl), as_i32(cur)]
-
-
-def k2_valid_positions(tbl, cur, num_blocks, bs):
-    """Pool positions the step must read: allocated and < cur_len."""
-    n = 0
-    for row, c in zip(tbl.tolist(), cur.tolist()):
-        n += sum(min(bs, max(0, c - w * bs)) for w, e in enumerate(row) if e < num_blocks)
-    return n
-
-
-def k2_bound(B, H, hkv, hd, W, valid, qsize, esize, calls=1):
-    """(ms, by) of ``calls`` K2 calls: q read and out written in q's dtype,
-    the new token's K/V, the table and lengths, and the K/V rows of the
-    ``valid`` pool positions the rows hold (each read once, in the pool
-    dtype); 4 * hd f32 operations per query head and attended position."""
-    nbytes = B * (2 * H * hd * qsize + 2 * hkv * hd * esize + 4 * (W + 1)) \
-        + 2 * esize * valid * hkv * hd
-    ops = 4.0 * H * hd * (valid + B)
-    return bound(calls * nbytes, calls * ops, F32_FLOPS_PER_S)
 
 
 def k2_check(name, args, bs, zero_rows=()):
@@ -1049,16 +1049,23 @@ def train_phase(dev, seed):
     if out["launches"] <= 0:
         raise AssertionError("approx_matmul was never launched on the training path")
 
-    # where a step's time goes: one more step, profiled
-    step = make_train_step(cfg, opt)
-    batch = as_batch(next(batches), dev)
-    holder = {}
+    # where a step's time goes: one more step, counted on meta first, then
+    # run with the launch counts zeroed and profiled (phase 16)
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import in_depth
+    from repro_torch.launch.roofline import count_costs
+    from repro_torch.launch.specs import input_specs, state_specs
 
-    def one():
-        holder["state"], holder["m"] = step(state, batch)
-    out["profiled_step"] = {**profile_step(one),
+    step = make_train_step(cfg, opt)
+    shape = ShapeConfig("train_8x64", TRAIN_SEQ, TRAIN_BATCH, "train")
+    costs = in_depth(cfg, lambda c: count_costs(make_train_step(c, opt), state_specs(c, opt),
+                                                input_specs(c, shape)), peak="backward")["total"]
+    out["roofline"] = roofline_step(
+        "train", step, costs, (state_specs(cfg, opt), input_specs(cfg, shape)),
+        (state, as_batch(next(batches), dev)),
+        6.0 * cfg.param_count() * TRAIN_BATCH * TRAIN_SEQ, grad=True)
+    out["profiled_step"] = {**out["roofline"].pop("profile"),
                             "k1_launches_per_step": out["launches"] // TRAIN_STEPS}
-    state = holder.pop("state")
     log(f"[train] profiled step: {json.dumps(out['profiled_step'])}")
     if not out["profiled_step"].get("k1_device_ms", 0) > 0:
         raise AssertionError("the profiled step shows no device time for approx_matmul_kernel "
@@ -1082,7 +1089,7 @@ def train_phase(dev, seed):
     out["remat_off"] = {"step_s": times, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                         "k1_launches_per_step": (approx_matmul.launches - n0) // 2}
     log(f"[train] remat off: {json.dumps(out['remat_off'])}")
-    del state, holder, batch, m
+    del state, batch, m
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2431,20 +2438,6 @@ def chunked_sync_gate(sync, asyn):
 # ---------------------------------------------------------------------------
 
 
-def k1_per_pass(cfg):
-    """K1 launches of one forward or decode pass of ``cfg``'s stack (frozen
-    weights): every projection of every layer, each routed expert's three
-    included, and the LM head."""
-    n = cfg.num_layers
-    if cfg.family == "moe":
-        return n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
-    if cfg.family == "ssm":
-        return 4 * n + 1
-    if cfg.family == "hybrid":
-        return 2 * n + 7 * (n // cfg.attn_every) + 1
-    return 7 * n + 1
-
-
 def family_trace(rng, vocab):
     """FAMILY_REQUESTS requests of 8-32 prompt tokens and 8-12 new, two at
     tick 0, then one per tick."""
@@ -2762,25 +2755,6 @@ def family_k2(cfg, dev, seed):
 # ---------------------------------------------------------------------------
 # phase 14: training of the moe, ssm and hybrid families
 # ---------------------------------------------------------------------------
-
-
-def k1_per_train_step(cfg):
-    """K1 launches of one training step of ``cfg`` (float weights, remat
-    on): every projection in the forward, then each layer's recompute in
-    the backward, which stops once the tensors the backward saved are back
-    (torch's non-reentrant checkpoint), so it skips a block's last
-    projection when nothing after it is saved (the FFN's ``w_down``,
-    Mamba's ``out_proj``); the MoE block recomputes all of its own (the
-    shared expert and the load-balance terms come after the experts).  The
-    LM head runs once."""
-    n = cfg.num_layers
-    if cfg.family == "moe":
-        return 2 * n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
-    if cfg.family == "ssm":
-        return (4 + 3) * n + 1
-    if cfg.family == "hybrid":
-        return (2 + 1) * n + (7 + 6) * (n // cfg.attn_every) + 1
-    return (7 + 6) * n + 1
 
 
 def state_digest(tree, chunk=1 << 24):
@@ -3219,6 +3193,154 @@ def backbone_phase(arch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: roofline
+# ---------------------------------------------------------------------------
+
+
+def roofline_step(name, fn, costs, meta_args, args, model_flops, *, grad=False):
+    """Phase 16: ``fn`` as counted (``costs``, from 1 and 2 layers by
+    ``launch/dryrun.in_depth``; ``meta_args`` its arguments at full depth
+    on meta), then run on the card (``args``) with the launch counters
+    zeroed just before: its launches equal the counted calls, the counted
+    argument bytes equal the real tensors', its bound is at most 1.05x the
+    profiler's device time, and the counted temporaries are within
+    TEMP_TOL of those ``max_memory_allocated`` shows.  Returns the step's
+    numbers."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch.roofline import card_rates, roofline_terms
+    from repro_torch.parallel.sharding import tree_bytes
+
+    terms = roofline_terms(flops_per_device=costs.compute_by_class(),
+                           bytes_per_device=costs.total_bytes(), wire_bytes_per_device=0.0,
+                           n_devices=1, model_flops_global=model_flops)
+    counted = {k: costs.kernels.get(k, {}).get("calls", 0)
+               for k in ("approx_matmul", "paged_attention")}
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    approx_matmul.launches = paged_attention.launches = 0
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    with torch.set_grad_enabled(grad):
+        out = fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"approx_matmul": approx_matmul.launches,
+                "paged_attention": paged_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    del out
+
+    def again():
+        with torch.set_grad_enabled(grad):
+            fn(*args)
+    prof = profile_step(again)
+    device_ms = prof.get("device_ms")
+    bound_ms = terms["t_bound_s"] * 1e3
+    bf16 = card_rates().bfloat16
+    row = {"step": name, "launches": launches, "counted_calls": counted,
+           "argument_bytes": tree_bytes(*args), "counted_argument_bytes": tree_bytes(*meta_args),
+           "device_ms": device_ms, "events_ms": e0.elapsed_time(e1), "host_ms": host_ms,
+           "k1_device_ms": prof.get("k1_device_ms"),
+           "bound_ms": bound_ms, "bound_by": terms["bound"],
+           "t_compute_ms": terms["t_compute_s"] * 1e3, "t_memory_ms": terms["t_memory_s"] * 1e3,
+           "flops_by_class": terms.get("flops_by_class"), "bytes": costs.total_bytes(),
+           "kernels": costs.kernels, "model_flops": model_flops,
+           "model_flop_share": (model_flops / (device_ms / 1e3) / bf16) if device_ms else None,
+           "bound_share": (bound_ms / device_ms) if device_ms else None,
+           "predicted_peak_gb": (base + costs.peak_bytes) / 1e9,
+           "predicted_temp_gb": costs.peak_bytes / 1e9,
+           "max_memory_allocated_gb": peak / 1e9, "measured_temp_gb": (peak - base) / 1e9}
+    log(f"[roofline] granite-3-2b {name}: {json.dumps(row)}")
+    row["profile"] = prof
+    if launches != counted:
+        raise AssertionError(f"{name}: launches {launches} != counted calls {counted}")
+    if row["argument_bytes"] != row["counted_argument_bytes"]:
+        raise AssertionError(f"{name}: arguments {row['argument_bytes']} B, counted "
+                             f"{row['counted_argument_bytes']} B")
+    if device_ms is None or not bound_ms <= 1.05 * device_ms:
+        raise AssertionError(f"{name}: bound {bound_ms} ms above 1.05x the device time "
+                             f"{device_ms} ms ({prof.get('note', '')})")
+    rel, slack = TEMP_TOL
+    if not abs(costs.peak_bytes - (peak - base)) <= rel * (peak - base) + slack:
+        raise AssertionError(f"{name}: temporaries counted {costs.peak_bytes} B, measured "
+                             f"{peak - base} B, beyond {rel:.0%} + {slack} B")
+    return row
+
+
+def zeros_on(tree, device):
+    """A zero-filled twin of a meta tree (a frozen weight's fields too)."""
+    from repro_torch.train.tree import tree_map
+
+    z = lambda t: None if t is None else torch.zeros(t.shape, dtype=t.dtype, device=device)
+    return tree_map(lambda x: type(x)(*map(z, x)) if isinstance(x, tuple) else z(x), tree)
+
+
+def roofline_serve(cfg, params, trace, dev):
+    """Phase 16's serving steps on phase 4's frozen weights: one fused
+    admission prefill of the trace's first two prompts at bucket 128 into
+    an f32 paged pool (4 rows of MAX_LEN // BLOCK_SIZE blocks each), then
+    one paged decode step of 4 rows through K1 and K2 over it."""
+    from repro_torch.launch.dryrun import in_depth
+    from repro_torch.launch.roofline import count_costs
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.models.transformer import forward, init_paged_cache, paged_decode_step
+    from repro_torch.serve.cache import scatter_prompt_blocks
+
+    W, nbk, bucket = MAX_LEN // BLOCK_SIZE, BUCKETS[-1] // BLOCK_SIZE, BUCKETS[-1]
+
+    def steps(c, device, p):
+        """{name: (step, its arguments)} of config ``c`` on ``device``."""
+        def prefill(p, cache, prompts, lens, seat):
+            logits, kvs = forward(c, p, prompts, return_kv=True)
+            scatter_prompt_blocks(cache, kvs, seat, BLOCK_SIZE)
+            return logits[torch.arange(prompts.shape[0], device=prompts.device), lens - 1]
+
+        def decode(p, cache, tokens, cur_len, tables):
+            return paged_decode_step(c, p, cache, tokens, cur_len, tables,
+                                     block_size=BLOCK_SIZE, attn_impl="kernel")
+
+        i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+        prompts = np.zeros((2, bucket), np.int32)
+        for i in (0, 1):
+            prompts[i, :trace[i][0].size] = trace[i][0]
+        lens = [trace[i][0].size for i in range(NUM_SLOTS)]
+        tables = np.arange(NUM_SLOTS * W, dtype=np.int32).reshape(NUM_SLOTS, W)
+        cache = init_paged_cache(c, NUM_SLOTS * W, BLOCK_SIZE, device=device)
+        return {"prefill": (prefill, (p, cache, i32(prompts), i32(lens[:2]),
+                                      i32(tables[:2, :nbk]))),
+                "decode": (decode, (p, cache, i32(np.asarray(trace[4][0][:NUM_SLOTS])[:, None]),
+                                    i32(lens), i32(tables)))}
+
+    def counted(name):
+        # K2's work depends on the table and lengths, which meta tensors do
+        # not hold: the decode step is counted on the CPU (zero weights)
+        device = "cpu" if name == "decode" else "meta"
+
+        def count(c):
+            fn, args = steps(c, device, zeros_on(params_specs(c, frozen=True), device))[name]
+            return count_costs(fn, *args)
+        # the prefill holds every layer's K/V until it scatters them
+        return in_depth(cfg, count, peak="grows" if name == "prefill" else "flat")["total"]
+
+    n_params = cfg.param_count()
+    tokens = {"prefill": 2 * bucket, "decode": NUM_SLOTS}
+    meta, real = steps(cfg, "meta", params_specs(cfg, frozen=True)), steps(cfg, dev, params)
+    out = {}
+    with torch.no_grad():
+        for name in ("prefill", "decode"):          # the decode step reads what prefill wrote
+            out[name] = roofline_step(name, real[name][0], counted(name), meta[name][1],
+                                      real[name][1], 2.0 * n_params * tokens[name])
+    del real
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 8-15's units, run by a pool of processes on the one card
 # ---------------------------------------------------------------------------
 
@@ -3400,7 +3522,6 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} missing; run from a checkout",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.approx_matmul import approx_matmul
@@ -3515,6 +3636,9 @@ def main(argv=None) -> int:
                                                    r.finished_tick)
                                              for rid, r in results.items()}}
 
+    # -- 16. granite's prefill and decode steps, counted and run ----------
+    report["roofline"] = {"granite": roofline_serve(cfg, params, trace, dev)}
+
     # -- 10 (e). the stall probe, on phase 4's weights, alone on the card ---
     stall, stall_s = stall_check(cfg, params, trace, dev, args.seed, smi)
 
@@ -3604,6 +3728,21 @@ def main(argv=None) -> int:
         f"{sum(b['seconds'] for b in bb.values()):.1f}s; launches by path "
         + json.dumps({k: v for k, v in paths.items() if k.startswith("train_")
                       or k in ("vlm", "audio")}))
+
+    # -- 16. roofline ---------------------------------------------------------
+    roof = report["roofline"]
+    roof["granite"]["train"] = train["roofline"]
+    for step_name, r in roof["granite"].items():
+        log(f"[roofline] phase 16 {step_name}: device {r['device_ms']:.4g} ms, events "
+            f"{r['events_ms']:.4g} ms, host {r['host_ms']:.4g} ms; bound {r['bound_ms']:.4g} ms "
+            f"({r['bound_by']}; compute {r['t_compute_ms']:.4g}, memory "
+            f"{r['t_memory_ms']:.4g}) = {r['bound_share']:.4f} of the device time; model-FLOP "
+            f"share {r['model_flop_share']:.5f}; temp predicted {r['predicted_temp_gb']:.4g} GB, "
+            f"measured {r['measured_temp_gb']:.4g} GB (peak {r['max_memory_allocated_gb']:.4g} "
+            f"GB); launches {json.dumps(r['launches'])}")
+    for step_name in ("decode", "prefill", "train"):
+        paths[f"roofline_{step_name}"] = roof["granite"][step_name]["launches"]
+    log(smi)
 
     k3 = report["k3"]
     kernels = [

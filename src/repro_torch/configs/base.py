@@ -1,6 +1,8 @@
 """Model configuration: ``ModelConfig`` (exact public spec of each
-registered architecture), the registry, and ``reduced_config`` (the
-same-family CPU test variant with tiny dims).
+registered architecture), the registry, ``reduced_config`` (the
+same-family CPU test variant with tiny dims), and the global shapes
+(``SHAPES``: train_4k, prefill_32k, decode_32k, long_500k) that the dry
+run counts.
 
 Every family of the JAX package: dense, moe, ssm (Mamba-1), hybrid
 (Mamba-2 with a weight-shared attention block), and the vlm and audio
@@ -18,6 +20,8 @@ from repro_torch.core.approx import ApproxConfig
 
 __all__ = [
     "ModelConfig",
+    "ShapeConfig",
+    "SHAPES",
     "ARCH_REGISTRY",
     "FAMILIES",
     "register",
@@ -87,6 +91,64 @@ class ModelConfig:
         """Mamba-2 head count (d_inner / 64-dim heads, zamba2 convention)."""
         return max(1, self.d_inner // 64)
 
+    @property
+    def supports_long_context(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        return d * self.num_heads * self.head_dim * 2 + d * self.num_kv_heads * self.head_dim * 2
+
+    def param_count(self) -> int:
+        """Approximate parameter count (the N of MODEL_FLOPS = 6*N*D): the
+        JAX package's arithmetic (true vocab, no norms, no conv/scan
+        vectors but Mamba-1's ``a_log``)."""
+        d, L = self.d_model, self.num_layers
+        n = 0
+        if self.embed_input:
+            n += self.vocab_size * d
+        n += self.vocab_size * d                       # lm head
+        if self.family in ("dense", "moe", "vlm", "audio"):
+            if self.family == "moe":
+                ffn = self.moe_experts * 3 * d * self.d_ff + d * self.moe_experts
+                ffn += 3 * d * self.moe_shared_ff
+            else:
+                ffn = 3 * d * self.d_ff
+            n += L * (self._attn_params() + ffn)
+        elif self.family == "ssm":
+            di, N, dtr = self.d_inner, self.ssm_state, self.dt_rank
+            n += L * (d * 2 * di + di * (dtr + 2 * N) + dtr * di + di * N + di * d)
+        elif self.family == "hybrid":
+            di, N, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            n += L * (d * (2 * di + 2 * N + nh) + di * d)
+            n += self._attn_params() + 3 * d * self.d_ff   # shared block (once)
+        return n
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k + shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        n = 2 * self.vocab_size * d
+        ffn = self.moe_top_k * 3 * d * self.d_ff + 3 * d * self.moe_shared_ff \
+            + d * self.moe_experts
+        return n + L * (self._attn_params() + ffn)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 ARCH_REGISTRY: Dict[str, ModelConfig] = {}
 

@@ -1,8 +1,11 @@
 """Wrapper of the CUDA approximate-multiplier matmul (K1).
 
 A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the kernel in ``kernels/csrc/approx_matmul.cu`` or raises.
-``approx_matmul.launches`` counts kernel launches.
+launches the kernel in ``kernels/csrc/approx_matmul.cu`` or raises; on
+``meta`` tensors (shape inference: ``launch/specs.py``, the dry run) the
+result is an empty int32 tensor of its shape, and nothing is launched.
+``approx_matmul.launches`` counts kernel launches.  Every call reports its
+work (``kernels/work.py``) to an active cost counter.
 
 The kernel computes ``A@B - c * sum_f vt_f(A) @ u'_f(B)`` on the integer
 tensor cores, every operand 8 bits wide; ``feature_tables`` builds those
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core import multipliers as mul
 from repro_torch.kernels._build import KernelLaunchError, library
 from repro_torch.kernels.approx_matmul.ref import approx_matmul_plain, correction
+from repro_torch.kernels.work import k1_work, reported
 
 __all__ = ["FeatureTables", "MAX_EXACT_K", "MAX_FEATURES", "approx_matmul", "feature_tables"]
 
@@ -166,17 +170,34 @@ def approx_matmul(
     Kb, N = b_codes.shape
     if K != Kb:
         raise ValueError(f"contraction mismatch: a has K={K}, b has K={Kb}")
-    if a_codes.device.type == "cpu" and b_codes.device.type == "cpu":
-        return approx_matmul_plain(
-            a_codes, b_codes, multiplier=multiplier, lhs_max=lhs_max, rhs_max=rhs_max
-        )
-    if not (a_codes.is_cuda and b_codes.is_cuda) or a_codes.device != b_codes.device:
+    types = (a_codes.device.type, b_codes.device.type)
+
+    def work():
+        return k1_work(math.prod(lead) * M, N, K,
+                       feature_tables(multiplier, lhs_max, rhs_max).num_features)
+
+    if types == ("cpu", "cpu"):
+        return reported("approx_matmul", work, lambda: approx_matmul_plain(
+            a_codes, b_codes, multiplier=multiplier, lhs_max=lhs_max, rhs_max=rhs_max))
+    meta = types == ("meta", "meta")
+    if not (meta or (a_codes.is_cuda and b_codes.is_cuda)) or a_codes.device != b_codes.device:
         raise ValueError(
             f"operands on {a_codes.device} and {b_codes.device}: both must be "
-            "on the CPU (plain version) or on one CUDA device (kernel)"
+            "on the CPU (plain version), on one CUDA device (kernel) or on meta"
         )
     if K > MAX_EXACT_K:
         raise ValueError(f"K={K} > {MAX_EXACT_K}: int32 accumulation would overflow")
+    if meta:
+        return reported("approx_matmul", work, lambda: torch.empty(
+            (*lead, M, N), dtype=torch.int32, device=a_codes.device))
+    return reported("approx_matmul", work, lambda: _launch(
+        a_codes, b_codes, multiplier, lhs_max, rhs_max))
+
+
+def _launch(a_codes, b_codes, multiplier, lhs_max, rhs_max) -> torch.Tensor:
+    """K1 on one CUDA device (the checks done)."""
+    *lead, M, K = a_codes.shape
+    N = b_codes.shape[1]
     tabs = feature_tables(multiplier, lhs_max, rhs_max, a_codes.device)
     a2 = a_codes.reshape(-1, K).to(torch.uint8)
     b2 = b_codes.to(torch.uint8)

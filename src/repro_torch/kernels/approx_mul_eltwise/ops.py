@@ -1,8 +1,11 @@
 """Wrapper of the CUDA elementwise approximate multiplier (K3).
 
 A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the kernel in ``kernels/csrc/approx_mul_eltwise.cu`` or raises.
-``approx_mul_eltwise.launches`` counts kernel launches.
+launches the kernel in ``kernels/csrc/approx_mul_eltwise.cu`` or raises; a
+``meta`` tensor (shape inference) gets an empty int32 result of its shape,
+and nothing is launched.  ``approx_mul_eltwise.launches`` counts kernel
+launches.  Every call reports its work to an active cost counter
+(``kernels/work.py``).
 
 The kernel evaluates the multiplier's bit logic (``core/logic.py``), never
 its LUT, so on the card it is an independent cross-check of the products
@@ -20,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels._build import KernelLaunchError, library
 from repro_torch.kernels.approx_matmul.ops import approx_matmul
 from repro_torch.kernels.approx_mul_eltwise.ref import approx_mul_eltwise_plain
+from repro_torch.kernels.work import k3_work, reported
 
 __all__ = ["DESIGNS", "UnsupportedMultiplierError", "approx_mul_eltwise", "lut_mismatches"]
 
@@ -61,12 +65,23 @@ def approx_mul_eltwise(a: torch.Tensor, b: torch.Tensor, *,
     for t in (a, b):
         if t.dtype not in (torch.uint8, torch.int32):
             raise TypeError(f"codes must be uint8 or int32, got {t.dtype}")
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return approx_mul_eltwise_plain(a, b, name)
+    types = (a.device.type, b.device.type)
+    work = lambda: k3_work(a.numel())
+    if types == ("cpu", "cpu"):
+        return reported("approx_mul_eltwise", work,
+                        lambda: approx_mul_eltwise_plain(a, b, name))
+    if types == ("meta", "meta"):
+        return reported("approx_mul_eltwise", work,
+                        lambda: torch.empty(a.shape, dtype=torch.int32, device=a.device))
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(
             f"operands on {a.device} and {b.device}: both must be on the CPU "
-            "(plain version) or on one CUDA device (kernel)")
+            "(plain version), on one CUDA device (kernel) or on meta")
+    return reported("approx_mul_eltwise", work, lambda: _launch(a, b, name))
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, name: str) -> torch.Tensor:
+    """K3 on one CUDA device (the checks done)."""
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out

@@ -2,10 +2,17 @@
 
 Validates shapes (the same checks, and messages, as the JAX wrapper), then
 takes the plain PyTorch version for CPU tensors or launches the kernel in
-``kernels/csrc/paged_attention.cu`` for CUDA tensors.  A shape or dtype the
+``kernels/csrc/paged_attention.cu`` for CUDA tensors; on ``meta`` tensors
+(shape inference) it checks what the kernel takes and returns an empty
+output of its shape and dtype, launching nothing.  A shape or dtype the
 kernel does not take raises ``PagedAttentionShapeError``; nothing falls
 back.  ``paged_attention.launches`` counts kernel launches (one per call:
-the splits of a row's table walk are merged in the same launch).
+the splits of a row's table walk are merged in the same launch).  Every
+call reports its work to an active cost counter (``kernels/work.py``):
+on the CPU or the card the positions it attends, read from the table and
+lengths (on the host, and only while a counter is active); on ``meta``,
+whose table holds no values, every table entry's positions, an upper
+bound on the call's work.
 
 On the card the query is read in its dtype (float32 or bfloat16) and the
 output written in it; the pools (float32 or bfloat16) and the new token's
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.kernels._build import KernelLaunchError, library
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+from repro_torch.kernels.work import k2_valid_positions, k2_work, reported
 
 __all__ = ["paged_attention", "PagedAttentionShapeError"]
 
@@ -168,10 +176,28 @@ def paged_attention(
             f"inconsistent with batch {B}"
         )
     args = (q, k_new, v_new, k_pool, v_pool, block_table, cur_len)
+    W = block_table.shape[1]
+    work = lambda: k2_work(B, H, n_kv, hd, W, B * W * block_size if q.is_meta else
+                           k2_valid_positions(block_table, cur_len, num_blocks, block_size),
+                           q.element_size(), k_pool.element_size())
     if all(t.device.type == "cpu" for t in args):
-        return paged_attention_plain(*args, block_size=block_size).to(q.dtype)
+        return reported("paged_attention", work, lambda: paged_attention_plain(
+            *args, block_size=block_size).to(q.dtype))
+    if all(t.device.type == "meta" for t in args):
+        _plan(q.dtype, k_pool.dtype, k_new.dtype, v_new.dtype, v_pool.dtype, B, H, hd, n_kv,
+              block_size, W)
+        return reported("paged_attention", work, lambda: torch.empty(
+            (B, H, hd), dtype=q.dtype, device=q.device))
     if not all(t.is_cuda and t.device == q.device for t in args):
-        raise ValueError("paged_attention operands must all be on the CPU or on one CUDA device")
+        raise ValueError("paged_attention operands must all be on the CPU, on one CUDA device "
+                         "or on meta")
+    return reported("paged_attention", work, lambda: _launch(*args, block_size=block_size))
+
+
+def _launch(q, k_new, v_new, k_pool, v_pool, block_table, cur_len, *, block_size):
+    """K2 on one CUDA device (the shapes checked)."""
+    B, H, hd = q.shape
+    num_blocks, _, n_kv, _ = k_pool.shape
     splits, chunk, R, nslot, vec = _plan(q.dtype, k_pool.dtype, k_new.dtype, v_new.dtype,
                                          v_pool.dtype, B, H, hd, n_kv, block_size,
                                          block_table.shape[1])

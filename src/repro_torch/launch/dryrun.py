@@ -1,0 +1,303 @@
+"""Dry run on the host: every (arch x shape) cell's step built on the
+``meta`` device and counted (``launch/roofline.py`` ``count_costs``),
+with its roofline on one card.  Nothing is allocated on a card and no
+kernel is launched.
+
+The steps, as the JAX package lowers them, through the approximate
+multiplier ``mul8x8_2``: a train cell runs ``make_train_step`` (float32
+state, ``mode="kernel"``: K1 on every projection, its STE products in
+float32), a prefill cell ``prefill_step`` and a decode cell the
+slot-layout ``serve_step`` (one new token against a ``seq_len`` cache),
+both on frozen weights through K1.  The vlm and audio backbones take
+embeddings.
+
+The count is extrapolated in depth from two points, as the JAX package's
+``extract_costs``: the step at 1 and at 2 layer units (a hybrid's unit is
+``attn_every`` layers: one group), then ``fixed + n_units * per_unit``
+(the port's layer loop is linear in depth), times the microbatches of a
+train cell (each microbatch counted as one step of ``global_batch /
+microbatches`` rows, the optimizer's update included, as in JAX).  The
+peak of live storages (``temp_size_in_bytes``) goes with depth as
+``in_depth`` says: a prefill or decode step's is that of two units (each
+layer frees its temporaries), a train cell's the larger of its line
+through 1 and 2 units and the end of its backward (``backward_peak``).
+The costs of a mesh (collectives, per-device work) wait for tensor
+parallelism.
+
+Usage (host only; writes one JSON per cell under ``results/dryrun_torch``,
+counted anew each time):
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+import traceback
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.approx import ApproxConfig
+from repro_torch.launch import roofline as R
+from repro_torch.launch.specs import cache_specs, input_specs, params_specs, state_specs
+from repro_torch.models.transformer import decode_step, forward
+from repro_torch.parallel.sharding import tree_bytes
+from repro_torch.train import optim as O
+from repro_torch.train.loop import make_train_step
+
+__all__ = ["auto_microbatch", "backward_peak", "build_step", "cell_supported", "extract_costs",
+           "in_depth", "k1_per_pass", "k1_per_train_step", "model_flops", "run_cell"]
+
+DEFAULT_OUT = os.path.join("results", "dryrun_torch")
+APPROX = ApproxConfig(multiplier="mul8x8_2", mode="kernel")   # every cell's multiplier and mode
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """None if the cell runs; otherwise the reason it is skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return "quadratic attention at 524k ctx: skipped for pure full-attention archs"
+    return None
+
+
+def auto_microbatch(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,
+                    budget_bytes: float = 4e9) -> int:
+    """Gradient-accumulation split keeping each device's stack of saved
+    layer inputs (L x rows x S x d in bf16) under about 4 GB."""
+    per_seq = cfg.num_layers * shape.seq_len * cfg.d_model * 2
+    budget_seqs = max(1, int(budget_bytes // max(per_seq, 1)))
+    b_per_dev = max(1, shape.global_batch // dp)
+    mb = 1
+    while b_per_dev // mb > budget_seqs and mb < b_per_dev:
+        mb *= 2
+    return mb
+
+
+def k1_per_pass(cfg: ModelConfig) -> int:
+    """K1 calls of one forward or decode pass of ``cfg``'s stack (frozen
+    weights): every projection of every layer, each routed expert's three
+    included (empty experts too), and the LM head."""
+    n = cfg.num_layers
+    if cfg.family == "moe":
+        return n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
+    if cfg.family == "ssm":
+        return 4 * n + 1
+    if cfg.family == "hybrid":
+        return 2 * n + 7 * (n // cfg.attn_every) + 1
+    return 7 * n + 1
+
+
+def k1_per_train_step(cfg: ModelConfig) -> int:
+    """K1 calls of one training step of ``cfg`` (float weights, remat on):
+    every projection in the forward, then each layer's recompute in the
+    backward, which stops once the tensors the backward saved are back
+    (torch's non-reentrant checkpoint), so it skips a block's last
+    projection when nothing after it is saved (the FFN's ``w_down``,
+    Mamba's ``out_proj``); the MoE block recomputes all of its own (the
+    shared expert and the load-balance terms come after the experts).  The
+    LM head runs once."""
+    n = cfg.num_layers
+    if cfg.family == "moe":
+        return 2 * n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
+    if cfg.family == "ssm":
+        return (4 + 3) * n + 1
+    if cfg.family == "hybrid":
+        return (2 + 1) * n + (7 + 6) * (n // cfg.attn_every) + 1
+    return (7 + 6) * n + 1
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[int, int, float]:
+    """(N, tokens, model FLOPs): 6*N*tokens for training, 2*N*tokens
+    otherwise, N the active parameters of a MoE."""
+    n = cfg.active_param_count() if cfg.family == "moe" else cfg.param_count()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    return n, tokens, float((6 if shape.kind == "train" else 2) * n * tokens)
+
+
+def _prefill(cfg: ModelConfig):
+    def step(params, batch):
+        return forward(cfg, params, batch.get("tokens"), embeddings=batch.get("embeddings"),
+                       positions_thw=batch.get("positions_thw"))
+    return step
+
+
+def _decode(cfg: ModelConfig):
+    def step(params, cache, batch, cur_len):
+        return decode_step(cfg, params, cache, batch.get("tokens"), cur_len,
+                           embeddings=batch.get("embeddings"))
+    return step
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: O.OptConfig, *,
+               microbatch: int = 1):
+    """(step, its arguments on ``meta``, whether it records gradients)."""
+    batch = input_specs(cfg, shape)
+    if shape.kind == "train":
+        return (make_train_step(cfg, opt_cfg, microbatch=microbatch),
+                (state_specs(cfg, opt_cfg), batch), True)
+    params = params_specs(cfg, frozen=True)
+    if shape.kind == "prefill":
+        return _prefill(cfg), (params, batch), False
+    cur_len = torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")
+    return _decode(cfg), (params, cache_specs(cfg, shape), batch, cur_len), False
+
+
+def _count(cfg, shape, opt_cfg) -> R.Costs:
+    fn, args, grad = build_step(cfg, shape, opt_cfg)
+    with torch.set_grad_enabled(grad):
+        return R.count_costs(fn, *args)
+
+
+def backward_peak(c1: R.Costs, c2: R.Costs, n: float) -> float:
+    """The most bytes alive at the end of a training step of ``n`` layer
+    units, from its counts at 1 (``c1``) and 2 units (``c2``): the
+    operations their traces share at their end (the first unit's backward,
+    the stacking of the layers' gradients, the update) stand at the same
+    distance from the end at any depth, and the bytes alive after each grow
+    by a fixed amount per unit (one more layer's gradients), so each is
+    extrapolated on its own line."""
+    (o1, a1), (o2, a2) = c1.trace, c2.trace
+    n1, n2 = len(o1), len(o2)
+    q = 0
+    while q < n1 and o1[n1 - 1 - q] == o2[n2 - 1 - q]:
+        q += 1
+    if q == 0:
+        return 0.0
+    t1, t2 = (torch.tensor(a[len(a) - q:], dtype=torch.float64) for a in (a1, a2))
+    return float((t1 + (n - 1) * (t2 - t1)).max())
+
+
+PEAKS = ("flat", "grows", "backward")
+
+
+def in_depth(cfg: ModelConfig, count: Callable[[ModelConfig], R.Costs], *,
+             peak: str) -> Dict[str, Any]:
+    """A step's costs at ``cfg``'s depth from ``count`` (the costs of the
+    step at a given config) at 1 and 2 layer units (a hybrid's unit is
+    ``attn_every`` layers): ``fixed + n_units * per_unit``, exact where the
+    step is linear in depth, as the port's layer loop is.  ``peak`` says
+    how the peak of live storages goes with depth: ``"flat"``, a forward
+    that frees each layer's temporaries (that of two units); ``"grows"``, a
+    forward that keeps each layer's outputs (on the line through 1 and 2
+    units); ``"backward"``, a training step, the larger of that line (the
+    saved layer inputs) and ``backward_peak`` (the layers' gradients, which
+    set the peak from about ten layers on)."""
+    if peak not in PEAKS:
+        raise ValueError(f"peak must be one of {PEAKS}, not {peak!r}")
+    unit = cfg.attn_every if cfg.family == "hybrid" else 1
+    t0 = time.perf_counter()
+    c1, c2 = (count(dataclasses.replace(cfg, num_layers=k * unit)) for k in (1, 2))
+    n = cfg.num_layers // unit
+    total = R.combine((2.0 - n, c1), (n - 1.0, c2))
+    line = c1.peak_bytes + (n - 1) * (c2.peak_bytes - c1.peak_bytes)
+    if peak == "flat":
+        total.peak_bytes = c2.peak_bytes
+    elif peak == "grows":
+        total.peak_bytes = line
+    else:
+        total.peak_bytes = max(line, round(backward_peak(c1, c2, n)))
+    return {"n_units": n, "total": total, "per_unit": R.combine((1.0, c2), (-1.0, c1)),
+            "fixed": R.combine((2.0, c1), (-1.0, c2)), "count_s": time.perf_counter() - t0}
+
+
+def extract_costs(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: O.OptConfig) -> Dict[str, Any]:
+    """The two-point count extrapolated in depth (``in_depth``), times
+    the microbatches (see the module text)."""
+    mb = auto_microbatch(cfg, shape) if shape.kind == "train" else 1
+    shape_mb = dataclasses.replace(shape, global_batch=max(1, shape.global_batch // mb))
+    out = in_depth(cfg, lambda c: _count(c, shape_mb, opt_cfg),
+                   peak="backward" if shape.kind == "train" else "flat")
+    peak = out["total"].peak_bytes
+    out["total"] = R.combine((float(mb), out["total"]))
+    out["total"].peak_bytes = peak
+    return {"microbatches": mb, **out}
+
+
+def run_cell(arch: str, shape_name: str) -> Dict[str, Any]:
+    """One cell's dry run at one device of the target card (see the
+    module text); the JAX package's keys where their meaning holds
+    (``count_s`` in place of ``lower_s``/``compile_s``) and each kernel's
+    calls and work."""
+    card = R.TARGET_CARD
+    cfg = dataclasses.replace(get_config(arch), approx=APPROX)
+    shape = SHAPES[shape_name]
+    skip = cell_supported(cfg, shape)
+    if skip:
+        return {"arch": arch, "shape": shape_name, "skipped": skip}
+    opt_cfg = O.OptConfig()
+    costs = extract_costs(cfg, shape, opt_cfg)
+    total = costs["total"]
+    n_params, tokens, mf = model_flops(cfg, shape)
+    terms = R.roofline_terms(flops_per_device=total.compute_by_class(),
+                             bytes_per_device=total.total_bytes(), wire_bytes_per_device=0.0,
+                             n_devices=1, model_flops_global=mf, card=card)
+    return {
+        "arch": arch, "shape": shape_name, "n_devices": 1, "card": card,
+        "approx_mode": APPROX.mode, "multiplier": APPROX.multiplier, "kind": shape.kind,
+        "count_s": costs["count_s"],
+        "params": n_params, "tokens": tokens, "microbatches": costs["microbatches"],
+        "cost_breakdown": {
+            "n_units": costs["n_units"], "bytes_raw": total.bytes_raw,
+            "n_ops": total.n_ops,
+            **{f"{k}_{part}": getattr(costs[part], k) if k != "flops"
+               else costs[part].flops_total for part in ("per_unit", "fixed")
+               for k in ("flops", "bytes", "bytes_raw")}},
+        "kernels": {k: {"calls": v["calls"], "bytes": v["bytes"], "ops": v["ops"],
+                        "design_ops": v["design_ops"], "op_class": v["op_class"]}
+                    for k, v in total.kernels.items()},
+        "argument_size_in_bytes": tree_bytes(*build_step(cfg, shape, opt_cfg)[1]),
+        "temp_size_in_bytes": total.peak_bytes,
+        **terms,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="dry run of the port's cells on meta")
+    ap.add_argument("--arch", choices=list_archs())
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--all", action="store_true", help="every arch and shape")
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    args = ap.parse_args(argv)
+    if args.all and args.arch is None and args.shape is None:
+        cells = [(a, s) for a in list_archs() for s in SHAPES]
+    elif not args.all and args.arch and args.shape:
+        cells = [(args.arch, args.shape)]
+    else:
+        ap.error("give --arch and --shape, or --all")
+    os.makedirs(args.out, exist_ok=True)
+    failures = []
+    for arch, shape in cells:
+        tag = f"{arch}__{shape}"
+        try:
+            res = run_cell(arch, shape)
+        except Exception as e:  # noqa: BLE001 - report every failing cell, then exit 1
+            traceback.print_exc()
+            failures.append((tag, repr(e)))
+            continue
+        if "skipped" not in res:
+            print(f"{arch} {shape} on {res['card']}: {res['bound']}-bound "
+                  f"{res['t_bound_s']:.4g} s (compute {res['t_compute_s']:.4g}, memory "
+                  f"{res['t_memory_s']:.4g}); model-FLOP fraction {res['roofline_fraction']:.4f};"
+                  f" arguments {res['argument_size_in_bytes']:.4g} B, temporaries "
+                  f"{res['temp_size_in_bytes']:.4g} B")
+        path = os.path.join(args.out, tag + ".json")
+        with open(path, "w") as f:
+            json.dump(res, f, indent=1)
+        print("wrote:", path)
+    if failures:
+        print("\nFAILED CELLS:")
+        for t, e in failures:
+            print(" ", t, e)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,17 +23,20 @@ __all__ = [
 ]
 
 
-def truncated_normal_init(shape, generator: torch.Generator, scale: float = 1.0,
+def truncated_normal_init(shape, generator: Optional[torch.Generator], scale: float = 1.0,
                           device: Optional[torch.device] = None) -> torch.Tensor:
     """std = scale / sqrt(fan_in) times a standard normal truncated to
-    [-2, 2] — the JAX package's init, drawn from a torch.Generator."""
+    [-2, 2] — the JAX package's init, drawn from a torch.Generator.  On the
+    ``meta`` device (``generator`` None) only the shape is built: nothing
+    is drawn."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if t.device.type != "meta":
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t * (scale / math.sqrt(fan_in))
 
 
-def init_dense(d_in: int, d_out: int, generator: torch.Generator,
+def init_dense(d_in: int, d_out: int, generator: Optional[torch.Generator],
                device: Optional[torch.device] = None) -> torch.Tensor:
     return truncated_normal_init((d_in, d_out), generator, device=device)
 

@@ -26,7 +26,7 @@ exact zeros, which add the same in any order.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +37,7 @@ from repro_torch.models import layers as L
 __all__ = ["Routing", "init_moe", "load_balance_loss", "moe_capacity", "moe_ffn", "route"]
 
 
-def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, *,
+def init_moe(gen: Optional[torch.Generator], d_model: int, d_ff: int, n_experts: int, *,
              shared_d_ff: int = 0, device=None) -> Dict[str, Any]:
     """The JAX package's ``MoEParams`` as a dict; without a shared expert
     (``shared_d_ff == 0``, as grok-1) its four fields are ``None``."""

@@ -43,9 +43,10 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_mamba1(gen: torch.Generator, d_model: int, d_inner: int, n_state: int,
+def init_mamba1(gen: Optional[torch.Generator], d_model: int, d_inner: int, n_state: int,
                 dt_rank: int, conv_w: int = 4, *, device=None) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``Mamba1Params`` as a dict, from ``gen``."""
+    """The JAX package's ``Mamba1Params`` as a dict, from ``gen`` (None:
+    shapes only, on ``meta``)."""
     return {
         "in_proj": L.init_dense(d_model, 2 * d_inner, gen, device),
         "conv_w": 0.1 * torch.randn((conv_w, d_inner), generator=gen, device=device),
@@ -149,9 +150,10 @@ def mamba1_decode_step(x: torch.Tensor, p: Dict[str, Any], state, *, cfg: Approx
 # ---------------------------------------------------------------------------
 
 
-def init_mamba2(gen: torch.Generator, d_model: int, d_inner: int, n_state: int,
+def init_mamba2(gen: Optional[torch.Generator], d_model: int, d_inner: int, n_state: int,
                 n_heads: int, conv_w: int = 4, *, device=None) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``Mamba2Params`` as a dict, from ``gen``."""
+    """The JAX package's ``Mamba2Params`` as a dict, from ``gen`` (None:
+    shapes only, on ``meta``)."""
     conv_dim = d_inner + 2 * n_state
     return {
         "in_proj": L.init_dense(d_model, 2 * d_inner + 2 * n_state + n_heads, gen, device),

@@ -90,10 +90,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     families build and freeze one layer at a time, so no more than one
     layer's float32 weights are ever held (qwen2-moe-a2.7b's are 57 GB);
     the dense family draws each weight's stack whole, as before.  A model
-    without token inputs (vlm, audio) has no ``embed``."""
+    without token inputs (vlm, audio) has no ``embed``.
+
+    On ``device="meta"`` the tree has every shape and dtype and holds no
+    data: no generator, no draw (``launch/specs.py``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     freeze = freeze and cfg.approx.is_quantized
     if cfg.family == "dense":
         params = _init_dense(cfg, gen, dev)

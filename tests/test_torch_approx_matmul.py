@@ -152,11 +152,17 @@ def test_wrapper_on_cpu_takes_plain_and_counts_no_launch():
 
 def test_wrapper_raises_off_cpu_and_off_cuda():
     """A tensor that is neither on the CPU nor on a CUDA device must not be
-    quietly computed by the plain version."""
+    quietly computed by the plain version: two ``meta`` operands get an
+    empty result of the output's shape (shape inference, no launch), a
+    ``meta`` operand beside a CPU one raises."""
     a = torch.zeros((2, 8), dtype=torch.uint8, device="meta")
     b = torch.zeros((8, 3), dtype=torch.uint8, device="meta")
+    n0 = approx_matmul.launches
+    out = approx_matmul(a, b)
+    assert (out.shape, out.dtype, out.device.type) == ((2, 3), torch.int32, "meta")
+    assert approx_matmul.launches == n0
     with pytest.raises(ValueError, match="CUDA"):
-        approx_matmul(a, b)
+        approx_matmul(a, torch.zeros((8, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="contraction"):
         approx_matmul(torch.zeros((2, 8), dtype=torch.uint8),
                       torch.zeros((7, 3), dtype=torch.uint8))

@@ -160,9 +160,15 @@ def test_wrapper_validates_like_jax():
         paged_attention(q, kn, vn, kp, vp, tbl[:1], cur, block_size=4)
     with pytest.raises(ValueError, match="incompatible"):
         paged_attention(q[:, :3], kn, vn, kp, vp, tbl, cur, block_size=4)
+    # all on meta: shape inference (an empty output, no launch); a meta
+    # operand beside CPU ones is not quietly computed by the plain version
     meta = [t.to("meta") for t in (q, kn, vn, kp, vp, tbl, cur)]
+    n0 = paged_attention.launches
+    out = paged_attention(*meta, block_size=4)
+    assert (out.shape, out.dtype, out.device.type) == (q.shape, q.dtype, "meta")
+    assert paged_attention.launches == n0
     with pytest.raises(ValueError, match="CUDA"):
-        paged_attention(*meta, block_size=4)
+        paged_attention(meta[0], kn, vn, kp, vp, tbl, cur, block_size=4)
 
 
 def test_kernel_shape_limits_raise_named_error():
