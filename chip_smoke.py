@@ -300,14 +300,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
            tokens for training, over the bf16 peak).  The dry run of every
            cell on meta needs no card: ``tests/test_torch_dryrun_cells.py``
            and ``python -m repro_torch.launch.dryrun --all`` run it.
+17. tp     tensor-parallel serving (``ServeSession(mesh=TPMesh(...))``) of
+           granite-3-2b at full width, each rank a process on the one card
+           over gloo with CUDA tensors (one card cannot host two NCCL
+           ranks; the multi-card NCCL path of ``launch/serve.py --tp`` is
+           not run here), the weights built from the seed in the unit (the
+           tp=1 references') and handed to the ranks through a file, each
+           rank keeping its part: (a) K1 bit-equal to its plain
+           version at every per-rank (K, N) of tp=2 and tp=4 (M = 4 and
+           512), and K2 within K2_TOL at each rank's heads (16 over 4 and 8
+           over 2, hd 64), both pool dtypes, with and without holes; (b)
+           phase 4's trace at 40 layers, tp=2, through the gather: every
+           rank's tokens identical to a tp=1 gather session's; (c) the
+           same through K2: identical to phase 4's tokens, or parted at a
+           near tie (K2 splits a rank's table walk by its own head count:
+           ``split_plan``) within NEAR_TIE in ``forward``, the gap printed;
+           (d) tp=4 at 4 layers through K2 against tp=1 at 4 layers, the
+           same rule; (e) every rank: the same tokens and ticks as tp=1,
+           K1's launches (zeroed just before) ``k1_per_pass`` (281) per
+           decode tick and per admission, K2's one per layer per tick (40),
+           its pool bytes 1/tp of tp=1's, ``stats.tp`` and ``devices``.
+           Printed: host ms per tick at tp against tp=1 (both under the
+           pool's load), collectives per tick and their host ms, the
+           unit's seconds.
 
 Phases 1-7 run in this process, one after another, and so do the parts
 whose times go into the kernels line: phase 8's K1 at the CNN shapes,
 phase 10's stall probe (its gates are host times) and phase 13's K2 at the
 moe shape, and phase 16 (its serving steps after phase 5, its training
-step inside phase 7).  The rest of phases 8-15 then runs as units (phase
+step inside phase 7).  The rest of phases 8-15 and phase 17 then run as units (phase
 8; 9; 10; 11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14
-and 15) in up to POOL_WORKERS processes on the one card at once, as many
+and 15; 17, whose ranks are processes of their own) in up to POOL_WORKERS processes on the one card at once, as many
 as the units' memory peaks allow (POOL_GB), each unit in a fresh process:
 serving is host-bound, and processes sharing the card each serve at the speed of one
 alone (``scripts/shared_card_probe.py``), so the phases' seconds add up to
@@ -411,6 +434,8 @@ TRAIN_STEPS_FAMILY = 2               # phases 14 and 15's steps through K1
 TRAIN_DEPTHS = {                     # phases 14 and 15: each model's trained depth (PERF.md 4)
     "qwen2-moe-a2.7b": 4, "falcon-mamba-7b": 16, "zamba2-2.7b": 54,
     "qwen2-vl-2b": 28, "musicgen-large": 24}
+TP_DEGREES = (2, 4)                  # phase 17's tensor-parallel ranks
+TP4_LAYERS = 4                       # phase 17's tp=4 depth
 
 
 _UNIT_LOG = None                     # a pool worker's log lines, printed when its unit ends
@@ -3341,6 +3366,247 @@ def roofline_serve(cfg, params, trace, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: tensor-parallel serving (two or four ranks on the one card)
+# ---------------------------------------------------------------------------
+
+
+def tp_kernel_checks(cfg, dev, gen, rng):
+    """(a) K1 bit-equal to its plain version at every per-rank (K, N) of
+    tp=2 and tp=4, at a decode step's M and a full admission's; K2 within
+    K2_TOL of its plain version on each rank's heads, both pool dtypes,
+    with and without holes."""
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+
+    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
+    hkv, ff, vp = cfg.num_kv_heads * cfg.head_dim, cfg.d_ff, cfg.padded_vocab
+    k1, k2 = [], []
+    for tp in TP_DEGREES:
+        for K, N in sorted({(d, hq // tp), (d, hkv // tp), (hq // tp, d), (d, ff // tp),
+                            (ff // tp, d), (d, vp // tp)}):
+            for M in (NUM_SLOTS, NUM_SLOTS * BUCKETS[-1]):
+                a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
+                b = torch.randint(0, 256, (K, N), generator=gen, device=dev, dtype=torch.uint8)
+                out = approx_matmul(a, b, multiplier=cfg.approx.multiplier)
+                ref = approx_matmul_plain(a, b, multiplier=cfg.approx.multiplier)
+                if out.dtype != torch.int32 or not torch.equal(out, ref):
+                    raise AssertionError(f"K1 tp={tp} M={M} K={K} N={N}: "
+                                         f"{int((out != ref).sum())} outputs differ")
+                k1.append({"tp": tp, "M": M, "K": K, "N": N, "max_abs_err": 0})
+        n_kv, g = cfg.num_kv_heads // tp, cfg.num_heads // cfg.num_kv_heads
+        for pool, dt in K2_POOLS.items():
+            for holes in (False, True):
+                args = paged_case(rng, dev, NUM_SLOTS, MAX_LEN // BLOCK_SIZE, BLOCK_SIZE, n_kv,
+                                  g, cfg.head_dim, holes=holes, pool_dtype=dt)
+                err, err16 = k2_check(f"tp={tp} {pool} holes={holes}", args, BLOCK_SIZE)
+                k2.append({"tp": tp, "heads": [n_kv * g, n_kv], "pool": pool, "holes": holes,
+                           "max_abs_err": err, "max_abs_err_bf16_q": err16})
+    log(f"[tp] (a) K1 bit-equal at {len(k1)} per-rank shapes "
+        f"{sorted({(r['K'], r['N']) for r in k1})}; K2 within {K2_TOL} on "
+        + json.dumps([(r["tp"], r["heads"], r["pool"], r["holes"], r["max_abs_err"])
+                      for r in k2]))
+    return k1, k2
+
+
+def tp_rank(rank, world, store_path, job):
+    """One rank of a tensor-parallel world on cuda:0 over gloo: load the
+    unit's frozen weights (``job["weights"]``, the tp=1 references' own,
+    from the seed), keep this rank's part, then serve the trace once per
+    attention path with K1's, K2's and the collectives' counts zeroed just
+    before.  Returns each run's tokens, schedule, counts and times."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.parallel.tp import COUNTS, shard_params
+    from repro_torch.serve import pool_bytes_per_device
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        build_all()                              # loads the libraries phase 1 built
+    mesh = TPMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
+                  backend="gloo", device=dev)
+    try:
+        cfg = dataclasses.replace(serving_configs()[0], num_layers=job["layers"])
+        t0 = time.perf_counter()
+        whole = torch.load(job["weights"], map_location="cpu", mmap=True, weights_only=False)
+        params = shard_params(whole, cfg, mesh)    # the parts reach the card in the session
+        del whole
+        out = {"load_s": time.perf_counter() - t0, "runs": {}}
+        serve(cfg, params, job["trace"][:1], dev, "kernel", job["seed"], mesh=mesh)  # warm-up
+        for attn in job["attn"]:
+            approx_matmul.launches = paged_attention.launches = 0
+            calls, host_s = COUNTS["calls"], COUNTS["host_s"]
+            sess, res, wall = serve(cfg, params, job["trace"], dev, attn, job["seed"],
+                                    mesh=mesh)
+            st = sess.stats
+            out["runs"][attn] = {
+                "tokens": {rid: r.tokens.tolist() for rid, r in res.items()},
+                "admitted": {rid: r.admitted_tick for rid, r in res.items()},
+                "ticks": st.ticks, "admit_calls": st.admit_calls, "wall_s": wall,
+                "launches": {"approx_matmul": approx_matmul.launches,
+                             "paged_attention": paged_attention.launches},
+                "collectives": COUNTS["calls"] - calls,
+                "collective_host_s": COUNTS["host_s"] - host_s,
+                "pool_bytes": pool_bytes_per_device(sess.cache),
+                "peak_block_bytes_per_device": st.peak_block_bytes_per_device,
+                "tp": st.tp, "devices": st.devices}
+            del sess
+        out["peak_reserved_gb"] = (torch.cuda.max_memory_reserved() / 1e9
+                                   if dev.type == "cuda" else 0.0)
+        return out
+    finally:
+        mesh.close()
+
+
+def tie_or_equal(name, cfg, params, trace, got, want):
+    """Each request's tokens equal, or equal up to a first divergence where
+    the two tokens' logits in ``forward`` over the prompt and the agreed
+    tokens lie within NEAR_TIE (the repo's near-tie rule); the gaps."""
+    from repro_torch.models.transformer import forward
+
+    gaps = {}
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        seq = np.concatenate([trace[rid][0], np.asarray(w[:j], dtype=np.int64)])
+        with torch.no_grad():
+            logits = forward(cfg, params, torch.as_tensor(seq[None], device=params[
+                "final_norm"].device))[0, -1]
+        gap = (logits[w[j]] - logits[g[j]]).item()
+        gaps[rid] = {"new_token_index": j, "tokens": [g[j], w[j]], "logit_gap": gap}
+        log(f"[tp] {name} request {rid}: parts at new token {j} ({g[j]} vs {w[j]}), "
+            f"logit gap {gap:.4g}")
+        if abs(gap) > NEAR_TIE:
+            raise AssertionError(f"{name} request {rid}: {g} vs {w}; the first divergence "
+                                 f"is no near tie (logit gap {gap})")
+    return gaps
+
+
+def tp_gates(name, cfg, runs, attn, tp, tp1_pool_bytes):
+    """(e) Every rank served the same tokens; per rank and decode tick
+    ``k1_per_pass`` K1 launches (plus one pass per admission) and, through
+    K2, one K2 launch per layer; each rank's pool is 1/tp of tp=1's."""
+    first = runs[0]["runs"][attn]
+    for rank, r in enumerate(runs):
+        run = r["runs"][attn]
+        if run["tokens"] != first["tokens"] or run["ticks"] != first["ticks"]:
+            raise AssertionError(f"{name}: rank {rank} served other tokens than rank 0")
+        n = run["launches"]
+        k1 = k1_per_pass(cfg) * (run["ticks"] + run["admit_calls"])
+        k2 = cfg.num_layers * run["ticks"] if attn == "kernel" else 0
+        if (n["approx_matmul"], n["paged_attention"]) != (k1, k2):
+            raise AssertionError(f"{name} rank {rank}: launches {n}, want K1 {k1} "
+                                 f"({k1_per_pass(cfg)} per pass) and K2 {k2}")
+        if run["pool_bytes"] * tp != tp1_pool_bytes or (run["tp"], run["devices"]) != (tp, tp):
+            raise AssertionError(f"{name} rank {rank}: pool {run['pool_bytes']} B x {tp} != "
+                                 f"{tp1_pool_bytes} B, stats tp/devices "
+                                 f"{run['tp']}/{run['devices']}")
+    return first
+
+
+def tp_phase(dev, seed, trace, paged_tokens, smi, weights):
+    """Phase 17 (see the module text).  ``weights``: phase 4's frozen
+    weights, saved by the main process (building them takes 20 GB a
+    process)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import init_params, params_to
+    from repro_torch.serve import freeze_params, pool_bytes_per_device
+
+    t_unit = time.perf_counter()
+    cfg = serving_configs()[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k1, k2 = tp_kernel_checks(cfg, dev, gen, np.random.default_rng(seed))
+
+    # the tp=1 sessions: phase 4's weights through the gather and through
+    # K2 (phase 4's session, here for its tick time under this run's load),
+    # and tp=4's depth, seeded, through K2; the ranks load the same weights
+    cfg4 = dataclasses.replace(cfg, num_layers=TP4_LAYERS)
+    ref = {}
+    tmp = tempfile.TemporaryDirectory(prefix="tp_")
+    files = {cfg.num_layers: weights, TP4_LAYERS: os.path.join(tmp.name, "weights4.pt")}
+    for c in (cfg, cfg4):
+        if c is cfg:
+            p = torch.load(weights, map_location=dev, weights_only=False)
+        else:
+            p = freeze_params(c, init_params(c, seed=seed, device=dev))
+            torch.save(params_to(p, "cpu"), files[c.num_layers])
+        serve(c, p, trace[:1], dev, "kernel", seed)                    # warm-up
+        for attn in (("gather", "kernel") if c is cfg else ("kernel",)):
+            sess, res, wall = serve(c, p, trace, dev, attn, seed)
+            ref[(c.num_layers, attn)] = {
+                "tokens": {rid: r.tokens.tolist() for rid, r in res.items()},
+                "ticks": sess.stats.ticks, "wall_s": wall,
+                "pool_bytes": pool_bytes_per_device(sess.cache)}
+            del sess
+        ref[c.num_layers] = p
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_tokens("tp=1 K2 session vs phase 4", [ref[(cfg.num_layers, "kernel")]["tokens"][r]
+                                               for r in sorted(paged_tokens)],
+                [paged_tokens[r] for r in sorted(paged_tokens)])
+    log("[tp] one card, gloo over CUDA tensors: the multi-card NCCL path (launch/serve.py "
+        "--tp N on N cards) is unchecked here")
+
+    worlds = {}
+    with tmp:
+        for tp, layers, attn in ((2, cfg.num_layers, ("gather", "kernel")),
+                                 (4, TP4_LAYERS, ("kernel",))):
+            t0 = time.perf_counter()
+            job = {"layers": layers, "seed": seed, "trace": trace, "attn": attn,
+                   "device": str(dev), "weights": files[layers]}
+            worlds[tp] = run_ranks(tp_rank, tp, (os.path.join(tmp.name, f"store{tp}"), job),
+                                   timeout=900)
+            log(f"[tp] tp={tp} world ({tp} ranks, {layers} layers): "
+                f"{time.perf_counter() - t0:.1f}s, ranks loaded and cut the weights in "
+                + ", ".join(f"{r['load_s']:.1f}s" for r in worlds[tp])
+                + ", peak reserved " + ", ".join(f"{r['peak_reserved_gb']:.2f} GB"
+                                                 for r in worlds[tp]))
+
+    report = {"k1_checked": len(k1), "k2": k2, "near_ties": {}, "runs": {}, "launches": {}}
+    for tp, layers, attn, against in ((2, cfg.num_layers, "gather", None),
+                                      (2, cfg.num_layers, "kernel", paged_tokens),
+                                      (4, TP4_LAYERS, "kernel", None)):
+        c = cfg if layers == cfg.num_layers else cfg4
+        name = f"tp={tp} {layers} layers {attn}"
+        one = ref[(layers, attn)]
+        run = tp_gates(name, c, worlds[tp], attn, tp, one["pool_bytes"])
+        want = {rid: list(t) for rid, t in (against or one["tokens"]).items()}
+        if attn == "gather":                                         # (b) identical
+            same_tokens(name, [run["tokens"][r] for r in sorted(want)],
+                        [want[r] for r in sorted(want)])
+        else:                                                        # (c), (d)
+            report["near_ties"][name] = tie_or_equal(name, c, ref[layers], trace,
+                                                     run["tokens"], want)
+        if run["ticks"] != one["ticks"]:
+            raise AssertionError(f"{name}: {run['ticks']} ticks, tp=1 {one['ticks']}")
+        row = {"tp": tp, "layers": layers, "attn": attn, "ticks": run["ticks"],
+               "identical_tokens": run["tokens"] == want,
+               "host_ms_per_tick": 1e3 * run["wall_s"] / run["ticks"],
+               "tp1_host_ms_per_tick": 1e3 * one["wall_s"] / one["ticks"],
+               "collectives_per_tick": run["collectives"] / run["ticks"],
+               "collective_host_ms_per_tick": 1e3 * run["collective_host_s"] / run["ticks"],
+               "launches_per_rank": run["launches"], "pool_bytes_per_rank": run["pool_bytes"],
+               "tp1_pool_bytes": one["pool_bytes"],
+               "k1_per_decode_tick": k1_per_pass(c), "k2_per_decode_tick":
+               c.num_layers if attn == "kernel" else 0}
+        report["runs"][name] = row
+        report["launches"][f"tp{tp}_{attn}"] = {
+            k: sum(r["runs"][attn]["launches"][k] for r in worlds[tp])
+            for k in ("approx_matmul", "paged_attention")}
+        log(f"[tp] {name}: {json.dumps(row)}")
+    report["seconds"] = time.perf_counter() - t_unit
+    log(f"[tp] phase 17 took {report['seconds']:.1f}s (gloo on one card, {smi})")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phases 8-15's units, run by a pool of processes on the one card
 # ---------------------------------------------------------------------------
 
@@ -3418,6 +3684,8 @@ UNITS = {
     BACKBONE_ARCHS[1]: (37, _backbone_unit(BACKBONE_ARCHS[1])),
     FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
     FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
+    "tp": (10, lambda dev, sh: tp_phase(dev, sh["seed"], sh["trace"], sh["paged_tokens"],
+                                        sh["smi"], sh["tp_weights"])),
 }
 POOL_GB = 72                         # the units' peaks at once: the card's 85 GB less headroom
 
@@ -3526,7 +3794,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.approx_matmul import approx_matmul
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.models.transformer import forward, init_params, params_to
     from repro_torch.serve import freeze_params
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32/f64
@@ -3645,6 +3913,12 @@ def main(argv=None) -> int:
     # -- 6. K3 ---------------------------------------------------------------
     report["k3"] = k3_phase(dev, gen)
 
+    # phase 17 loads these weights from a file (its tp=1 references and
+    # ranks), where building them would take 20 GB of the card a process
+    weights_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tp_weights = os.path.join(weights_dir.name, "granite_frozen.pt")
+    torch.save(params_to(params, "cpu"), tp_weights)
+
     # -- 7. train ------------------------------------------------------------
     # free the serving weights, sessions and pools first: full-width f32
     # params, grads and Adam moments take about 42 GB of the card's 80
@@ -3662,8 +3936,9 @@ def main(argv=None) -> int:
     t_pool = time.perf_counter()
     shared = {"seed": args.seed, "trace": trace, "paged_tokens": paged_tokens,
               "phase4": phase4, "smi": smi, "profile_paged": report.get("profile"),
-              "profile": args.profile}
+              "profile": args.profile, "tp_weights": tp_weights}
     units = run_units(shared)
+    weights_dir.cleanup()
     unit = {name: out for name, (out, _) in units.items()}
     report["pool"] = {"workers": POOL_WORKERS, "wall_s": time.perf_counter() - t_pool,
                       "units": {name: meta for name, (_, meta) in units.items()}}
@@ -3729,6 +4004,12 @@ def main(argv=None) -> int:
         + json.dumps({k: v for k, v in paths.items() if k.startswith("train_")
                       or k in ("vlm", "audio")}))
 
+    # -- 17. tensor-parallel serving ----------------------------------------
+    tp = report["tp"] = unit["tp"]
+    paths.update(tp["launches"])
+    log(f"[tp] phase 17 took {tp['seconds']:.1f}s; launches by path "
+        f"{json.dumps(tp['launches'])}")
+
     # -- 16. roofline ---------------------------------------------------------
     roof = report["roofline"]
     roof["granite"]["train"] = train["roofline"]
@@ -3785,9 +4066,11 @@ def main(argv=None) -> int:
                               "async": asy["launches"]["paged_attention"],
                               **{path: n["paged_attention"] for path, n in paths.items()}},
          "max_abs_err": max(k2_err, moe_k2["max_abs_err"],
-                            *(b["k2_check"]["max_abs_err"] for b in bb.values())),
+                            *(b["k2_check"]["max_abs_err"] for b in bb.values()),
+                            *(r["max_abs_err"] for r in tp["k2"])),
          "max_abs_err_bf16_q": max(k2_err16, moe_k2["max_abs_err_bf16_q"],
-                                   *(b["k2_check"]["max_abs_err_bf16_q"] for b in bb.values())),
+                                   *(b["k2_check"]["max_abs_err_bf16_q"] for b in bb.values()),
+                                   *(r["max_abs_err_bf16_q"] for r in tp["k2"])),
          "max_abs_err_served_bf16_q": max(b["decode"]["k2_max_abs_err"] for b in bb.values()),
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],

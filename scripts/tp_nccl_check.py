@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""Tensor-parallel serving over NCCL across the host's cards: whether
+``launch/serve.py --tp N`` (rank r on ``cuda:r``) serves the tokens of
+``--tp 0`` on one card, at full width, and refuses more ranks than cards.
+
+    python3 scripts/tp_nccl_check.py [--requests 8] [--new 16]
+
+Runs the launcher (``--exec approx --freeze-weights --loop sync``, the
+seeded weights and trace) at ``--tp 0``, ``--tp 2`` and ``--tp`` = every
+card, prints each run's output and wall seconds, compares the ``sample:``
+lines (the first request's prompt and tokens) and exits 1 unless they are
+equal; then ``--tp`` one past the cards must exit non-zero.  Needs at
+least two cards (``chip_smoke.py`` checks TP on one card over gloo only).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def launch(args, *extra):
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--exec", "approx",
+           "--freeze-weights", "--loop", "sync", "--requests", str(args.requests),
+           "--new", str(args.new), "--prompt-len", "64", *extra]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    print(f"=== {' '.join(extra)}: exit {r.returncode}, {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    print(r.stdout[-3000:] + (r.stderr[-4000:] if r.returncode else ""), flush=True)
+    return r
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--new", type=int, default=16)
+    args = ap.parse_args()
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"tp_nccl_check: {n} CUDA device(s); this check needs two or more",
+              file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout,
+          flush=True)
+    runs = {tp: launch(args, "--tp", str(tp)) for tp in sorted({0, 2, n})}
+    sample = {tp: next((ln for ln in r.stdout.splitlines() if ln.startswith("sample:")), None)
+              for tp, r in runs.items()}
+    same = {tp: s is not None and s == sample[0] for tp, s in sample.items()}
+    print("same tokens as --tp 0:", same, flush=True)
+    over = launch(args, "--tp", str(n + 1))
+    refused = over.returncode != 0 and "visible CUDA devices" in over.stderr
+    print("--tp past the cards refused:", refused, flush=True)
+    return 0 if all(same.values()) and refused else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

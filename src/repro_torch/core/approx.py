@@ -19,6 +19,13 @@ through a straight-through estimator (STE), written as ``.detach()``
 algebra as the JAX package writes it with ``stop_gradient``.  The integer
 matmul takes codes and records no graph, so no ``autograd.Function`` is
 needed.
+
+Under tensor parallelism (``serve.ServeSession(mesh=...)``) a weight
+arrives as a ``Shard``: this rank's part of it.  A column split needs no
+collective; a row split sums the ranks' int32 code dots and code row sums
+before any cast to float, so in the integer modes its result equals the
+unsharded call's bit for bit, and calibrates the activation (and a float
+weight) over the ranks' parts (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
@@ -32,12 +39,14 @@ import torch
 from repro_torch.core import multipliers as mul
 from repro_torch.kernels.approx_matmul.ops import approx_matmul
 from repro_torch.kernels.approx_matmul.ref import approx_matmul_lut, approx_matmul_plain
+from repro_torch.parallel.collectives import all_reduce_sum, max_range
 from repro_torch.quant.affine import calibrate, dequantize, quantize
 
 __all__ = [
     "ApproxConfig",
     "Modes",
     "QWeight",
+    "Shard",
     "approx_dense",
     "concat_weights",
     "prequantize_tree",
@@ -129,8 +138,24 @@ _PREQUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                   "in_proj", "x_proj", "dt_proj", "out_proj", "lm_head")
 
 
+class Shard(NamedTuple):
+    """A weight's part on one rank of a tensor-parallel mesh
+    (``parallel/tp.shard_params``).  ``split`` is ``"column"`` (the rank's
+    output columns; a frozen weight's per-channel fields sliced with its
+    codes), ``"row"`` (its input rows: the products are summed over the
+    ranks, and a frozen weight's fields stay whole, since they describe
+    whole columns) or ``"vocab"`` (an embedding table's rows)."""
+
+    w: Any                     # a tensor or a QWeight
+    split: str
+    mesh: Any                  # launch.mesh.TPMesh
+
+
 def w_dim(w, i: int) -> int:
-    """Shape accessor that works for float weights and frozen QWeights."""
+    """Shape accessor that works for float weights, frozen QWeights and
+    their shards (the rank's own size)."""
+    if isinstance(w, Shard):
+        w = w.w
     return (w.codes if isinstance(w, QWeight) else w).shape[i]
 
 
@@ -185,22 +210,52 @@ def prequantize_tree(params: Dict[str, Any], cfg: ApproxConfig) -> Dict[str, Any
 # ---------------------------------------------------------------------------
 
 
-def _act_codes(x2: torch.Tensor, cfg: ApproxConfig):
-    qp_x = calibrate(x2, axis=(1,) if cfg.act_per_row else None, qmax=cfg.act_qmax)
+def _sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s ranks (a row split's partial products);
+    ``t`` itself without one."""
+    return t if mesh is None else all_reduce_sum(t, mesh)
+
+
+def _ranged(mesh):
+    """The ``calibrate`` hook that widens a part's range to the ranks'."""
+    return None if mesh is None else (lambda lo, hi: max_range(lo, hi, mesh))
+
+
+def _code_sum(q: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """float32 sums of uint8 codes along ``dim`` (kept), over ``mesh``'s
+    ranks too: summed as int32 first, so the sum of the parts is exact."""
+    return _sum(q.to(torch.int32).sum(dim=dim, keepdim=True), mesh).to(torch.float32)
+
+
+def _code_dot(qx: torch.Tensor, codes: torch.Tensor, cfg: ApproxConfig, mesh):
+    """(raw, row_x), float32: the integer code dot and the activation
+    codes' row sums, over ``mesh``'s ranks in one int32 all-reduce (the row
+    sums ride as one more column), so both are exact before the cast."""
+    raw = quantized_matmul(qx, codes, cfg)
+    row_x = qx.to(torch.int32).sum(dim=-1, keepdim=True)
+    if mesh is None:
+        return raw.to(torch.float32), row_x.to(torch.float32)
+    both = all_reduce_sum(torch.cat([raw, row_x], dim=-1), mesh).to(torch.float32)
+    return both[..., :-1], both[..., -1:]
+
+
+def _act_codes(x2: torch.Tensor, cfg: ApproxConfig, mesh=None):
+    qp_x = calibrate(x2, axis=(1,) if cfg.act_per_row else None, qmax=cfg.act_qmax,
+                     reduce=_ranged(mesh))
     return qp_x, quantize(x2, qp_x)
 
 
-def _zero_point_correct(raw, qx, zx, zw, col_w, K):
-    """sum_k (qx - zx)(qw - zw) from the raw code dot, in the JAX package's
-    f32 operation order."""
-    row_x = qx.to(torch.float32).sum(dim=-1, keepdim=True)
+def _zero_point_correct(raw, row_x, zx, zw, col_w, K):
+    """sum_k (qx - zx)(qw - zw) from the raw code dot and the codes' row
+    sums ``row_x``, in the JAX package's f32 operation order."""
     return raw - zx * col_w - row_x * zw + (K * zx) * zw
 
 
 def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     """y = x @ w computed through the approximate-multiplier pipeline.
 
-    x: (..., K) float; w: (K, N) float or a frozen ``QWeight``.  Quantizes
+    x: (..., K) float; w: (K, N) float or a frozen ``QWeight``, or a
+    ``Shard`` of either.  Quantizes
     both operands to unsigned codes (dynamic activation scale, per-channel
     weight scales), runs the configured integer multiplier, applies the
     zero-point corrections and dequantizes.
@@ -213,15 +268,28 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     roundoff) and its gradient is that of ``y_lin``, the product of the
     bf16-rounded fake-quantized operands.  The cotangents pass back through
     the bf16 casts, so the weight gradient is bf16-rounded as in JAX.  A
-    QWeight (serving) returns ``x.dtype`` and records no graph."""
+    QWeight (serving) returns ``x.dtype`` and records no graph.
+
+    On a row ``Shard`` ``x`` holds the rank's columns of the activation
+    (its K-part): the ranges, the code dots and the code sums span the
+    ranks, and float partial products (float mode, ``y_lin``) are summed
+    in float32, which agrees with the unsharded call to roundoff."""
+    split = mesh = None
+    if isinstance(w, Shard):
+        w, split, mesh = w
+    rows = mesh if split == "row" else None
     if isinstance(w, QWeight):
-        return _approx_dense_frozen(x, w, cfg)
+        return _approx_dense_frozen(x, w, cfg, rows)
     if cfg.mode == "float":
-        return (x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)).to(x.dtype)
+        return _sum(x.to(torch.float32) @ w.to(x.dtype).to(torch.float32), rows).to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     xd, wd = x2.detach(), w.detach()
-    qp_x, qx = _act_codes(xd, cfg)
-    qp_w = calibrate(wd, axis=(0,) if cfg.w_per_channel else None, qmax=cfg.w_qmax)
+    qp_x, qx = _act_codes(xd, cfg, rows)
+    # a column split's per-channel ranges are the rank's own; every other
+    # weight range spans the ranks' parts
+    w_ranks = None if split is None or (split == "column" and cfg.w_per_channel) else mesh
+    qp_w = calibrate(wd, axis=(0,) if cfg.w_per_channel else None, qmax=cfg.w_qmax,
+                     reduce=_ranged(w_ranks))
     qw = quantize(wd, qp_w)
 
     # differentiable STE path: an f32 product of bf16-exact operands equals
@@ -229,26 +297,29 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     x_fq = x2 + (dequantize(qx, qp_x).to(x2.dtype) - x2).detach()
     w_fq = w + (dequantize(qw, qp_w).to(w.dtype) - w).detach()
     bf = torch.bfloat16
-    y_lin = x_fq.to(bf).to(torch.float32) @ w_fq.to(bf).to(torch.float32)
+    y_lin = _sum(x_fq.to(bf).to(torch.float32) @ w_fq.to(bf).to(torch.float32), rows)
 
     # integer simulation (value path, gradient-free)
-    raw = quantized_matmul(qx, qw, cfg).to(torch.float32)
-    col_w = qw.to(torch.float32).sum(dim=0, keepdim=True)
-    acc = _zero_point_correct(raw, qx, qp_x.zero_point.to(torch.float32),
-                              qp_w.zero_point.to(torch.float32), col_w, x2.shape[-1])
+    raw, row_x = _code_dot(qx, qw, cfg, rows)
+    K = x2.shape[-1] * (rows.size if rows is not None else 1)
+    acc = _zero_point_correct(raw, row_x, qp_x.zero_point.to(torch.float32),
+                              qp_w.zero_point.to(torch.float32), _code_sum(qw, 0, rows), K)
     y_int = acc * (qp_x.scale * qp_w.scale)
 
     y = y_lin + (y_int - y_lin).detach()
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _approx_dense_frozen(x: torch.Tensor, w: QWeight, cfg: ApproxConfig) -> torch.Tensor:
+def _approx_dense_frozen(x: torch.Tensor, w: QWeight, cfg: ApproxConfig,
+                         rows=None) -> torch.Tensor:
     """Inference dense against frozen uint8 weight codes (no calibration of
-    w) — the serving path."""
+    w) — the serving path.  ``rows``: the mesh whose ranks each hold a
+    K-part of ``x`` and ``w.codes`` (a row split)."""
     x2 = x.reshape(-1, x.shape[-1])
-    qp_x, qx = _act_codes(x2, cfg)
-    raw = quantized_matmul(qx, w.codes, cfg).to(torch.float32)
-    acc = _zero_point_correct(raw, qx, qp_x.zero_point.to(torch.float32),
-                              w.zero_point.to(torch.float32), w.col_sum, x2.shape[-1])
+    qp_x, qx = _act_codes(x2, cfg, rows)
+    raw, row_x = _code_dot(qx, w.codes, cfg, rows)
+    K = x2.shape[-1] * (rows.size if rows is not None else 1)
+    acc = _zero_point_correct(raw, row_x, qp_x.zero_point.to(torch.float32),
+                              w.zero_point.to(torch.float32), w.col_sum, K)
     y = acc * (qp_x.scale * w.scale)
     return y.reshape(*x.shape[:-1], w.codes.shape[-1]).to(x.dtype)

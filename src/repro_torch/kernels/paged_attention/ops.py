@@ -31,7 +31,7 @@ from repro_torch.kernels._build import KernelLaunchError, library
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 from repro_torch.kernels.work import k2_valid_positions, k2_work, reported
 
-__all__ = ["paged_attention", "PagedAttentionShapeError"]
+__all__ = ["paged_attention", "PagedAttentionShapeError", "validate_tp_heads"]
 
 _MAX_HEAD_DIM = 128        # q, acc and one head's rows stay small in shared memory
 _MAX_GROUP = 32            # one warp keeps the group's softmax stats, lane = head
@@ -45,6 +45,30 @@ _COUNTERS = {}             # (device, stream) -> int32 ticket counters, 0 betwee
 
 class PagedAttentionShapeError(ValueError):
     """A shape or dtype the CUDA kernel does not take."""
+
+
+def validate_tp_heads(num_heads: int, num_kv_heads: int, tp: int) -> None:
+    """Reject head counts that cannot shard over a ``tp``-way model axis.
+
+    Under tensor parallelism each rank launches the kernel on its own
+    heads of q/k/v and its own KV-head shard of the pool, so each rank
+    must hold an integral number of query AND KV heads; otherwise the
+    per-rank ``H % n_kv`` group structure (each KV head serving ``H //
+    n_kv`` query heads) would differ across ranks.  The messages are the
+    JAX package's."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if num_heads % tp or num_kv_heads % tp:
+        raise ValueError(
+            f"pallas paged attention under tp={tp} needs per-shard integral "
+            f"head counts: num_heads={num_heads}, num_kv_heads={num_kv_heads} "
+            f"must both divide by tp"
+        )
+    if (num_heads // tp) % (num_kv_heads // tp):
+        raise ValueError(
+            f"per-shard group structure broken: {num_heads // tp} query heads "
+            f"not a multiple of {num_kv_heads // tp} KV heads per shard"
+        )
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,8 +22,14 @@ slot layout only (``--cache-layout slots``; the paged default refuses
 them, as the JAX session does) and prefill by teacher-forcing the prompt
 through the decode step.
 
-The JAX package's launcher less ``--tp``, which arrives with a later slice of
-the port.
+``--tp N`` serves tensor parallel (the continuous engine on the paged
+layout, dense family): N rank processes, rank r on ``cuda:r`` over NCCL
+(``--device cpu``: on the CPU over gloo), each with the same weights and
+trace; rank 0 prints.  It refuses more ranks than visible cards.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --exec approx
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --tp 2
+
 On the paged layout ``--prefix-sharing`` shares resident prompt blocks
 (copy-on-write), ``--preemption`` oversubscribes the pool and evicts and
 replays a resident request when it runs dry (the buckets then widen to
@@ -76,14 +82,20 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.approx_matmul import approx_matmul
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.launch.mesh import TPMesh, run_ranks
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import (
@@ -99,7 +111,7 @@ from repro_torch.serve import (
 )
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b",
                     help=f"registered config: {', '.join(list_archs())}")
@@ -210,9 +222,57 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs "
                          "the plain versions)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="continuous engine, paged layout: serve tensor "
+                         "parallel over N rank processes (rank r on cuda:r "
+                         "over NCCL; --device cpu: gloo on the CPU), params "
+                         "Megatron-split and the KV pool split by KV head")
+    return ap
 
-    device = resolve_device(args.device)
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.tp:
+        return _serve_tp(args)
+    return _serve(args, resolve_device(args.device))
+
+
+def _serve_tp(args):
+    """``--tp N``: N spawned ranks, each serving the same trace under one
+    ``TPMesh``; rank 0 prints and its results are returned."""
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.engine != "continuous":
+        raise SystemExit("--tp serves through the continuous engine")
+    if args.cache_layout != "paged":
+        raise SystemExit("--tp requires --cache-layout paged")
+    on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    if not on_cpu and args.tp > torch.cuda.device_count():
+        raise SystemExit(f"--tp {args.tp} > {torch.cuda.device_count()} visible CUDA devices")
+    store_dir = tempfile.mkdtemp(prefix="serve_tp_")
+    try:
+        return run_ranks(_rank, args.tp, (os.path.join(store_dir, "store"), args, on_cpu),
+                         timeout=24 * 3600)[0]
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _rank(rank, world, store_path, args, on_cpu):
+    device = torch.device("cpu") if on_cpu else torch.device("cuda", rank)
+    if on_cpu:                          # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = TPMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
+                  backend="gloo" if on_cpu else "nccl", device=device)
+    try:
+        return _serve(args, device, mesh)
+    finally:
+        mesh.close()
+
+
+def _serve(args, device, mesh=None):
+    """One serving run on ``device`` (one rank's part under ``mesh``);
+    prints unless this is a rank other than 0."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -260,7 +320,7 @@ def main(argv=None):
         shed_hold_steps=args.shed_hold_steps,
         shed_restore_fraction=args.shed_restore_fraction,
         chunked_prefill=args.chunked_prefill, prefill_chunk=args.prefill_chunk,
-        device=device,
+        mesh=mesh, device=device,
     )
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -276,50 +336,53 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     generated = sum(len(r.tokens) for r in results.values())
     st = sess.stats
-    print(f"[continuous/{args.exec_mode}/{args.cache_layout}/{args.loop} on {device}] "
-          f"{len(results)} "
-          f"requests, {generated} tokens in {dt:.3f}s ({generated / dt:.1f} tok/s), "
-          f"slot utilization {st.slot_utilization * 100:.1f}% over {st.ticks} "
-          f"ticks x {args.num_slots} slots")
-    print(f"  ttft p50/p95 = {st.ttft_p50:.0f}/{st.ttft_p95:.0f} ticks "
-          f"(p50 {st.ttft_s_p50:.3f}s), latency p50/p95 = "
-          f"{st.latency_p50:.0f}/{st.latency_p95:.0f} ticks, peak concurrency "
-          f"{st.peak_active}")
-    print(f"  host/device overlap {st.overlap_fraction * 100:.0f}% of wall "
-          f"(host blocked {st.host_block_s:.3f}s of {st.wall_s:.3f}s), decode-gap gauge "
-          f"{st.max_decode_gap_ticks} work ticks, prefill stalls {st.prefill_stall_ticks}")
+    say(f"[continuous/{args.exec_mode}/{args.cache_layout}/{args.loop} on {device}] "
+        f"{len(results)} "
+        f"requests, {generated} tokens in {dt:.3f}s ({generated / dt:.1f} tok/s), "
+        f"slot utilization {st.slot_utilization * 100:.1f}% over {st.ticks} "
+        f"ticks x {args.num_slots} slots")
+    say(f"  ttft p50/p95 = {st.ttft_p50:.0f}/{st.ttft_p95:.0f} ticks "
+        f"(p50 {st.ttft_s_p50:.3f}s), latency p50/p95 = "
+        f"{st.latency_p50:.0f}/{st.latency_p95:.0f} ticks, peak concurrency "
+        f"{st.peak_active}")
+    say(f"  host/device overlap {st.overlap_fraction * 100:.0f}% of wall "
+        f"(host blocked {st.host_block_s:.3f}s of {st.wall_s:.3f}s), decode-gap gauge "
+        f"{st.max_decode_gap_ticks} work ticks, prefill stalls {st.prefill_stall_ticks}")
     if args.cache_layout == "paged":
-        print(f"  KV pool: {sess.num_blocks} x {args.block_size}-row blocks, peak "
-              f"in use {st.peak_blocks_in_use}, attention impl {st.attn_impl}")
+        say(f"  KV pool: {sess.num_blocks} x {args.block_size}-row blocks, peak "
+            f"in use {st.peak_blocks_in_use}, attention impl {st.attn_impl}")
+        if mesh is not None:
+            say(f"  tensor parallel: tp={st.tp} over {st.devices} devices, peak KV "
+                f"{st.peak_block_bytes_per_device / 2**20:.2f} MiB/device")
         if args.prefix_sharing or args.preemption:
-            print(f"  sharing: {st.prefix_hit_blocks} prefix-hit blocks, "
-                  f"{st.cow_forks} CoW forks, {st.preemptions} preemptions")
+            say(f"  sharing: {st.prefix_hit_blocks} prefix-hit blocks, "
+                f"{st.cow_forks} CoW forks, {st.preemptions} preemptions")
         if args.chunked_prefill:
-            print(f"  chunked prefill: chunk {sess.prefill_chunk}, {st.prefill_chunks} "
-                  f"chunk rows, prefills by bucket {dict(sorted(st.prefills.items()))}")
+            say(f"  chunked prefill: chunk {sess.prefill_chunk}, {st.prefill_chunks} "
+                f"chunk rows, prefills by bucket {dict(sorted(st.prefills.items()))}")
         if args.spec_decode:
-            print(f"  spec decode: draft {args.draft_mode}/{args.multiplier} "
-                  f"k={args.draft_k}, accept rate {st.accept_rate * 100:.1f}% "
-                  f"({st.accepted_tokens}/{st.draft_tokens} drafted tokens "
-                  f"over {st.verify_calls} verifies)")
+            say(f"  spec decode: draft {args.draft_mode}/{args.multiplier} "
+                f"k={args.draft_k}, accept rate {st.accept_rate * 100:.1f}% "
+                f"({st.accepted_tokens}/{st.draft_tokens} drafted tokens "
+                f"over {st.verify_calls} verifies)")
             if args.dynamic_draft_k:
-                print(f"  dynamic draft: k now {st.draft_k_current} "
-                      f"({st.draft_k_shrinks} shrinks, {st.draft_k_grows} grows)")
+                say(f"  dynamic draft: k now {st.draft_k_current} "
+                    f"({st.draft_k_shrinks} shrinks, {st.draft_k_grows} grows)")
     else:
-        print(f"  KV stripes: {args.num_slots} x {max_len} positions, attention "
-              f"impl {st.attn_impl}")
+        say(f"  KV stripes: {args.num_slots} x {max_len} positions, attention "
+            f"impl {st.attn_impl}")
     if tiers is not None:
         served = dict.fromkeys(tiers, 0)
         for r in results.values():
             served[r.tier] += 1
-        print(f"  tiers {','.join(tiers)}: served "
-              + " ".join(f"{t}={n}" for t, n in served.items())
-              + f", demotions {st.tier_demotions}, restorations {st.tier_restorations}, "
-              f"shed level now {st.shed_level}")
-    print(f"  kernel launches: approx_matmul {approx_matmul.launches}, "
-          f"paged_attention {paged_attention.launches}")
+        say(f"  tiers {','.join(tiers)}: served "
+            + " ".join(f"{t}={n}" for t, n in served.items())
+            + f", demotions {st.tier_demotions}, restorations {st.tier_restorations}, "
+            f"shed level now {st.shed_level}")
+    say(f"  kernel launches: approx_matmul {approx_matmul.launches}, "
+        f"paged_attention {paged_attention.launches}")
     first = results[min(results)]
-    print("sample:", first.full_sequence.tolist())
+    say("sample:", first.full_sequence.tolist())
     return results
 
 

@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.approx import ApproxConfig, w_dim
+from repro_torch.core.approx import ApproxConfig, Shard, w_dim
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.kernels.paged_attention.ref import attend_gathered, gather_blocks, softmax_scale
 from repro_torch.models import layers as L
@@ -38,6 +38,16 @@ _NEG = -1e30
 # version for CPU tensors) and the clamp-gather-mask plain version on any
 # device — the parity oracle
 ATTN_IMPLS = ("kernel", "gather")
+
+
+def _rank_heads(p: Dict[str, object], n_heads: int, n_kv: int) -> Tuple[int, int]:
+    """The query and KV heads this rank computes: all of them, or its
+    ``1/tp`` where ``wq`` is a column ``Shard`` (whole heads per rank:
+    ``validate_tp_heads``)."""
+    wq = p["wq"]
+    if isinstance(wq, Shard):
+        return n_heads // wq.mesh.size, n_kv // wq.mesh.size
+    return n_heads, n_kv
 
 
 def attention_core(
@@ -84,6 +94,7 @@ def self_attention(
     ``(positions_thw (B, 3, S), sections)`` for multimodal rope in place of
     rope; without ``use_rope`` (sinusoidal positions, added to the input)
     q and k are not rotated."""
+    n_heads, n_kv = _rank_heads(p, n_heads, n_kv)
     B, S, _ = x.shape
     hd = w_dim(p["wq"], -1) // n_heads
     q = L.dense(x, p["wq"], cfg).reshape(B, S, n_heads, hd)
@@ -153,6 +164,7 @@ def decode_attention(
     the index.  Attention reads only the first ``Smax`` positions, all of
     them valid for such a row, as in the JAX package."""
     B = x.shape[0]
+    n_heads, n_kv = _rank_heads(p, n_heads, n_kv)
     q, k, v = _decode_qkv(x, p, cur_len, n_heads=n_heads, n_kv=n_kv, cfg=cfg,
                           rope_theta=rope_theta, use_rope=use_rope)
     hd = q.shape[3]
@@ -194,6 +206,7 @@ def paged_decode_attention(
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     B = x.shape[0]
+    n_heads, n_kv = _rank_heads(p, n_heads, n_kv)
     q, k, v = _decode_qkv(x, p, cur_len, n_heads=n_heads, n_kv=n_kv, cfg=cfg,
                           rope_theta=rope_theta, use_rope=use_rope)
     hd = q.shape[3]
@@ -253,6 +266,7 @@ def paged_verify_attention(
     so the pass is bit-identical to S sequential decode steps by
     construction.  K2 is single-query, as the TPU kernel is, so this pass
     always reads through the gather."""
+    n_heads, n_kv = _rank_heads(p, n_heads, n_kv)
     B, S, _ = x.shape
     hd = w_dim(p["wq"], -1) // n_heads
     q = L.dense(x, p["wq"], cfg).reshape(B, S, n_heads, hd)

@@ -1,16 +1,23 @@
 """Shared layers.  Every projection routes through ``dense``, which applies
-the approximate-multiplier pipeline when configured."""
+the approximate-multiplier pipeline when configured.  Under tensor
+parallelism a weight is a ``Shard`` (``parallel/tp.shard_params``) and
+``dense``, ``embed`` and ``gather_columns`` dispatch on its split, so the
+model code calls them as it does unsharded."""
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig, QWeight, approx_dense
+from repro_torch.core.approx import ApproxConfig, QWeight, Shard, approx_dense
+from repro_torch.parallel.collectives import all_gather_last, all_reduce_sum
 
 __all__ = [
     "dense",
+    "embed",
+    "gather_columns",
     "init_dense",
     "rms_norm",
     "rotary",
@@ -43,15 +50,45 @@ def init_dense(d_in: int, d_out: int, generator: Optional[torch.Generator],
 
 def dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     """x (..., K) @ w (K, N) under the configured multiplier semantics;
-    ``w`` may be a frozen ``QWeight`` (serving path)."""
-    if isinstance(w, QWeight) or cfg.mode != "float":
+    ``w`` may be a frozen ``QWeight`` (serving path) or a ``Shard``: a
+    column split gives the rank's output columns, a row split (``x`` the
+    rank's K-part) the whole output, its float partial products summed over
+    the ranks in float32."""
+    local = w.w if isinstance(w, Shard) else w
+    if isinstance(local, QWeight) or cfg.mode != "float":
         return approx_dense(x, w, cfg).to(x.dtype)
-    return x @ w.to(x.dtype)
+    if isinstance(w, Shard) and w.split == "row":
+        return all_reduce_sum(x.to(torch.float32) @ local.to(torch.float32), w.mesh).to(x.dtype)
+    return x @ local.to(x.dtype)
+
+
+def embed(tokens: torch.Tensor, table) -> torch.Tensor:
+    """Rows of ``table`` (V, d) for ``tokens``, float32.  A vocab ``Shard``
+    looks up the ids in the rank's rows, zeroes the others and sums over
+    the ranks: exact, since each row is one rank's value plus zeros."""
+    if not isinstance(table, Shard):
+        return F.embedding(tokens.long(), table)
+    part, mesh = table.w, table.mesh
+    lo = mesh.rank * part.shape[0]
+    ids = tokens.long() - lo
+    mine = (ids >= 0) & (ids < part.shape[0])
+    rows = F.embedding(ids.clamp(0, part.shape[0] - 1), part)
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return all_reduce_sum(rows, mesh)
+
+
+def gather_columns(y: torch.Tensor, w) -> torch.Tensor:
+    """``y`` = x @ ``w`` whole: the ranks' columns gathered in rank order
+    where ``w`` is a column ``Shard``, else ``y`` as it is."""
+    if isinstance(w, Shard) and w.split == "column":
+        return all_gather_last(y, w.mesh)
+    return y
 
 
 def unstack(node, n: int):
     """A tree stacked on a leading axis of ``n`` (dicts of tensors,
-    ``QWeight``s and ``None`` leaves) as a list of ``n`` per-entry trees of
+    ``QWeight``s, ``Shard``s and ``None`` leaves) as a list of ``n`` per-entry trees of
     views: the per-layer walk over stacked layers, and the per-expert walk
     over stacked experts.  Under autograd the backward of ``unbind`` stacks
     the per-entry gradients once, where indexing would add one zero-padded
@@ -61,6 +98,8 @@ def unstack(node, n: int):
         return [{k: per[k][i] for k in per} for i in range(n)]
     if node is None:
         return [None] * n
+    if isinstance(node, Shard):
+        return [Shard(w, node.split, node.mesh) for w in unstack(node.w, n)]
     if isinstance(node, QWeight):
         fields = [t.unbind(0) if t.dim() > 0 else (t,) * n for t in node]
         return [QWeight(*(f[i] for f in fields)) for i in range(n)]

@@ -17,6 +17,13 @@ The vlm and audio backbones have no embedding table: every entry point
 takes ``embeddings=`` (B, S, d) in place of ``tokens``, exactly one of the
 two as ``cfg.embed_input`` says.
 
+Under tensor parallelism (``serve.ServeSession(mesh=...)``) the tree holds
+``Shard``s (``parallel/tp.shard_params``): attention runs on the rank's
+heads, ``wo`` and ``w_down`` sum their products over the ranks, the
+vocab-split head gathers its logits and a vocab-split embedding sums its
+lookups; the pool holds the rank's KV heads (``parallel/tp.shard_cache``).
+The calls below are the same with and without a mesh.
+
 Parameters are a dict with the JAX package's tree shape: layer weights are
 stacked on a leading layer axis under ``params["layers"]`` and the loop
 below walks them (the JAX package scans them).  Under autograd with
@@ -37,7 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.approx import ApproxConfig, QWeight, prequantize_tree
+from repro_torch.core.approx import ApproxConfig, QWeight, Shard, prequantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -275,7 +282,7 @@ def _inputs(cfg: ModelConfig, params, tokens, embeddings, cur_len=None):
     if cfg.embed_input:
         if tokens is None or embeddings is not None:
             raise ValueError(f"{cfg.name} takes token inputs, not embeddings")
-        x = F.embedding(tokens.long(), params["embed"]).to(dtype)
+        x = L.embed(tokens, params["embed"]).to(dtype)
     else:
         if embeddings is None or tokens is not None:
             raise ValueError(f"{cfg.name} takes embeddings (B, S, d_model), not tokens")
@@ -618,14 +625,20 @@ def _mask_pad(cfg: ModelConfig, logits):
 
 
 def _head(cfg: ModelConfig, params, x, norm=L.rms_norm):
+    """The logits (..., Vp) float32; a vocab-split head's columns are
+    gathered from every rank, so each rank holds them all."""
     x = norm(x, params["final_norm"])
-    return _mask_pad(cfg, L.dense(x, params["lm_head"], cfg.approx)).to(torch.float32)
+    head = params["lm_head"]
+    return _mask_pad(cfg, L.gather_columns(L.dense(x, head, cfg.approx), head)).to(torch.float32)
 
 
 def params_to(node, device):
-    """The parameter tree (float tensors and QWeights) on ``device``."""
+    """The parameter tree (float tensors, QWeights and their Shards) on
+    ``device``."""
     if isinstance(node, dict):
         return {k: params_to(v, device) for k, v in node.items()}
+    if isinstance(node, Shard):
+        return Shard(params_to(node.w, device), node.split, node.mesh)
     if isinstance(node, QWeight):
         return QWeight(*(t.to(device) for t in node))
     return None if node is None else node.to(device)

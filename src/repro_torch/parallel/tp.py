@@ -1,0 +1,93 @@
+"""Tensor-parallel serving at run time: each rank's part of the
+parameters and of the paged pool, cut by the sharding rules
+(``parallel/sharding.py``) on a ``launch.mesh.TPMesh``, and the
+collectives that join the parts (``parallel/collectives.py``).
+
+``shard_params`` cuts every leaf whose rule names the ``"model"`` axis
+(a rule whose dim the axis does not divide leaves the leaf whole, as
+granite's 49,155-row embedding) into a ``core.approx.Shard``: the
+projections Megatron-style (``wq``/``wk``/``wv``/``w_gate``/``w_up`` and
+the LM head by output column, ``wo``/``w_down`` by input row), the
+embedding by vocab row.  A frozen ``QWeight`` must be frozen whole
+before it is cut (a K-part's per-channel scale would be another scale):
+a column split slices its per-channel scale, zero point and column sums
+with its codes' columns, a row split keeps them whole.  ``shard_cache``
+keeps the rank's KV heads of the paged pool.  Every part is a copy, so
+the whole tensor can be freed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.approx import QWeight, Shard
+from repro_torch.parallel.collectives import (
+    COUNTS,
+    all_gather_last,
+    all_reduce_max,
+    all_reduce_sum,
+    max_range,
+)
+from repro_torch.parallel.sharding import cache_pspecs, param_pspec
+from repro_torch.train.tree import leaves_with_path, unflatten
+
+__all__ = ["COUNTS", "all_gather_last", "all_reduce_max", "all_reduce_sum", "max_range",
+           "shard_cache", "shard_params"]
+
+
+def _part(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The rank's ``1/size`` of ``t`` along ``dim``, as a contiguous copy."""
+    n = t.shape[dim] // mesh.size
+    return t.narrow(dim, mesh.rank * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def _shard_leaf(path: str, leaf, cfg: ModelConfig, mesh):
+    if isinstance(leaf, Shard):                    # cut already
+        return leaf
+    codes = leaf.codes if isinstance(leaf, QWeight) else leaf
+    spec = param_pspec(path + (".codes" if isinstance(leaf, QWeight) else ""),
+                       tuple(codes.shape), cfg, mesh)
+    if "model" not in spec:
+        return leaf
+    dim = spec.index("model") - len(spec)          # from the end: -1 or -2
+    if path == "['embed']":
+        split = "vocab"
+    elif dim == -1:
+        split = "column"
+    else:
+        split = "row"
+    if not isinstance(leaf, QWeight):
+        return Shard(_part(leaf, dim, mesh), split, mesh)
+    N = codes.shape[-1]
+
+    def field(t):                  # per-channel fields follow a column split
+        per_channel = t.dim() > 0 and t.shape[-1] == N and N > 1
+        return _part(t, -1, mesh) if split == "column" and per_channel else t
+
+    return Shard(QWeight(_part(codes, dim, mesh), *(field(t) for t in leaf[1:])), split, mesh)
+
+
+def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The rank's parameter tree: every leaf that the rules split over
+    ``mesh``'s ``"model"`` axis as a ``Shard`` of its part, the rest as
+    they are; a tree cut already passes through (a rank that cut its
+    weights as it built them, so it never holds two whole copies).  Dense
+    family only (the serving path's)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"tensor-parallel serving of the {cfg.family} family is not ported: "
+            "MoE expert parallelism under a mesh is the next slice (ROADMAP.md "
+            "section 1, item 5)")
+    pairs = leaves_with_path(params)
+    return unflatten(params, (_shard_leaf(p, leaf, cfg, mesh) for p, leaf in pairs))
+
+
+def shard_cache(cfg: ModelConfig, mesh, cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The rank's part of a paged pool (leaves (L, blocks + 1, block_size,
+    Hkv, hd)): its KV heads where the axis divides them
+    (``cache_pspecs(layout="paged")``), else the leaf whole."""
+    specs = cache_pspecs(cfg, mesh, cache, layout="paged")
+    return {k: _part(t, specs[k].index("model"), mesh) if "model" in specs[k] else t
+            for k, t in cache.items()}

@@ -17,7 +17,7 @@ input's dtype and the scale is stored as float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -40,14 +40,20 @@ def calibrate(
     axis: Optional[Tuple[int, ...]] = None,
     qmax: int = 255,
     eps: float = 1e-8,
+    reduce: Optional[Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]]
+    = None,
 ) -> QuantParams:
     """Min/max affine calibration. ``axis=None`` -> per-tensor; otherwise the
-    reduction axes (remaining axes are per-channel)."""
+    reduction axes (remaining axes are per-channel).  ``reduce`` maps this
+    part's (min, max) to those of the whole tensor where ``x`` is one
+    rank's part of it (tensor parallelism)."""
     if axis is None:
         lo, hi = x.min(), x.max()
     else:
         lo = torch.amin(x, dim=axis, keepdim=True)
         hi = torch.amax(x, dim=axis, keepdim=True)
+    if reduce is not None:
+        lo, hi = reduce(lo, hi)
     lo = torch.clamp(lo, max=0.0)
     hi = torch.clamp(hi, min=0.0)
     scale = torch.clamp((hi - lo) / float(qmax), min=eps).to(torch.float32)

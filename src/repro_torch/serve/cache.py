@@ -18,6 +18,10 @@ fixed-width per-slot block table whose unallocated entries hold the
 sentinel ``num_blocks`` — which is also the trash row's index, so a write
 through a sentinel entry lands in the trash and is never read.
 
+Under tensor parallelism each rank holds its KV heads of the pool
+(``parallel/tp.shard_cache``); ``pool_bytes_per_device`` counts the bytes
+of the pool a rank holds.
+
 Prefix sharing: ``copy_block`` copies one physical block in every layer
 (the copy-on-write fork).
 
@@ -51,6 +55,7 @@ __all__ = [
     "merge_admit_carry",
     "merge_spec_len",
     "copy_block",
+    "pool_bytes_per_device",
     "PromptBuckets",
     "SlotPool",
     "BlockPool",
@@ -193,6 +198,13 @@ def copy_block(cache: Dict[str, torch.Tensor], src: int, dst: int) -> None:
     copies."""
     for a in cache.values():
         a[:, dst] = a[:, src]
+
+
+def pool_bytes_per_device(cache: Dict[str, torch.Tensor]) -> int:
+    """Bytes of the pool this rank holds (its trash block included): under
+    tensor parallelism its KV-head shard, ``1/tp`` of each leaf, as
+    ``cache_pspecs(layout="paged")`` splits it."""
+    return sum(t.numel() * t.element_size() for t in cache.values())
 
 
 class PromptBuckets:

@@ -98,8 +98,16 @@ and prompts past the largest bucket become admissible.  A mid-prefill row
 holds its slot but joins no decode chunk (its table row is scrubbed in the
 decode dispatch's copy).
 
-This is the JAX package's ``ServeSession`` less meshes, which arrive with
-a later slice of the port.  Greedy tokens are the cross-framework
+**Tensor parallelism** (``mesh=``, a ``launch.mesh.TPMesh``; paged, dense
+family): every rank runs this same host scheduler on the same trace (SPMD)
+over its part of the weights (``parallel/tp.shard_params``: Megatron
+column/row splits through K1) and its KV heads of the pool
+(``shard_cache``, attended through K2 on the rank's heads); the
+collectives inside the model pass keep the ranks' device work in lockstep,
+and every rank gathers the full logits and samples the same tokens.  Rank
+0's results are the session's.
+
+This is the JAX package's ``ServeSession``.  Greedy tokens are the cross-framework
 contract; temperature sampling follows the port's own positional Philox
 schedule (``serve.engine``), so a request's tokens never depend on its
 slot.
@@ -117,6 +125,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention import validate_tp_heads
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.transformer import (
     decode_step,
@@ -128,6 +137,7 @@ from repro_torch.models.transformer import (
     paged_verify_step,
     params_to,
 )
+from repro_torch.parallel.tp import shard_cache, shard_params
 from repro_torch.serve import cache as C
 from repro_torch.serve.engine import (
     EXECUTION_MODES,
@@ -486,6 +496,15 @@ class SchedulerStats:
                            "EFFECTIVE ladder rung (the rung each request "
                            "was admitted at, post-shedding); empty when "
                            "tiers are off",
+        "tp": "tensor-parallel degree: size of the session mesh's "
+              "'model' axis (1 for single-device serving)",
+        "devices": "devices the session mesh spans (1 off-mesh)",
+        "peak_block_bytes_per_device": "paged layout: KV pool bytes "
+                                       "resident on EACH device for the "
+                                       "peak_blocks_in_use blocks — the "
+                                       "pool shards along the KV-head dim "
+                                       "under TP, so this scales as 1/tp "
+                                       "at equal block counts",
         "prefill_chunks": "chunked prefill: partial-prompt chunk rows "
                           "dispatched (each long request contributes "
                           "ceil(effective_prompt / prefill_chunk) rows; 0 "
@@ -519,6 +538,9 @@ class SchedulerStats:
     draft_tokens: int = 0
     accepted_tokens: int = 0
     verify_calls: int = 0
+    tp: int = 1
+    devices: int = 1
+    peak_block_bytes_per_device: int = 0
     draft_k_current: int = 0
     draft_k_shrinks: int = 0
     draft_k_grows: int = 0
@@ -688,6 +710,12 @@ class ServeSession:
     longer than ``prefill_chunk`` (a prompt bucket; default the largest)
     chunk by chunk across steps, and admits prompts past the largest
     bucket.
+
+    ``mesh`` (a ``TPMesh``; paged layout, dense family) serves tensor
+    parallel over its ``tp_axis`` (``"model"``): the session cuts the
+    params (float, or frozen whole before the cut) and the pool into the
+    rank's parts, and every rank of the mesh builds the same session and
+    drives it with the same calls.
     """
 
     def __init__(
@@ -729,6 +757,8 @@ class ServeSession:
         shed_restore_fraction: float = 0.5,
         chunked_prefill: bool = False,
         prefill_chunk: Optional[int] = None,
+        mesh=None,
+        tp_axis: str = "model",
         device=None,
     ):
         if not cfg.embed_input:
@@ -848,6 +878,23 @@ class ServeSession:
                     "shed_restore_fraction must be in (0, 1], got "
                     f"{shed_restore_fraction}"
                 )
+        if mesh is not None:
+            if tp_axis != "model":
+                raise ValueError(
+                    f"tp_axis must be 'model' (param_pspec/cache_pspecs key "
+                    f"their TP rules on it), got {tp_axis!r}"
+                )
+            if tp_axis not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh has no {tp_axis!r} axis (axes: {mesh.axis_names})"
+                )
+            if cache_layout != "paged":
+                raise ValueError(
+                    "mesh serving shards the paged BlockPool along the "
+                    'KV-head dim — it requires cache_layout="paged"'
+                )
+            # both attention paths run on whole heads per rank
+            validate_tp_heads(cfg.num_heads, cfg.num_kv_heads, int(mesh.shape[tp_axis]))
         # SSM/hybrid caches carry conv/ssm state -> masked teacher-forced admit
         self.prefill_mode = "decode" if cfg.family in ("ssm", "hybrid") else "fused"
         if cache_layout == "paged":
@@ -875,6 +922,10 @@ class ServeSession:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
+        self.mesh = mesh
+        self.tp = int(mesh.shape[tp_axis]) if mesh is not None else 1
+        if mesh is not None:
+            self.params = shard_params(self.params, cfg, mesh)
         self.sampling = sampling if sampling is not None else SamplingConfig()
         self.seed = int(seed)
         self.max_len = int(max_len)
@@ -987,6 +1038,8 @@ class ServeSession:
             self.num_blocks = int(num_blocks)
             self.cache = init_paged_cache(cfg, self.num_blocks, self.block_size,
                                           cache_dtype, device=self.device)
+            if mesh is not None:
+                self.cache = shard_cache(cfg, mesh, self.cache)
             # per-slot block table (sentinel == num_blocks), held blocks, and
             # the not-yet-held part of each row's worst-case reservation
             self._tables = np.full((num_slots, self.table_width), self.num_blocks,
@@ -1039,7 +1092,12 @@ class ServeSession:
         self._next_id = 0
         self._submit_t: Dict[int, float] = {}
         self.clock = 0
-        self.stats = SchedulerStats(attn_impl=attn_impl,
+        # bytes of one pool block on this rank (0 for the slot layout): the
+        # peak_block_bytes_per_device gauge reads it
+        self._block_bytes_dev = (C.pool_bytes_per_device(self.cache) // (self.num_blocks + 1)
+                                 if cache_layout == "paged" else 0)
+        self.stats = SchedulerStats(attn_impl=attn_impl, tp=self.tp,
+                                    devices=mesh.size if mesh is not None else 1,
                                     draft_k_current=self.draft_k if self.spec else 0)
         self._completed: Dict[int, CompletedRequest] = {}
         self._just_finished: List[int] = []
@@ -1191,6 +1249,11 @@ class ServeSession:
         return out
 
     # -- admission -----------------------------------------------------------
+
+    def _note_peak_blocks(self) -> None:
+        st = self.stats
+        st.peak_blocks_in_use = max(st.peak_blocks_in_use, self.blocks.busy_count)
+        st.peak_block_bytes_per_device = st.peak_blocks_in_use * self._block_bytes_dev
 
     def _worst_blocks(self, prompt_len: int, max_new: int) -> int:
         """Blocks the request could ever hold: its last cache write lands at
@@ -1556,8 +1619,7 @@ class ServeSession:
                     self._future[slot] = (self._worst_blocks(req.prompt.size, req.max_new)
                                           - ninit + fork_reserve)
                     self._reserved_total -= ninit      # reservation -> held
-            self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
-                                                self.blocks.busy_count)
+            self._note_peak_blocks()
         else:
             seat = (self._h2d(slots), self._h2d(valid))
         tok0s = self._prefill(acfg, prompts, prompt_lens, req_ids, seat)
@@ -1862,8 +1924,7 @@ class ServeSession:
         for state, clen in zip(rows, clens):
             if not (state.released or state.preempted):
                 self._ensure_blocks(state.slot, state.prefill_pos + clen - 1)
-        self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
-                                            self.blocks.busy_count)
+        self._note_peak_blocks()
         live = [(i, s, c) for i, (s, c) in enumerate(zip(rows, clens))
                 if not (s.released or s.preempted)]
         toks = np.full((A, cb), self.pad_id, np.int32)
@@ -1962,8 +2023,7 @@ class ServeSession:
                 for idx in range(lo // bs, hi // bs + 1):
                     self._cow_guard(slot, idx)
             self._ensure_blocks(slot, hi)
-        self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use,
-                                            self.blocks.busy_count)
+        self._note_peak_blocks()
         active = np.asarray([s is not None and not s.prefilling for s in self._active], bool)
         tables = self._tables.copy()
         for slot, state in enumerate(self._active):

@@ -36,7 +36,7 @@ def test_port_files_exist():
                 "models/moe.py", "models/ssm.py", "configs/qwen2_moe_a2_7b.py",
                 "configs/falcon_mamba_7b.py", "configs/zamba2_2_7b.py", "kernels/work.py",
                 "launch/specs.py", "launch/roofline.py", "launch/dryrun.py", "launch/mesh.py",
-                "parallel/sharding.py"):
+                "parallel/sharding.py", "parallel/tp.py", "parallel/collectives.py"):
         assert f"repro_torch/{mod}" in names, mod
     assert (ROOT / "chip_smoke.py").is_file()
     srcs = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")}
