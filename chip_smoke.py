@@ -4,7 +4,8 @@ Hopper GPU: granite-3-2b at full width served (on the paged pool and on
 per-slot stripes; with prefix sharing, preemption, spec decode, quality
 tiers and chunked prefill) and retrained, the paper's CNNs (ResNet-19 at full
 width) trained and QAT-retrained, qwen2-moe-a2.7b, falcon-mamba-7b and
-zamba2-2.7b served and retrained at full width, and the qwen2-vl-2b and
+zamba2-2.7b served and retrained at full width (qwen2-moe-a2.7b also
+expert-parallel over two and four ranks), and the qwen2-vl-2b and
 musicgen-large backbones run, decoded and retrained on embeddings at full
 width, through the hand-written CUDA kernels, each held against its plain
 PyTorch version.
@@ -238,7 +239,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            teacher-forced through ``decode_step``, float32 and float
            execution, and each request's tokens equal to
            ``generate(prefill_mode="decode")`` of its prompt alone or a
-           recorded near tie.
+           recorded near tie.  The moe unit also runs phase 18 on (b)'s
+           and (c)'s weights and K1 async runs.
 14. train  QAT retraining of the moe, ssm and hybrid families at full width
            through K1, as ``launch/train.py`` trains (mul8x8_2, band_reg
            1e-4, AdamW, remat on, batch 8 x seq 64): qwen2-moe-a2.7b 4
@@ -323,14 +325,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
            Printed: host ms per tick at tp against tp=1 (both under the
            pool's load), collectives per tick and their host ms, the
            unit's seconds.
+18. ep     MoE expert parallelism (``ServeSession(mesh=TPMesh(...))`` on
+           qwen2-moe-a2.7b at full width: each rank holds E/tp of the 60
+           routed experts whole and runs them through K1, one all-gather
+           of their output rows per layer; the shared expert and the
+           attention split column/row as in phase 17), ranks as processes
+           on the one card over gloo, run inside phase 13's qwen2-moe-a2.7b
+           unit: its tp=1 references are that unit's own runs of phase
+           13's cut trace (4 requests, 8 new tokens, async, through K2),
+           (b)'s at full depth and (c)'s K1 async run at 4 layers, each
+           with K1's, K2's and the collectives' counts zeroed just before
+           (``counted_run``); their weights (approx, mul8x8_2, per-row
+           scales; (c)'s from seed + 1) reach the ranks through a file
+           written while the unit goes on, each rank keeping its part of
+           an mmap load.  (a) K1 bit-equal to its plain version at
+           every per-rank (K, N) this phase adds (the shared expert's,
+           attention's and the head's at tp=2 and tp=4, an expert's
+           column/row parts at tp=8) at M = 4, the decode capacity (8)
+           and the first admission's rows; K2 within K2_TOL at each rank's
+           heads (8 over 8 and 4 over 4, hd 128), both pool dtypes, with
+           and without holes.  (b) tp=2 at 24 layers and (c) tp=4 at
+           ORACLE_LAYERS (4): every rank's
+           tokens identical to the tp=1 session's at that depth or parted
+           at a near tie within NEAR_TIE, the gap printed.  (d) every
+           rank: rank 0's tokens, tp=1's ticks and dropped assignments,
+           K1's launches (zeroed just before) ``k1_per_pass(cfg, tp)`` per
+           pass (L (4 + 3 E/tp + 3) + 1; tp=1's passes), K2's one per
+           layer per tick, ``collectives_per_pass`` per pass, 1/tp of
+           tp=1's pool and of the whole model's expert codes, ``stats.tp``
+           and ``devices``.  Printed: host ms per tick at tp against tp=1
+           (both under the pool's load), collectives per tick and their
+           host ms, gathered MB per tick, each rank's weight GB and peak,
+           the phase's seconds within the unit.
 
 Phases 1-7 run in this process, one after another, and so do the parts
 whose times go into the kernels line: phase 8's K1 at the CNN shapes,
 phase 10's stall probe (its gates are host times) and phase 13's K2 at the
 moe shape, and phase 16 (its serving steps after phase 5, its training
-step inside phase 7).  The rest of phases 8-15 and phase 17 then run as units (phase
+step inside phase 7).  The rest of phases 8-15 and phases 17-18 then run as units (phase
 8; 9; 10; 11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14
-and 15; 17, whose ranks are processes of their own) in up to POOL_WORKERS processes on the one card at once, as many
+and 15 (13's qwen2-moe-a2.7b with 18); 17; the ranks of 17 and 18 are
+processes of their own) in up to POOL_WORKERS processes on the one card at once, as many
 as the units' memory peaks allow (POOL_GB), each unit in a fresh process:
 serving is host-bound, and processes sharing the card each serve at the speed of one
 alone (``scripts/shared_card_probe.py``), so the phases' seconds add up to
@@ -436,6 +471,8 @@ TRAIN_DEPTHS = {                     # phases 14 and 15: each model's trained de
     "qwen2-vl-2b": 28, "musicgen-large": 24}
 TP_DEGREES = (2, 4)                  # phase 17's tensor-parallel ranks
 TP4_LAYERS = 4                       # phase 17's tp=4 depth
+EP_DEGREES = (2, 4)                  # phase 18's expert-parallel ranks
+EP_COLROW_TP = 8                     # phase 18 (a): 60 experts split inside each at this tp
 
 
 _UNIT_LOG = None                     # a pool worker's log lines, printed when its unit ends
@@ -2567,7 +2604,6 @@ def family_phase(arch, dev, seed, smi, profile=False):
     from repro_torch.configs import get_config
     from repro_torch.core.approx import ApproxConfig
     from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
-    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.models.moe import moe_capacity
     from repro_torch.models.transformer import forward, init_params
     from repro_torch.serve import PromptBuckets, freeze_params, generate, resolve_execution_mode
@@ -2624,6 +2660,15 @@ def family_phase(arch, dev, seed, smi, profile=False):
     out["k1_equal_shapes"] = k1
     log(f"[families] {arch} (a) K1 bit-equal at (M, K, N) {k1}")
     lap("a")            # (a)'s K2 at the moe shape: ``family_k2``, in the parent process
+    if cfg.family == "moe":
+        # phase 18 runs in this unit, on (b)'s and (c)'s weights and tp=1
+        # runs: its (a) here, its tp=2 world after (b), its tp=4 after (c)
+        ep = {"runs": {}, "launches": {}}
+        ep["k1_equal_shapes"], ep["k2"] = ep_kernel_checks(
+            cfg, dev, torch.Generator(device=dev).manual_seed(seed + 18),
+            np.random.default_rng(seed + 18), adm)
+        ep_tmp = tempfile.TemporaryDirectory(prefix="ep_")
+        lap("ep_a")
 
     # (b) full depth: the trace on the async loop through K1 (and K2)
     passes = rehearse_passes(cfg, trace, seed)
@@ -2636,13 +2681,8 @@ def family_phase(arch, dev, seed, smi, profile=False):
     torch.cuda.reset_peak_memory_stats()
     sess = family_session(cfg, params, dev, seed)
     adm = time_admissions(sess)
-    drops, unpatch = record_drops(adm) if cfg.family == "moe" else ([], lambda: None)
-    approx_matmul.launches = paged_attention.launches = 0
-    try:
-        res, wall = drive(sess, trace)
-    finally:
-        unpatch()
-    n = {"approx_matmul": approx_matmul.launches, "paged_attention": paged_attention.launches}
+    res, one = counted_run(sess, trace, adm)
+    wall, n, drops = one["wall_s"], one["launches"], one["drops"]
     b = {**session_numbers(sess, res, wall), "launches": n, "passes": passes,
          "k1_per_pass": k1_per_pass(cfg), "k1_predicted": predicted,
          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2679,10 +2719,13 @@ def family_phase(arch, dev, seed, smi, profile=False):
         out["profile"] = profile_decode(cfg, params, trace, dev, seed, ticks=3, loop="async",
                                         cache_layout="paged" if cfg.family == "moe" else "slots")
         log(f"[families] {arch} (b) profiled tick: {json.dumps(out['profile'])}")
+    lap("b")
+    if cfg.family == "moe":                     # written during (c), for phase 18's tp=2
+        saved = ep_save(params, ep_tmp.name, "frozen.pt")
+        lap("ep_save")
     del params, sess
     gc.collect()
     torch.cuda.empty_cache()
-    lap("b")
 
     # (c) oracles at ORACLE_LAYERS of the full width (the hybrid: one
     # group of its attn_every layers and the shared block)
@@ -2695,7 +2738,10 @@ def family_phase(arch, dev, seed, smi, profile=False):
     for name, ccfg, loop in (("k1_async", cfg4, "async"), ("k1_sync", cfg4, "sync"),
                              ("plain_async", dataclasses.replace(cfg4, approx=resolve_execution_mode(
                                  "approx_lowrank", TIER_MULTIPLIER, act_per_row=True)), "async")):
-        runs_[name], _ = drive(family_session(ccfg, params4, dev, seed, loop=loop), trace)
+        runs_[name], numbers = counted_run(family_session(ccfg, params4, dev, seed, loop=loop),
+                                           trace)
+        if name == "k1_async":
+            one4 = numbers                      # phase 18's tp=1 run at 4 layers
     for rid in range(len(trace)):
         want = runs_["k1_async"][rid].tokens
         same_tokens(f"[families] {arch} 4-layer request {rid}: plain K1 vs K1",
@@ -2737,10 +2783,25 @@ def family_phase(arch, dev, seed, smi, profile=False):
                                      f"generate alone part, not at a near tie: {tie}")
     out["oracle"] = c
     log(f"[families] {arch} (c) {depth} layers: {json.dumps(c)}")
+    lap("c")
+    if cfg.family == "moe":                     # written during phase 18's tp=2 world
+        saved4 = ep_save(params4, ep_tmp.name, "frozen4.pt")
     del fparams, params4
     gc.collect()
     torch.cuda.empty_cache()
-    lap("c")
+    if cfg.family == "moe":                     # phase 18 (b)-(d): tp=2 at 24 layers, tp=4 at 4
+        for tp, c_, s_, o_ in ((2, cfg, saved, one), (4, cfg4, saved4, one4)):
+            row, ep["launches"][f"ep{tp}_kernel"] = ep_world(c_, tp, s_, o_, trace, dev, seed)
+            ep["runs"][f"tp={tp} {c_.num_layers} layers"] = row
+            lap(f"ep_tp{tp}")
+        ep_tmp.cleanup()
+        ep["seconds_by_part"] = {k: v for k, v in out["seconds_by_part"].items()
+                                 if k.startswith("ep_")}
+        ep["seconds"] = sum(ep["seconds_by_part"].values())
+        ep["unit_peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        log(f"[ep] phase 18 took {ep['seconds']:.1f}s in the {arch} unit (gloo on one card, "
+            f"{smi})")
+        out["ep"] = ep
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3407,20 +3468,61 @@ def tp_kernel_checks(cfg, dev, gen, rng):
     return k1, k2
 
 
+def counted_run(sess, trace, admissions=()):
+    """``drive(sess, trace)`` with K1's, K2's and the collectives' counts
+    zeroed just before ``run()`` and read just after, each MoE routing's
+    dropped assignments (``record_drops``: [admission, rows, dropped]) and
+    the bytes each expert gather returned: (results, the numbers phases 13,
+    17 and 18 gate)."""
+    import repro_torch.models.moe as M
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.parallel.collectives import COUNTS
+    from repro_torch.serve import pool_bytes_per_device
+
+    drops, unpatch = record_drops(admissions)
+    gathered, gather = {}, M.all_gather_first
+
+    def counted_gather(t, mesh):
+        out = gather(t, mesh)
+        gathered[out.nbytes] = gathered.get(out.nbytes, 0) + 1
+        return out
+
+    M.all_gather_first = counted_gather
+    approx_matmul.launches = paged_attention.launches = 0
+    calls, host_s = COUNTS["calls"], COUNTS["host_s"]
+    try:
+        res, wall = drive(sess, trace)
+    finally:
+        unpatch()
+        M.all_gather_first = gather
+    st = sess.stats
+    return res, {
+        "tokens": {rid: r.tokens.tolist() for rid, r in res.items()},
+        "ticks": st.ticks, "admit_calls": st.admit_calls, "wall_s": wall,
+        "launches": {"approx_matmul": approx_matmul.launches,
+                     "paged_attention": paged_attention.launches},
+        "collectives": COUNTS["calls"] - calls, "collective_host_s": COUNTS["host_s"] - host_s,
+        "drops": [[i, T, int(n)] for i, T, n in drops], "gathers": gathered,
+        "pool_bytes": pool_bytes_per_device(sess.cache), "tp": st.tp, "devices": st.devices}
+
+
 def tp_rank(rank, world, store_path, job):
-    """One rank of a tensor-parallel world on cuda:0 over gloo: load the
-    unit's frozen weights (``job["weights"]``, the tp=1 references' own,
-    from the seed), keep this rank's part, then serve the trace once per
-    attention path with K1's, K2's and the collectives' counts zeroed just
-    before.  Returns each run's tokens, schedule, counts and times."""
+    """One rank of a tensor-parallel world on ``job["device"]`` over gloo:
+    load the frozen weights ``job["weights"]`` (an mmap of the file), keep
+    this rank's part on the card, warm up on the trace's first request cut
+    to 1 new token, then serve the trace once per attention path in
+    ``job["attn"]`` through ``job["session"]`` ("phase4": phase 4's sync
+    session; "family": phase 13's) with the counts zeroed just before
+    (``counted_run``).  Returns each run's numbers, the rank's weight
+    bytes, load seconds and peak."""
     import torch.distributed as dist
 
     from repro_torch.kernels._build import build_all
-    from repro_torch.kernels.approx_matmul import approx_matmul
-    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.launch.mesh import TPMesh
-    from repro_torch.parallel.tp import COUNTS, shard_params
-    from repro_torch.serve import pool_bytes_per_device
+    from repro_torch.models.transformer import params_to
+    from repro_torch.parallel.sharding import tree_bytes
+    from repro_torch.parallel.tp import shard_params
 
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3431,31 +3533,23 @@ def tp_rank(rank, world, store_path, job):
     mesh = TPMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
                   backend="gloo", device=dev)
     try:
-        cfg = dataclasses.replace(serving_configs()[0], num_layers=job["layers"])
+        cfg, seed, trace = job["cfg"], job["seed"], job["trace"]
+
+        def session(attn):
+            if job["session"] == "family":
+                return family_session(cfg, params, dev, seed, mesh=mesh)
+            return share_session(cfg, params, dev, seed, loop="sync", attn_impl=attn,
+                                 cache_layout="paged", mesh=mesh)
+
         t0 = time.perf_counter()
         whole = torch.load(job["weights"], map_location="cpu", mmap=True, weights_only=False)
-        params = shard_params(whole, cfg, mesh)    # the parts reach the card in the session
+        params = params_to(shard_params(whole, cfg, mesh), dev)
         del whole
-        out = {"load_s": time.perf_counter() - t0, "runs": {}}
-        serve(cfg, params, job["trace"][:1], dev, "kernel", job["seed"], mesh=mesh)  # warm-up
+        out = {"load_s": time.perf_counter() - t0, "weight_bytes": tree_bytes(params),
+               "expert_bytes": expert_bytes(params) if cfg.family == "moe" else 0, "runs": {}}
+        drive(session("kernel"), [(p, 1, 0) for p, _, _ in trace[:1]])      # warm-up
         for attn in job["attn"]:
-            approx_matmul.launches = paged_attention.launches = 0
-            calls, host_s = COUNTS["calls"], COUNTS["host_s"]
-            sess, res, wall = serve(cfg, params, job["trace"], dev, attn, job["seed"],
-                                    mesh=mesh)
-            st = sess.stats
-            out["runs"][attn] = {
-                "tokens": {rid: r.tokens.tolist() for rid, r in res.items()},
-                "admitted": {rid: r.admitted_tick for rid, r in res.items()},
-                "ticks": st.ticks, "admit_calls": st.admit_calls, "wall_s": wall,
-                "launches": {"approx_matmul": approx_matmul.launches,
-                             "paged_attention": paged_attention.launches},
-                "collectives": COUNTS["calls"] - calls,
-                "collective_host_s": COUNTS["host_s"] - host_s,
-                "pool_bytes": pool_bytes_per_device(sess.cache),
-                "peak_block_bytes_per_device": st.peak_block_bytes_per_device,
-                "tp": st.tp, "devices": st.devices}
-            del sess
+            out["runs"][attn] = counted_run(session(attn), trace)[1]
         out["peak_reserved_gb"] = (torch.cuda.max_memory_reserved() / 1e9
                                    if dev.type == "cuda" else 0.0)
         return out
@@ -3556,10 +3650,10 @@ def tp_phase(dev, seed, trace, paged_tokens, smi, weights):
 
     worlds = {}
     with tmp:
-        for tp, layers, attn in ((2, cfg.num_layers, ("gather", "kernel")),
-                                 (4, TP4_LAYERS, ("kernel",))):
+        for tp, c, attn in ((2, cfg, ("gather", "kernel")), (4, cfg4, ("kernel",))):
+            layers = c.num_layers
             t0 = time.perf_counter()
-            job = {"layers": layers, "seed": seed, "trace": trace, "attn": attn,
+            job = {"cfg": c, "session": "phase4", "seed": seed, "trace": trace, "attn": attn,
                    "device": str(dev), "weights": files[layers]}
             worlds[tp] = run_ranks(tp_rank, tp, (os.path.join(tmp.name, f"store{tp}"), job),
                                    timeout=900)
@@ -3604,6 +3698,185 @@ def tp_phase(dev, seed, trace, paged_tokens, smi, weights):
     report["seconds"] = time.perf_counter() - t_unit
     log(f"[tp] phase 17 took {report['seconds']:.1f}s (gloo on one card, {smi})")
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 18: MoE expert parallelism (two or four ranks on the one card)
+# ---------------------------------------------------------------------------
+
+
+def expert_bytes(params):
+    """Bytes of the routed experts' codes (``w_gate``, ``w_up``, ``w_down``;
+    a ``Shard``'s part)."""
+    from repro_torch.core.approx import Shard
+
+    moe = params["layers"]["moe"]
+    return sum((w.w if isinstance(w, Shard) else w).codes.nbytes
+               for w in (moe["w_gate"], moe["w_up"], moe["w_down"]))
+
+
+def ep_kernel_checks(cfg, dev, gen, rng, m_adm):
+    """(a) K1 bit-equal to its plain version at every per-rank (K, N) this
+    phase adds: the shared expert's, attention's and the head's at tp=2
+    and tp=4, and an expert's own column/row parts at EP_COLROW_TP (where
+    60 experts do not divide the ranks), at M = 4, the decode capacity (8)
+    and the first admission's rows; K2 within K2_TOL of its plain version
+    at each rank's heads (hd 128), both pool dtypes, with and without
+    holes."""
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+    from repro_torch.models.moe import moe_capacity
+
+    d, hq, sff = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.moe_shared_ff
+    cap = moe_capacity(NUM_SLOTS, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
+    shapes = {(K, N) for tp in EP_DEGREES for K, N in (
+        (d, sff // tp), (sff // tp, d), (d, hq // tp), (hq // tp, d), (d, cfg.padded_vocab // tp))}
+    shapes |= {(d, cfg.d_ff // EP_COLROW_TP), (cfg.d_ff // EP_COLROW_TP, d)}
+    k1, k2 = [], []
+    for K, N in sorted(shapes):
+        for M in sorted({NUM_SLOTS, cap, m_adm}):
+            a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
+            b = torch.randint(0, 256, (K, N), generator=gen, device=dev, dtype=torch.uint8)
+            out = approx_matmul(a, b, multiplier=cfg.approx.multiplier)
+            ref = approx_matmul_plain(a, b, multiplier=cfg.approx.multiplier)
+            if out.dtype != torch.int32 or not torch.equal(out, ref):
+                raise AssertionError(f"[ep] K1 M={M} K={K} N={N}: "
+                                     f"{int((out != ref).sum())} outputs differ")
+            k1.append([M, K, N])
+    g = cfg.num_heads // cfg.num_kv_heads
+    for tp in EP_DEGREES:
+        n_kv = cfg.num_kv_heads // tp
+        for pool, dt in K2_POOLS.items():
+            for holes in (False, True):
+                args = paged_case(rng, dev, NUM_SLOTS, FAMILY_MAX_LEN // BLOCK_SIZE, BLOCK_SIZE,
+                                  n_kv, g, cfg.head_dim, holes=holes, pool_dtype=dt)
+                err, err16 = k2_check(f"ep tp={tp} {pool} holes={holes}", args, BLOCK_SIZE)
+                k2.append({"tp": tp, "heads": [n_kv * g, n_kv], "pool": pool, "holes": holes,
+                           "max_abs_err": err, "max_abs_err_bf16_q": err16})
+    log(f"[ep] (a) K1 bit-equal at (M, K, N) {k1}; K2 within {K2_TOL} on "
+        + json.dumps([(r["tp"], r["heads"], r["pool"], r["holes"], r["max_abs_err"])
+                      for r in k2]))
+    return k1, k2
+
+
+def ep_gates(name, cfg, tp, runs, one, passes, whole_expert_bytes):
+    """(d) On every rank: rank 0's tokens and ticks, tp=1's ticks and
+    dropped assignments, K1's launches ``k1_per_pass(cfg, tp)`` per pass
+    (tp=1's passes), K2's tp=1's (one per layer per decode tick),
+    ``collectives_per_pass`` per pass, 1/tp of tp=1's pool and of the
+    whole model's expert codes, stats.tp and devices."""
+    from repro_torch.launch.dryrun import collectives_per_pass
+
+    k1 = k1_per_pass(cfg, tp) * passes
+    coll = collectives_per_pass(cfg, tp) * passes
+    drops = [d[1:] for d in one["drops"]]
+    for rank, r in enumerate(runs):
+        run, bad = r["runs"]["kernel"], []
+        if run["tokens"] != runs[0]["runs"]["kernel"]["tokens"]:
+            bad.append("tokens differ from rank 0's")
+        if (run["ticks"], [d[1:] for d in run["drops"]]) != (one["ticks"], drops):
+            bad.append(f"ticks {run['ticks']} and drops {run['drops']} against tp=1's "
+                       f"{one['ticks']} and {one['drops']}")
+        n = run["launches"]
+        if (n["approx_matmul"], n["paged_attention"]) != (k1, one["launches"]["paged_attention"]):
+            bad.append(f"launches {n}, want K1 {k1} ({k1_per_pass(cfg, tp)} per pass x "
+                       f"{passes}) and K2 {one['launches']['paged_attention']}")
+        if run["collectives"] != coll:
+            bad.append(f"{run['collectives']} collectives, want {coll} "
+                       f"({collectives_per_pass(cfg, tp)} per pass)")
+        if run["pool_bytes"] * tp != one["pool_bytes"]:
+            bad.append(f"pool {run['pool_bytes']} B x {tp} != {one['pool_bytes']} B")
+        if r["expert_bytes"] * tp != whole_expert_bytes:
+            bad.append(f"expert codes {r['expert_bytes']} B x {tp} != {whole_expert_bytes} B")
+        if (run["tp"], run["devices"]) != (tp, tp):
+            bad.append(f"stats tp/devices {run['tp']}/{run['devices']}")
+        if bad:
+            raise AssertionError(f"[ep] {name} rank {rank}: " + "; ".join(bad))
+
+
+def ep_save(params, tmp, name):
+    """Phase 18's hand-over: the unit's frozen weights copied to host
+    memory (the caller then frees them on the card) and written to a file
+    under ``tmp`` by a thread while the unit goes on; ``saved["wait"]()``
+    joins it, raising its error.  Also the whole model's expert-code bytes."""
+    from repro_torch.models.transformer import params_to
+
+    cpu = params_to(params, "cpu")
+    saved, errors = {"weights": os.path.join(tmp, name), "expert_bytes": expert_bytes(params)}, []
+
+    def write():
+        t0 = time.perf_counter()
+        try:
+            torch.save(cpu, saved["weights"])
+        except BaseException as e:              # raised again by wait()
+            errors.append(e)
+        saved["save_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=write, name=f"save {name}", daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if errors:
+            raise errors[0]
+        saved["file_gb"] = os.path.getsize(saved["weights"]) / 1e9
+
+    saved["wait"] = wait
+    return saved
+
+
+def ep_world(cfg, tp, saved, one, trace, dev, seed):
+    """Phase 18's world of ``tp`` ranks on the one card: ``tp_rank``
+    serves ``trace`` through phase 13's session on the weights ``saved``
+    (``ep_save``), held to the unit's own tp=1 run ``one`` of the same
+    weights (``counted_run``'s numbers): (d) by ``ep_gates``, then the
+    tokens by the near-tie rule ((b) at 24 layers, (c) at 4).  Returns
+    the printed row and the ranks' launches."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import params_to
+
+    saved["wait"]()
+    name = f"tp={tp} {cfg.num_layers} layers"
+    passes, rest = divmod(one["launches"]["approx_matmul"], k1_per_pass(cfg))
+    if rest or one["launches"]["paged_attention"] != cfg.num_layers * one["ticks"]:
+        raise AssertionError(f"[ep] tp=1 at {cfg.num_layers} layers: launches "
+                             f"{one['launches']} over {one['ticks']} ticks are not whole passes")
+    t0 = time.perf_counter()
+    job = {"cfg": cfg, "session": "family", "seed": seed, "trace": trace, "attn": ("kernel",),
+           "device": str(dev), "weights": saved["weights"]}
+    ranks = run_ranks(tp_rank, tp, (saved["weights"] + ".store", job), timeout=900)
+    world_s = time.perf_counter() - t0
+    log(f"[ep] {name} world: {world_s:.1f}s, ranks loaded and cut the weights in "
+        + ", ".join(f"{r['load_s']:.1f}s" for r in ranks)
+        + ", peak reserved " + ", ".join(f"{r['peak_reserved_gb']:.2f} GB" for r in ranks))
+    ep_gates(name, cfg, tp, ranks, one, passes, saved["expert_bytes"])
+    run, near = ranks[0]["runs"]["kernel"], {}
+    if run["tokens"] != one["tokens"]:                  # (b), (c): the near-tie rule
+        held = params_to(torch.load(saved["weights"], map_location="cpu", mmap=True,
+                                    weights_only=False), dev)
+        near = tie_or_equal(f"[ep] {name}", cfg, held, trace, run["tokens"], one["tokens"])
+        del held
+    row = {"tp": tp, "layers": cfg.num_layers, "ticks": run["ticks"], "passes": passes,
+           "identical_tokens": run["tokens"] == one["tokens"], "near_ties": near,
+           "world_s": world_s, "save_s": saved["save_s"], "file_gb": saved["file_gb"],
+           "host_ms_per_tick": 1e3 * run["wall_s"] / run["ticks"],
+           "tp1_host_ms_per_tick": 1e3 * one["wall_s"] / one["ticks"],
+           "collectives_per_pass": run["collectives"] / passes,
+           "collectives_per_tick": run["collectives"] / run["ticks"],
+           "collective_host_ms_per_tick": 1e3 * run["collective_host_s"] / run["ticks"],
+           "gathered_mb_per_tick": sum(b * n for b, n in run["gathers"].items())
+           / 1e6 / run["ticks"],
+           "gathers_by_bytes": run["gathers"],
+           "k1_per_pass": k1_per_pass(cfg, tp), "tp1_k1_per_pass": k1_per_pass(cfg),
+           "launches_per_rank": run["launches"],
+           "dropped_assignments": sum(d[2] for d in run["drops"]),
+           "pool_bytes_per_rank": run["pool_bytes"], "tp1_pool_bytes": one["pool_bytes"],
+           "expert_gb_per_rank": ranks[0]["expert_bytes"] / 1e9,
+           "tp1_expert_gb": saved["expert_bytes"] / 1e9,
+           "rank_weight_gb": [r["weight_bytes"] / 1e9 for r in ranks],
+           "rank_peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks]}
+    log(f"[ep] {name}: {json.dumps(row)}")
+    return row, {k: sum(r["runs"]["kernel"]["launches"][k] for r in ranks)
+                 for k in ("approx_matmul", "paged_attention")}
 
 
 # ---------------------------------------------------------------------------
@@ -3659,33 +3932,35 @@ def _backbone_unit(arch):
 
 # each unit with the card memory (GB) it reserves at its peak (a granite
 # unit builds the model's f32 weights, 10.1 GB, before freezing them; the
-# qwen2-moe-a2.7b unit holds its frozen model, then a 4-layer f32 one; a
-# training unit of phase 14 or 15 holds its float32 parameters, gradients
-# and both moments, 16 bytes per parameter, and the step's transients;
-# each measured alone on an H100 80GB, see PERF.md), started in this order whenever
-# the units running leave it room: a training unit leaves room for the
-# small serving units only, so each starts beside them, and the longest of
-# the rest (phase 8, whose training shares the card's cycles) before the
-# others
+# qwen2-moe-a2.7b unit holds its frozen model, then a 4-layer f32 one, and
+# frees each before phase 18's ranks load it (7.9 GB a rank at tp=2, within
+# the unit's budget); a training unit of phase 14 or 15 holds its float32
+# parameters, gradients and both moments, 16 bytes per parameter, and the
+# step's transients; each measured alone on an H100 80GB, see PERF.md),
+# started in this order whenever the units running leave it room.  The pool
+# is bound by memory held over time: no two training units fit together and
+# each leaves room for the small units only, so one training unit opens the
+# pool beside the small family units, the serving units fill the middle,
+# and the two longest training units close it, the longer last
 UNITS = {
-    f"train {FAMILY_ARCHS[0]}": (65, _train_unit(FAMILY_ARCHS[0])),
-    "share": (6, _share_unit),
+    f"train {FAMILY_ARCHS[1]}": (54, _train_unit(FAMILY_ARCHS[1])),
+    FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
+    "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
+    "slots": (22, _slots_unit),
+    "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
     "tiers": (6, lambda dev, sh: tiers_phase(serving_configs()[0], dev, sh["seed"],
                                              sh["trace"], sh["smi"])),
     f"train {FAMILY_ARCHS[2]}": (60, _train_unit(FAMILY_ARCHS[2])),
-    "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
-    f"train {FAMILY_ARCHS[1]}": (54, _train_unit(FAMILY_ARCHS[1])),
-    "async": (22, _async_unit),
-    "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
     "chunked_sync": (22, _chunked_unit(("sync",))),
-    "slots": (22, _slots_unit),
-    FAMILY_ARCHS[0]: (32, _family_unit(FAMILY_ARCHS[0])),
-    BACKBONE_ARCHS[0]: (35, _backbone_unit(BACKBONE_ARCHS[0])),
-    BACKBONE_ARCHS[1]: (37, _backbone_unit(BACKBONE_ARCHS[1])),
-    FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
-    FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
+    "async": (22, _async_unit),
     "tp": (10, lambda dev, sh: tp_phase(dev, sh["seed"], sh["trace"], sh["paged_tokens"],
                                         sh["smi"], sh["tp_weights"])),
+    FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
+    "share": (6, _share_unit),
+    BACKBONE_ARCHS[0]: (35, _backbone_unit(BACKBONE_ARCHS[0])),
+    BACKBONE_ARCHS[1]: (37, _backbone_unit(BACKBONE_ARCHS[1])),
+    FAMILY_ARCHS[0]: (25, _family_unit(FAMILY_ARCHS[0])),
+    f"train {FAMILY_ARCHS[0]}": (65, _train_unit(FAMILY_ARCHS[0])),
 }
 POOL_GB = 72                         # the units' peaks at once: the card's 85 GB less headroom
 
@@ -3981,6 +4256,7 @@ def main(argv=None) -> int:
 
     # -- 13. families --------------------------------------------------------
     families = {arch: unit[arch] for arch in FAMILY_ARCHS}
+    ep = families[FAMILY_ARCHS[0]].pop("ep")            # phase 18 ran in this unit
     families[FAMILY_ARCHS[0]]["k2"] = moe_k2
     report["families"] = {**families, "seconds": sum(f["seconds"] for f in families.values())}
     fam = {f["family"]: f["launches"] for f in families.values()}
@@ -4009,6 +4285,12 @@ def main(argv=None) -> int:
     paths.update(tp["launches"])
     log(f"[tp] phase 17 took {tp['seconds']:.1f}s; launches by path "
         f"{json.dumps(tp['launches'])}")
+
+    # -- 18. MoE expert parallelism ------------------------------------------
+    report["ep"] = ep
+    paths.update(ep["launches"])
+    log(f"[ep] phase 18 took {ep['seconds']:.1f}s; launches by path "
+        f"{json.dumps(ep['launches'])}")
 
     # -- 16. roofline ---------------------------------------------------------
     roof = report["roofline"]
@@ -4067,10 +4349,10 @@ def main(argv=None) -> int:
                               **{path: n["paged_attention"] for path, n in paths.items()}},
          "max_abs_err": max(k2_err, moe_k2["max_abs_err"],
                             *(b["k2_check"]["max_abs_err"] for b in bb.values()),
-                            *(r["max_abs_err"] for r in tp["k2"])),
+                            *(r["max_abs_err"] for r in tp["k2"] + ep["k2"])),
          "max_abs_err_bf16_q": max(k2_err16, moe_k2["max_abs_err_bf16_q"],
                                    *(b["k2_check"]["max_abs_err_bf16_q"] for b in bb.values()),
-                                   *(r["max_abs_err_bf16_q"] for r in tp["k2"])),
+                                   *(r["max_abs_err_bf16_q"] for r in tp["k2"] + ep["k2"])),
          "max_abs_err_served_bf16_q": max(b["decode"]["k2_max_abs_err"] for b in bb.values()),
          "ms": k2_step["ms"], "plain_ms": k2_step["plain_ms"],
          "bound_ms": k2_step["bound_ms"], "bound_by": k2_step["bound_by"],

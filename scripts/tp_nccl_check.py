@@ -3,13 +3,15 @@
 ``launch/serve.py --tp N`` (rank r on ``cuda:r``) serves the tokens of
 ``--tp 0`` on one card, at full width, and refuses more ranks than cards.
 
-    python3 scripts/tp_nccl_check.py [--requests 8] [--new 16]
+    python3 scripts/tp_nccl_check.py [--arch qwen2-moe-a2.7b] [--requests 8] [--new 16]
 
-Runs the launcher (``--exec approx --freeze-weights --loop sync``, the
-seeded weights and trace) at ``--tp 0``, ``--tp 2`` and ``--tp`` = every
-card, prints each run's output and wall seconds, compares the ``sample:``
-lines (the first request's prompt and tokens) and exits 1 unless they are
-equal; then ``--tp`` one past the cards must exit non-zero.  Needs at
+Runs the launcher (``--arch``, default granite-3-2b; ``--exec approx
+--freeze-weights --loop sync``, the seeded weights and trace) at ``--tp
+0``, ``--tp 2`` and ``--tp`` = every card, prints each run's output and
+wall seconds, compares the ``sample:`` lines (the first request's prompt
+and tokens) and exits 1 unless they are equal; then ``--tp`` one past the
+cards must exit non-zero.  qwen2-moe-a2.7b's 60 experts split by expert
+over 2 and 4 cards and column/row inside each expert over 8.  Needs at
 least two cards (``chip_smoke.py`` checks TP on one card over gloo only).
 """
 from __future__ import annotations
@@ -25,7 +27,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def launch(args, *extra):
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--exec", "approx",
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", args.arch,
+           "--exec", "approx",
            "--freeze-weights", "--loop", "sync", "--requests", str(args.requests),
            "--new", str(args.new), "--prompt-len", "64", *extra]
     t0 = time.perf_counter()
@@ -39,6 +42,8 @@ def launch(args, *extra):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="a dense or moe config (configs.list_archs())")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new", type=int, default=16)
     args = ap.parse_args()

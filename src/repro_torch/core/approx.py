@@ -144,7 +144,10 @@ class Shard(NamedTuple):
     output columns; a frozen weight's per-channel fields sliced with its
     codes), ``"row"`` (its input rows: the products are summed over the
     ranks, and a frozen weight's fields stay whole, since they describe
-    whole columns) or ``"vocab"`` (an embedding table's rows)."""
+    whole columns), ``"vocab"`` (an embedding table's rows) or
+    ``"expert"`` (a MoE's (..., E, K, N) expert stack cut to the rank's
+    ``E/size`` whole experts, every field that carries the expert axis with
+    them: ``models/moe.moe_ffn`` runs them and gathers their rows)."""
 
     w: Any                     # a tensor or a QWeight
     split: str
@@ -277,6 +280,9 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     split = mesh = None
     if isinstance(w, Shard):
         w, split, mesh = w
+        if split == "expert":
+            raise ValueError("approx_dense: an expert Shard is a stack of experts, not "
+                             "one projection (moe_ffn runs each of the rank's experts)")
     rows = mesh if split == "row" else None
     if isinstance(w, QWeight):
         return _approx_dense_frozen(x, w, cfg, rows)

@@ -53,8 +53,9 @@ from repro_torch.parallel.sharding import tree_bytes
 from repro_torch.train import optim as O
 from repro_torch.train.loop import make_train_step
 
-__all__ = ["auto_microbatch", "backward_peak", "build_step", "cell_supported", "extract_costs",
-           "in_depth", "k1_per_pass", "k1_per_train_step", "model_flops", "run_cell"]
+__all__ = ["auto_microbatch", "backward_peak", "build_step", "cell_supported",
+           "collectives_per_pass", "extract_costs", "in_depth", "k1_per_pass",
+           "k1_per_train_step", "model_flops", "run_cell"]
 
 DEFAULT_OUT = os.path.join("results", "dryrun_torch")
 APPROX = ApproxConfig(multiplier="mul8x8_2", mode="kernel")   # every cell's multiplier and mode
@@ -80,18 +81,39 @@ def auto_microbatch(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,
     return mb
 
 
-def k1_per_pass(cfg: ModelConfig) -> int:
+def k1_per_pass(cfg: ModelConfig, tp: int = 1) -> int:
     """K1 calls of one forward or decode pass of ``cfg``'s stack (frozen
-    weights): every projection of every layer, each routed expert's three
-    included (empty experts too), and the LM head."""
+    weights) on one rank of a ``tp``-rank mesh: every projection of every
+    layer, each routed expert's three included (empty experts too; under
+    expert parallelism, where ``tp`` divides the experts, the rank's
+    ``E/tp``), and the LM head."""
     n = cfg.num_layers
     if cfg.family == "moe":
-        return n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
+        experts = cfg.moe_experts // tp if cfg.moe_experts % tp == 0 else cfg.moe_experts
+        return n * (4 + 3 * experts + (3 if cfg.moe_shared_ff else 0)) + 1
     if cfg.family == "ssm":
         return 4 * n + 1
     if cfg.family == "hybrid":
         return 2 * n + 7 * (n // cfg.attn_every) + 1
     return 7 * n + 1
+
+
+def collectives_per_pass(cfg: ModelConfig, tp: int) -> int:
+    """Collectives of one serving pass on each rank of a ``tp``-rank
+    mesh (``parallel/tp.py``; float weights in float mode, else frozen or
+    quantized): per layer, each row split reduces once in float mode and
+    twice otherwise (the activation range's MAX, then the code dot's
+    SUM): ``wo``, and ``w_down`` (dense) or ``shared_down`` and the routed
+    experts (one all-gather of their rows under expert parallelism, else
+    each expert's ``w_down``); then the vocab-split embedding's SUM and the
+    head's all-gather, where ``tp`` divides their vocab."""
+    row = 1 if cfg.approx.mode == "float" else 2
+    per_layer = 2 * row
+    if cfg.family == "moe":
+        per_layer = row * (1 + bool(cfg.moe_shared_ff))
+        per_layer += 1 if cfg.moe_experts % tp == 0 else row * cfg.moe_experts
+    return (cfg.num_layers * per_layer + (cfg.vocab_size % tp == 0)
+            + (cfg.padded_vocab % tp == 0))
 
 
 def k1_per_train_step(cfg: ModelConfig) -> int:

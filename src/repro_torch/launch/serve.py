@@ -23,12 +23,15 @@ them, as the JAX session does) and prefill by teacher-forcing the prompt
 through the decode step.
 
 ``--tp N`` serves tensor parallel (the continuous engine on the paged
-layout, dense family): N rank processes, rank r on ``cuda:r`` over NCCL
+layout, dense or moe family; a MoE's routed experts split by expert where
+N divides them): N rank processes, rank r on ``cuda:r`` over NCCL
 (``--device cpu``: on the CPU over gloo), each with the same weights and
 trace; rank 0 prints.  It refuses more ranks than visible cards.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --exec approx
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --tp 2 \
+        --arch qwen2-moe-a2.7b
 
 On the paged layout ``--prefix-sharing`` shares resident prompt blocks
 (copy-on-write), ``--preemption`` oversubscribes the pool and evicts and
@@ -223,10 +226,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (default: the CUDA device; 'cpu' runs "
                          "the plain versions)")
     ap.add_argument("--tp", type=int, default=0,
-                    help="continuous engine, paged layout: serve tensor "
-                         "parallel over N rank processes (rank r on cuda:r "
-                         "over NCCL; --device cpu: gloo on the CPU), params "
-                         "Megatron-split and the KV pool split by KV head")
+                    help="continuous engine, paged layout, dense or moe: "
+                         "serve tensor parallel over N rank processes (rank r "
+                         "on cuda:r over NCCL; --device cpu: gloo on the "
+                         "CPU), params Megatron-split (a MoE's experts by "
+                         "expert where N divides them) and the KV pool split "
+                         "by KV head")
     return ap
 
 

@@ -90,9 +90,11 @@ def unstack(node, n: int):
     """A tree stacked on a leading axis of ``n`` (dicts of tensors,
     ``QWeight``s, ``Shard``s and ``None`` leaves) as a list of ``n`` per-entry trees of
     views: the per-layer walk over stacked layers, and the per-expert walk
-    over stacked experts.  Under autograd the backward of ``unbind`` stacks
-    the per-entry gradients once, where indexing would add one zero-padded
-    full-size gradient per entry."""
+    over stacked experts.  A ``Shard`` stays a ``Shard`` of the same split
+    (a layer of an expert ``Shard`` holds the rank's experts).  Under
+    autograd the backward of ``unbind`` stacks the per-entry gradients
+    once, where indexing would add one zero-padded full-size gradient per
+    entry."""
     if isinstance(node, dict):
         per = {k: unstack(v, n) for k, v in node.items()}
         return [{k: per[k][i] for k in per} for i in range(n)]

@@ -13,6 +13,22 @@ skipping an empty one would need its count on the host.  The router stays
 float32 (a control path; quantizing it is not part of the paper).  Nothing
 here waits on the device.
 
+Under a tensor-parallel mesh (``parallel/tp.shard_params``) the router,
+the routing, the dispatch buffer and the combine are computed whole on
+every rank, from the replicated activations.  Where the experts divide the
+mesh, the stacks are expert ``Shard``s: a rank runs only its ``E/tp``
+experts over their rows of the buffer, and one all-gather along the
+expert axis (``collectives.all_gather_first``, bytes, exact) gives every
+rank the whole output buffer.  Each expert's projections keep tp=1's
+shapes, so the routed experts' sum is bit-identical to tp=1's, and so is
+the block's output in the integer modes, where the shared expert's row
+split sums exact integers (in float mode its float partial sums round
+apart within 1e-6 relative); a SUM of per-rank combines would add the
+floats in another order.  Otherwise the stacks are column
+(``w_gate``/``w_up``) and row (``w_down``) ``Shard``s and every expert
+runs through ``dense``'s Megatron split, its ``w_down`` reducing the
+ranks' partial products.  The shared expert takes the column/row split.
+
 The combine is deterministic: each token sums its k contributions in one
 fixed order, by expert ascending from zero, which is the order of the JAX
 package's scatter-add over the stably sorted assignments on the CPU (a
@@ -31,8 +47,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig
+from repro_torch.core.approx import ApproxConfig, Shard
 from repro_torch.models import layers as L
+from repro_torch.parallel.collectives import all_gather_first
 
 __all__ = ["Routing", "init_moe", "load_balance_loss", "moe_capacity", "moe_ffn", "route"]
 
@@ -142,10 +159,19 @@ def moe_ffn(
     buf[torch.where(r.keep, r.slot, trash)] = repeated[r.order]
     buf = buf[:-1].reshape(E, capacity, d)
 
-    # ---- experts: one dense per projection and expert, empty ones included
-    per = [L.unstack(p[k], E) for k in ("w_gate", "w_up", "w_down")]
-    out_buf = torch.stack([_expert_ffn(buf[e], per[0][e], per[1][e], per[2][e], cfg)
-                           for e in range(E)]).reshape(E * capacity, d)
+    # ---- experts: one dense per projection and expert, empty ones
+    # included; under an expert split the rank's experts, then every rank's
+    # rows gathered in expert order
+    ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
+    ep = ws[0] if isinstance(ws[0], Shard) and ws[0].split == "expert" else None
+    n = E // ep.mesh.size if ep is not None else E
+    lo = ep.mesh.rank * n if ep is not None else 0
+    per = [L.unstack(w.w if ep is not None else w, n) for w in ws]
+    out_buf = torch.stack([_expert_ffn(buf[lo + e], per[0][e], per[1][e], per[2][e], cfg)
+                           for e in range(n)])
+    if ep is not None:
+        out_buf = all_gather_first(out_buf, ep.mesh)
+    out_buf = out_buf.reshape(E * capacity, d)
 
     # ---- combine: back to (token, choice) order, then each token's k
     # contributions summed by expert ascending (the sorted order)

@@ -1,7 +1,8 @@
 """The collectives of tensor-parallel serving, over a ``TPMesh``'s group:
 a SUM all-reduce (int32 code dots and row sums, float32 partial
-products), a MAX all-reduce (float32 ranges) and an all-gather along the
-last dim (the vocab-split logits).  Nothing more, so gloo can carry them
+products), a MAX all-reduce (float32 ranges), an all-gather along the
+last dim (the vocab-split logits) and one along the first (the
+expert-parallel MoE's output rows).  Nothing more, so gloo can carry them
 on CUDA tensors as well as NCCL.  Each call waits for its result and is
 counted in ``COUNTS`` (calls, and host seconds spent in them).
 
@@ -16,7 +17,8 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["COUNTS", "all_gather_last", "all_reduce_max", "all_reduce_sum", "max_range"]
+__all__ = ["COUNTS", "all_gather_first", "all_gather_last", "all_reduce_max", "all_reduce_sum",
+           "max_range"]
 
 COUNTS: Dict[str, float] = {"calls": 0, "host_s": 0.0}
 
@@ -60,3 +62,14 @@ def all_gather_last(t: torch.Tensor, mesh) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     _timed(lambda: dist.all_gather(parts, t, group=mesh.group), t)
     return torch.cat(parts, dim=-1)
+
+
+def all_gather_first(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along the first dim, in rank order,
+    bit for bit: the rows travel as their bytes (uint8), which every
+    backend carries whatever ``t``'s dtype (gloo has no int16)."""
+    t = t.contiguous()
+    wire = t.view(torch.uint8)
+    parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+    _timed(lambda: dist.all_gather(parts, wire, group=mesh.group), t)
+    return torch.cat(parts).view(t.dtype)

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.approx import QWeight
+from repro_torch.core.approx import QWeight, Shard
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.train.tree import leaves_with_path
 
@@ -94,9 +94,11 @@ def param_pspec(path: str, shape: Tuple[int, ...], cfg: ModelConfig, mesh) -> Sp
 def named_leaves(tree: Any) -> List[Tuple[str, torch.Tensor]]:
     """(path, leaf) in the JAX package's flatten order and key strings,
     a frozen ``QWeight`` expanded into its ``.codes``, ``.scale``,
-    ``.zero_point`` and ``.col_sum``."""
+    ``.zero_point`` and ``.col_sum``, a ``Shard`` read as its part."""
     out = []
     for path, leaf in leaves_with_path(tree):
+        if isinstance(leaf, Shard):
+            leaf = leaf.w
         if isinstance(leaf, QWeight):
             out += [(f"{path}.{f}", t) for f, t in zip(QWeight._fields, leaf)]
         else:
@@ -178,5 +180,6 @@ def cache_pspecs(cfg: ModelConfig, mesh, cache: Dict[str, torch.Tensor], *,
 
 
 def tree_bytes(*trees: Any) -> int:
-    """Bytes of every tensor in ``trees`` (a frozen weight's fields too)."""
+    """Bytes of every tensor in ``trees`` (a frozen weight's fields too; a
+    ``Shard``'s part)."""
     return sum(t.numel() * t.element_size() for tree in trees for _, t in named_leaves(tree))

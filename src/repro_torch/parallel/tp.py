@@ -8,12 +8,14 @@ collectives that join the parts (``parallel/collectives.py``).
 granite's 49,155-row embedding) into a ``core.approx.Shard``: the
 projections Megatron-style (``wq``/``wk``/``wv``/``w_gate``/``w_up`` and
 the LM head by output column, ``wo``/``w_down`` by input row), the
-embedding by vocab row.  A frozen ``QWeight`` must be frozen whole
-before it is cut (a K-part's per-channel scale would be another scale):
-a column split slices its per-channel scale, zero point and column sums
-with its codes' columns, a row split keeps them whole.  ``shard_cache``
-keeps the rank's KV heads of the paged pool.  Every part is a copy, so
-the whole tensor can be freed.
+embedding by vocab row, and a MoE's routed-expert stacks by expert where
+the experts divide the axis (each rank holds ``E/tp`` whole experts).  A
+frozen ``QWeight`` must be frozen whole before it is cut (a K-part's
+per-channel scale would be another scale): a column split slices its
+per-channel scale, zero point and column sums with its codes' columns,
+an expert split slices every field that carries the expert axis, a row
+split keeps them whole.  ``shard_cache`` keeps the rank's KV heads of
+the paged pool.  Every part is a copy, so the whole tensor can be freed.
 """
 from __future__ import annotations
 
@@ -51,20 +53,22 @@ def _shard_leaf(path: str, leaf, cfg: ModelConfig, mesh):
                        tuple(codes.shape), cfg, mesh)
     if "model" not in spec:
         return leaf
-    dim = spec.index("model") - len(spec)          # from the end: -1 or -2
+    dim = spec.index("model") - len(spec)          # from the end: -1, -2 or -3
     if path == "['embed']":
         split = "vocab"
-    elif dim == -1:
-        split = "column"
     else:
-        split = "row"
+        split = {-1: "column", -2: "row", -3: "expert"}[dim]
     if not isinstance(leaf, QWeight):
         return Shard(_part(leaf, dim, mesh), split, mesh)
-    N = codes.shape[-1]
 
-    def field(t):                  # per-channel fields follow a column split
-        per_channel = t.dim() > 0 and t.shape[-1] == N and N > 1
-        return _part(t, -1, mesh) if split == "column" and per_channel else t
+    def field(t):
+        # per-channel fields follow a column split; fields that carry the
+        # expert axis follow an expert split; the rest stay whole
+        if split == "column" and t.dim() > 0 and t.shape[-1] == codes.shape[-1] > 1:
+            return _part(t, -1, mesh)
+        if split == "expert" and t.dim() == codes.dim() and t.shape[-3] == codes.shape[-3]:
+            return _part(t, -3, mesh)
+        return t
 
     return Shard(QWeight(_part(codes, dim, mesh), *(field(t) for t in leaf[1:])), split, mesh)
 
@@ -73,13 +77,13 @@ def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh) -> Dict[str, An
     """The rank's parameter tree: every leaf that the rules split over
     ``mesh``'s ``"model"`` axis as a ``Shard`` of its part, the rest as
     they are; a tree cut already passes through (a rank that cut its
-    weights as it built them, so it never holds two whole copies).  Dense
-    family only (the serving path's)."""
-    if cfg.family != "dense":
+    weights as it built them, so it never holds two whole copies).  The
+    dense and moe families: the ssm and hybrid families keep no paged
+    pool, which serving under a mesh needs (in the JAX package too)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"tensor-parallel serving of the {cfg.family} family is not ported: "
-            "MoE expert parallelism under a mesh is the next slice (ROADMAP.md "
-            "section 1, item 5)")
+            f"tensor-parallel serving of the {cfg.family} family: its decode state "
+            "has no paged layout, and a mesh serves the paged pool only")
     pairs = leaves_with_path(params)
     return unflatten(params, (_shard_leaf(p, leaf, cfg, mesh) for p, leaf in pairs))
 

@@ -99,13 +99,14 @@ holds its slot but joins no decode chunk (its table row is scrubbed in the
 decode dispatch's copy).
 
 **Tensor parallelism** (``mesh=``, a ``launch.mesh.TPMesh``; paged, dense
-family): every rank runs this same host scheduler on the same trace (SPMD)
-over its part of the weights (``parallel/tp.shard_params``: Megatron
-column/row splits through K1) and its KV heads of the pool
-(``shard_cache``, attended through K2 on the rank's heads); the
-collectives inside the model pass keep the ranks' device work in lockstep,
-and every rank gathers the full logits and samples the same tokens.  Rank
-0's results are the session's.
+or moe family): every rank runs this same host scheduler on the same trace
+(SPMD) over its part of the weights (``parallel/tp.shard_params``: Megatron
+column/row splits through K1, and a MoE's routed experts split by expert
+where they divide the mesh) and its KV heads of the pool (``shard_cache``,
+attended through K2 on the rank's heads); the collectives inside the model
+pass keep the ranks' device work in lockstep, and every rank gathers the
+full logits and samples the same tokens.  Rank 0's results are the
+session's.
 
 This is the JAX package's ``ServeSession``.  Greedy tokens are the cross-framework
 contract; temperature sampling follows the port's own positional Philox
@@ -711,8 +712,8 @@ class ServeSession:
     chunk by chunk across steps, and admits prompts past the largest
     bucket.
 
-    ``mesh`` (a ``TPMesh``; paged layout, dense family) serves tensor
-    parallel over its ``tp_axis`` (``"model"``): the session cuts the
+    ``mesh`` (a ``TPMesh``; paged layout, dense or moe family) serves
+    tensor parallel over its ``tp_axis`` (``"model"``): the session cuts the
     params (float, or frozen whole before the cut) and the pool into the
     rank's parts, and every rank of the mesh builds the same session and
     drives it with the same calls.
@@ -893,8 +894,6 @@ class ServeSession:
                     "mesh serving shards the paged BlockPool along the "
                     'KV-head dim — it requires cache_layout="paged"'
                 )
-            # both attention paths run on whole heads per rank
-            validate_tp_heads(cfg.num_heads, cfg.num_kv_heads, int(mesh.shape[tp_axis]))
         # SSM/hybrid caches carry conv/ssm state -> masked teacher-forced admit
         self.prefill_mode = "decode" if cfg.family in ("ssm", "hybrid") else "fused"
         if cache_layout == "paged":
@@ -909,6 +908,9 @@ class ServeSession:
                     "zero_on_evict applies to the slot layout only (freed "
                     "blocks are invisible until re-seeded by their next owner)"
                 )
+            if mesh is not None:
+                # both attention paths run on whole heads per rank
+                validate_tp_heads(cfg.num_heads, cfg.num_kv_heads, int(mesh.shape[tp_axis]))
             if block_size < 1:
                 raise ValueError(f"block_size must be >= 1, got {block_size}")
             if max_len % block_size:

@@ -397,14 +397,31 @@ def _cut_layers(params, n):
                                      else d[:n]) for k, d in params["layers"].items()}}
 
 
-def test_mesh_refuses_a_non_dense_family(mesh1):
-    cfg = reduced_config(get_config("qwen2-moe-a2.7b"))
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("layout", ["paged", "slots"])
+def test_mesh_refuses_a_family_without_a_paged_pool(mesh1, arch, layout):
+    """The ssm and hybrid families under a mesh: the session raises JAX's
+    message (the paged pool refuses their O(1) state; the slot layout
+    refuses a mesh), and ``shard_params`` raises."""
+    import jax
+
+    from repro.configs import get_config as jget
+    from repro.configs import reduced_config as jreduced
+    from repro.models.transformer import init_params as jinit
+    from repro.serve.scheduler import ServeSession as JServeSession
     from repro_torch.models.transformer import init_params
 
+    cfg, jcfg = reduced_config(get_config(arch)), jreduced(jget(arch))
+    kw = dict(num_slots=2, max_len=32, prompt_buckets=(8,), block_size=8, cache_layout=layout)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("model",))
+    with pytest.raises(ValueError) as want:
+        JServeSession(jcfg, jinit(jcfg, jax.random.PRNGKey(0)), mesh=jmesh, **kw)
     params = init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        ServeSession(cfg, params, num_slots=2, max_len=32, prompt_buckets=(8,), block_size=8,
-                     mesh=mesh1, device="cpu")
+    with pytest.raises(ValueError) as got:
+        ServeSession(cfg, params, mesh=mesh1, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="paged"):
+        shard_params(params, cfg, mesh1)
 
 
 # ---------------------------------------------------------------------------
@@ -516,8 +533,8 @@ def _launch(*args):
                           capture_output=True, text=True, env=env, cwd=_ROOT, timeout=240)
 
 
-def test_launcher_tp2_prints_the_tp0_tokens():
-    one, two = _launch("--tp", "0"), _launch("--tp", "2")
+def _tp2_prints_the_tp0_tokens(*args):
+    one, two = _launch("--tp", "0", *args), _launch("--tp", "2", *args)
     assert one.returncode == 0, one.stderr[-2000:]
     assert two.returncode == 0, two.stderr[-2000:]
     sample = [next(ln for ln in r.stdout.splitlines() if ln.startswith("sample:"))
@@ -525,6 +542,15 @@ def test_launcher_tp2_prints_the_tp0_tokens():
     assert sample[0] == sample[1]
     assert "tensor parallel: tp=2 over 2 devices" in two.stdout
     assert two.stdout.count("sample:") == 1                  # rank 0 prints alone
+
+
+def test_launcher_tp2_prints_the_tp0_tokens():
+    _tp2_prints_the_tp0_tokens()
+
+
+def test_launcher_tp2_moe_prints_the_tp0_tokens():
+    """qwen2-moe's 4 reduced experts split by expert over the 2 ranks."""
+    _tp2_prints_the_tp0_tokens("--arch", "qwen2-moe-a2.7b")
 
 
 @pytest.mark.parametrize("args,msg", [
