@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: granite-3-2b at full width served (on the paged pool and on
 per-slot stripes; with prefix sharing, preemption, spec decode, quality
-tiers and chunked prefill) and retrained, the paper's CNNs (ResNet-19 at full
+tiers and chunked prefill) and retrained (also data-parallel with FSDP
+over two and four ranks), the paper's CNNs (ResNet-19 at full
 width) trained and QAT-retrained, qwen2-moe-a2.7b, falcon-mamba-7b and
 zamba2-2.7b served and retrained at full width (qwen2-moe-a2.7b also
 expert-parallel over two and four ranks), and the qwen2-vl-2b and
@@ -243,8 +244,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            and (c)'s weights and K1 async runs.
 14. train  QAT retraining of the moe, ssm and hybrid families at full width
            through K1, as ``launch/train.py`` trains (mul8x8_2, band_reg
-           1e-4, AdamW, remat on, batch 8 x seq 64): qwen2-moe-a2.7b 4
-           layers deep, falcon-mamba-7b 16, zamba2-2.7b all 54
+           1e-4, AdamW, remat on, batch 8 x seq 64): qwen2-moe-a2.7b 2
+           layers deep, falcon-mamba-7b 8, zamba2-2.7b 24 (4 groups)
            (TRAIN_DEPTHS: the cuts fit a unit's float32 parameters,
            gradients and both moments beside the pool).  2 steps with K1's
            count zeroed just before and read just after: finite losses,
@@ -252,7 +253,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            steps times ``k1_per_train_step`` (every projection, then the
            recompute of each layer in the backward); step seconds, peak
            memory, one profiled step's device ms by kernel.  Oracle, 4
-           layers deep (the hybrid: one group of 6), from one fresh state
+           layers deep (the hybrid: one group of 6; qwen2-moe-a2.7b at its
+           2), from one fresh state
            and batch: a step through K1, the same step through K1 again
            and through K1's plain version (``lowrank``): losses and whole
            new states (``state_digest``) bit-identical.  Then
@@ -312,9 +314,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
            version at every per-rank (K, N) of tp=2 and tp=4 (M = 4 and
            512), and K2 within K2_TOL at each rank's heads (16 over 4 and 8
            over 2, hd 64), both pool dtypes, with and without holes; (b)
-           phase 4's trace at 40 layers, tp=2, through the gather: every
-           rank's tokens identical to a tp=1 gather session's; (c) the
-           same through K2: identical to phase 4's tokens, or parted at a
+           phase 4's trace at FEATURE_LAYERS (10), tp=2, through the
+           gather: every rank's tokens identical to a tp=1 gather
+           session's at that depth; (c) the same through K2: identical to
+           a tp=1 K2 session's, or parted at a
            near tie (K2 splits a rank's table walk by its own head count:
            ``split_plan``) within NEAR_TIE in ``forward``, the gap printed;
            (d) tp=4 at 4 layers through K2 against tp=1 at 4 layers, the
@@ -357,12 +360,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (both under the pool's load), collectives per tick and their
            host ms, gathered MB per tick, each rank's weight GB and peak,
            the phase's seconds within the unit.
+19. dp     data-parallel FSDP training (``make_train_step(...,
+           mesh=DataMesh(...))``) of granite-3-2b at full width as
+           ``launch/train.py`` trains (mul8x8_2 through K1, band_reg 1e-4,
+           remat, AdamW, global batch 8 x 64), ranks as processes on the
+           one card over gloo with CUDA tensors (the multi-card NCCL path
+           of ``launch/train.py --mesh`` is not run here), each holding
+           1/dp of every weight the rules split and of its moments: (a) K1
+           bit-equal to its plain version at granite's projections' (K, N)
+           at each rank's M (256 and 128); (b)-(c) dp=2 at DP_LAYERS (4):
+           DP_STEPS (2) steps on the seed's state and ``token_batches``,
+           each against one device's step from the same state and batch
+           (rank 0 steps the seed's whole state, then the state it
+           gathered after the step before): the loss within DP_LOSS_RTOL
+           and the whole new parameters and moments within ``DpClose``'s
+           tolerance, every rank the same losses, K1's launches per rank
+           DP_STEPS x ``k1_per_train_step`` (53), the collectives per rank
+           and step ``collectives_per_train_step`` (175), the state bytes
+           per rank the split leaves' 1/dp plus the replicated leaves,
+           exactly; (d) dp=4 at DP4_LAYERS (2), the same gates; (e) rank
+           0's checkpoint of dp=2's last state restored on one device
+           equal, bit for bit, to each rank's part (``state_digest``).
+           Printed: host seconds per step at dp against one device's,
+           collectives and their host ms, GB gathered per step, state and
+           peak GB per rank.
 
 Phases 1-7 run in this process, one after another, and so do the parts
 whose times go into the kernels line: phase 8's K1 at the CNN shapes,
 phase 10's stall probe (its gates are host times) and phase 13's K2 at the
 moe shape, and phase 16 (its serving steps after phase 5, its training
-step inside phase 7).  The rest of phases 8-15 and phases 17-18 then run as units (phase
+step inside phase 7).  The rest of phases 8-15 and phases 17-19 then run as units (phase
 8; 9; 10; 11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14
 and 15 (13's qwen2-moe-a2.7b with 18); 17; the ranks of 17 and 18 are
 processes of their own) in up to POOL_WORKERS processes on the one card at once, as many
@@ -415,7 +442,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 if (SRC / "repro_torch").is_dir():      # outside a checkout main() says so and exits 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.launch.dryrun import k1_per_pass, k1_per_train_step
+    from repro_torch.launch.dryrun import (collectives_per_train_step, k1_per_pass,
+                                           k1_per_train_step)
     from repro_torch.kernels.work import k2_valid_positions
     from repro_torch.launch.roofline import INT8_OPS_PER_S, bound, k2_bound
 
@@ -467,12 +495,16 @@ BACKBONE_ARCHS = ("qwen2-vl-2b", "musicgen-large")                    # phase 15
 BACKBONE_SEQ = 32                    # phase 15's embeddings per row: 8 text, a 4 x 4 image, 8
 TRAIN_STEPS_FAMILY = 2               # phases 14 and 15's steps through K1
 TRAIN_DEPTHS = {                     # phases 14 and 15: each model's trained depth (PERF.md 4)
-    "qwen2-moe-a2.7b": 4, "falcon-mamba-7b": 16, "zamba2-2.7b": 54,
+    "qwen2-moe-a2.7b": 2, "falcon-mamba-7b": 8, "zamba2-2.7b": 24,
     "qwen2-vl-2b": 28, "musicgen-large": 24}
 TP_DEGREES = (2, 4)                  # phase 17's tensor-parallel ranks
 TP4_LAYERS = 4                       # phase 17's tp=4 depth
 EP_DEGREES = (2, 4)                  # phase 18's expert-parallel ranks
 EP_COLROW_TP = 8                     # phase 18 (a): 60 experts split inside each at this tp
+DP_DEGREES = (2, 4)                  # phase 19's data-parallel ranks
+DP_LAYERS, DP4_LAYERS = 4, 2         # phase 19's depths at dp=2 and dp=4 (PERF.md 4)
+DP_STEPS = 2                         # phase 19's steps per world and reference
+DP_LOSS_RTOL = 1e-4                  # phase 19's loss gate: codes flip on the card (DpClose)
 
 
 _UNIT_LOG = None                     # a pool worker's log lines, printed when its unit ends
@@ -2888,11 +2920,12 @@ def one_step(cfg, opt, seed, batch, dev):
 
 
 def train_oracle(cfg, opt, seed, batch, dev, name):
-    """The 4-layer oracle (the hybrid: one group of ``attn_every``): one
-    step through K1, the same step through K1 again and through its plain
-    version (``lowrank``), each from the same fresh state on the same
-    batch; their losses and whole new states must be bit-identical."""
-    depth = cfg.attn_every if cfg.family == "hybrid" else ORACLE_LAYERS
+    """The 4-layer oracle (the hybrid: one group of ``attn_every``; a model
+    trained shallower: its depth): one step through K1, the same step
+    through K1 again and through its plain version (``lowrank``), each
+    from the same fresh state on the same batch; their losses and whole
+    new states must be bit-identical."""
+    depth = cfg.attn_every if cfg.family == "hybrid" else min(ORACLE_LAYERS, cfg.num_layers)
     cfg4 = dataclasses.replace(cfg, num_layers=depth)
     plain = dataclasses.replace(cfg4, approx=dataclasses.replace(cfg4.approx, mode="lowrank"))
     runs = {k: one_step(c, opt, seed + 1, batch, dev)
@@ -3605,32 +3638,28 @@ def tp_gates(name, cfg, runs, attn, tp, tp1_pool_bytes):
     return first
 
 
-def tp_phase(dev, seed, trace, paged_tokens, smi, weights):
-    """Phase 17 (see the module text).  ``weights``: phase 4's frozen
-    weights, saved by the main process (building them takes 20 GB a
-    process)."""
+def tp_phase(dev, seed, trace, smi):
+    """Phase 17 (see the module text)."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models.transformer import init_params, params_to
     from repro_torch.serve import freeze_params, pool_bytes_per_device
 
     t_unit = time.perf_counter()
-    cfg = serving_configs()[0]
+    cfg = dataclasses.replace(serving_configs()[0], num_layers=FEATURE_LAYERS)
     gen = torch.Generator(device=dev).manual_seed(seed)
     k1, k2 = tp_kernel_checks(cfg, dev, gen, np.random.default_rng(seed))
 
-    # the tp=1 sessions: phase 4's weights through the gather and through
-    # K2 (phase 4's session, here for its tick time under this run's load),
-    # and tp=4's depth, seeded, through K2; the ranks load the same weights
+    # the tp=1 sessions at each world's depth, weights frozen from the seed
+    # (tp=2's through the gather and through K2, tp=4's through K2); the
+    # ranks load the same weights from a file
     cfg4 = dataclasses.replace(cfg, num_layers=TP4_LAYERS)
     ref = {}
     tmp = tempfile.TemporaryDirectory(prefix="tp_")
-    files = {cfg.num_layers: weights, TP4_LAYERS: os.path.join(tmp.name, "weights4.pt")}
+    files = {c.num_layers: os.path.join(tmp.name, f"weights{c.num_layers}.pt")
+             for c in (cfg, cfg4)}
     for c in (cfg, cfg4):
-        if c is cfg:
-            p = torch.load(weights, map_location=dev, weights_only=False)
-        else:
-            p = freeze_params(c, init_params(c, seed=seed, device=dev))
-            torch.save(params_to(p, "cpu"), files[c.num_layers])
+        p = freeze_params(c, init_params(c, seed=seed, device=dev))
+        torch.save(params_to(p, "cpu"), files[c.num_layers])
         serve(c, p, trace[:1], dev, "kernel", seed)                    # warm-up
         for attn in (("gather", "kernel") if c is cfg else ("kernel",)):
             sess, res, wall = serve(c, p, trace, dev, attn, seed)
@@ -3642,9 +3671,6 @@ def tp_phase(dev, seed, trace, paged_tokens, smi, weights):
         ref[c.num_layers] = p
         gc.collect()
         torch.cuda.empty_cache()
-    same_tokens("tp=1 K2 session vs phase 4", [ref[(cfg.num_layers, "kernel")]["tokens"][r]
-                                               for r in sorted(paged_tokens)],
-                [paged_tokens[r] for r in sorted(paged_tokens)])
     log("[tp] one card, gloo over CUDA tensors: the multi-card NCCL path (launch/serve.py "
         "--tp N on N cards) is unchecked here")
 
@@ -3664,14 +3690,13 @@ def tp_phase(dev, seed, trace, paged_tokens, smi, weights):
                                                  for r in worlds[tp]))
 
     report = {"k1_checked": len(k1), "k2": k2, "near_ties": {}, "runs": {}, "launches": {}}
-    for tp, layers, attn, against in ((2, cfg.num_layers, "gather", None),
-                                      (2, cfg.num_layers, "kernel", paged_tokens),
-                                      (4, TP4_LAYERS, "kernel", None)):
+    for tp, layers, attn in ((2, cfg.num_layers, "gather"), (2, cfg.num_layers, "kernel"),
+                             (4, TP4_LAYERS, "kernel")):
         c = cfg if layers == cfg.num_layers else cfg4
         name = f"tp={tp} {layers} layers {attn}"
         one = ref[(layers, attn)]
         run = tp_gates(name, c, worlds[tp], attn, tp, one["pool_bytes"])
-        want = {rid: list(t) for rid, t in (against or one["tokens"]).items()}
+        want = {rid: list(t) for rid, t in one["tokens"].items()}
         if attn == "gather":                                         # (b) identical
             same_tokens(name, [run["tokens"][r] for r in sorted(want)],
                         [want[r] for r in sorted(want)])
@@ -3880,6 +3905,337 @@ def ep_world(cfg, tp, saved, one, trace, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: data-parallel FSDP training (two or four ranks on the one card)
+# ---------------------------------------------------------------------------
+
+
+def dp_config(layers):
+    """granite-3-2b at its widths, ``layers`` deep, trained as
+    ``launch/train.py`` trains (mul8x8_2 through K1, band_reg 1e-4, remat
+    on: the config's default)."""
+    return train_config(ARCH, layers)
+
+
+def dp_kernel_checks(cfg, dev, gen):
+    """(a) K1 bit-equal to its plain version at every (K, N) of granite's
+    seven projections, at each rank's M of a global batch of
+    TRAIN_BATCH x TRAIN_SEQ over DP_DEGREES ranks."""
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+
+    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
+    hkv, ff, vp = cfg.num_kv_heads * cfg.head_dim, cfg.d_ff, cfg.padded_vocab
+    checked = []
+    for K, N in sorted({(d, hq), (d, hkv), (hq, d), (d, ff), (ff, d), (d, vp)}):
+        for dp in DP_DEGREES:
+            M = TRAIN_BATCH * TRAIN_SEQ // dp
+            a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
+            b = torch.randint(0, 256, (K, N), generator=gen, device=dev, dtype=torch.uint8)
+            out = approx_matmul(a, b, multiplier=cfg.approx.multiplier)
+            ref = approx_matmul_plain(a, b, multiplier=cfg.approx.multiplier)
+            if out.dtype != torch.int32 or not torch.equal(out, ref):
+                raise AssertionError(f"K1 dp={dp} M={M} K={K} N={N}: "
+                                     f"{int((out != ref).sum())} outputs differ")
+            checked.append((M, K, N))
+    log(f"[dp] (a) K1 bit-equal at {len(checked)} (M, K, N): {checked}")
+    return checked
+
+
+def dp_batches(cfg, seed, dev):
+    """DP_STEPS global batches of ``token_batches`` from ``seed``."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.train.loop import as_batch
+
+    pairs = token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    return [as_batch(next(pairs), dev) for _ in range(DP_STEPS)]
+
+
+def dp_whole_leaves(state, cfg, mesh):
+    """(group, whole leaf) for each parameter and moment leaf of the rank's
+    state, in flatten order: every rank takes part in each gather, rank 0
+    gets the whole leaf and the others None, so no rank holds more than
+    one gathered leaf at a time beyond what rank 0 keeps."""
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.collectives import gather_dim
+    from repro_torch.train.tree import leaves
+
+    dims = fsdp.data_dims(cfg, mesh.size)
+    with torch.no_grad():
+        for group, tree in (("params", state["params"]), ("m", state["opt"]["m"]),
+                            ("v", state["opt"]["v"])):
+            for t, d in zip(leaves(tree), dims):
+                w = t.detach() if d is None else gather_dim(t.detach(), d, mesh)
+                yield group, (w.clone() if mesh.rank == 0 else None)
+                del w
+
+
+class DpClose:
+    """Gate (c)'s state tolerance against one device's step from the same
+    state, leaf by leaf: each moment within 2**-4 of its leaf's largest
+    (``allclose`` as the CPU tests hold it), each parameter within 2.1 lr,
+    and on a first step (``sure``: AdamW moves a weight by lr times the
+    sign of its gradient) within 1e-3 lr where its moment exceeds twice
+    2**-6 of the leaf's largest, each parameter bound plus four float32
+    ulps of the weight (the warm-up's lr, 3e-6 at step 1, is below a
+    weight's ulp).  On the card a row's float32 product rounds by the
+    batch's M (the library picks its kernel by shape), so the quantizers
+    flip codes downstream and the moments part more than on the CPU,
+    where ``tests/test_torch_dp.py`` holds the same comparison to 2**-9:
+    2**-4 is the repo's tolerance for a quantized step whose codes flip
+    (``tests/test_torch_train_families.py``).  ``worst`` holds the
+    largest gaps (in lr for the parameters, the ulps taken off),
+    ``leaves`` each leaf's; ``ok`` whether all held."""
+
+    TOL, SURE = 2.0 ** -4, 2.0 ** -6
+
+    def __init__(self, lr, sure):
+        self.lr, self.sure, self.ok = lr, sure, True
+        self.worst = {"moment_rel": 0.0, "param_lr": 0.0, "sure_param_lr": 0.0}
+        self.leaves = {}              # "group path" -> its gap, for the report
+
+    def moment(self, a, b, where=""):
+        bmax = b.abs().max()
+        gap = ((a - b).abs().max() / bmax.clamp(min=1e-30)).item()
+        self.worst["moment_rel"] = max(self.worst["moment_rel"], gap)
+        self.leaves[where] = gap
+        self.ok &= bool(((a - b).abs() <= self.TOL * (b.abs() + bmax)).all())
+
+    def param(self, a, b, m, where=""):
+        d = ((a - b).abs() - 2.0 ** -21 * b.abs()).clamp(min=0) / self.lr
+        m = m.abs()
+        certain = m > 2 * self.SURE * m.max()
+        sure = d[certain].max().item() if certain.any() else 0.0
+        self.worst["param_lr"] = max(self.worst["param_lr"], d.max().item())
+        self.worst["sure_param_lr"] = max(self.worst["sure_param_lr"], sure)
+        self.leaves[where] = [d.max().item(), sure]
+        self.ok &= d.max().item() <= 2.1 and (not self.sure or sure <= 1e-3)
+
+
+def dp_rank(rank, world, store_path, job):
+    """One rank of a data-parallel world on ``job["device"]`` over gloo:
+    its part of the seeded state (``fsdp.init_state``), then DP_STEPS
+    steps of ``make_train_step(mesh=)`` on the global batches, each with
+    K1's count and the collectives zeroed just before and read just after
+    (and the bytes its all-gathers returned).  Rank 0 holds each step to
+    one device's from the same state: it steps the seed's whole state
+    (then the state it gathered after the step before) without a mesh
+    while the others wait in their step's first collective, and compares
+    the dp step's new state, gathered leaf by leaf, with it
+    (``DpClose``); the gathered state starts its next one-device step.  With ``job["ckpt"]`` rank 0 writes the last state
+    whole.  Returns its steps, launches, state bytes, peak and the digest
+    of its parts."""
+    import torch.distributed as dist
+
+    import repro_torch.parallel.collectives as C
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.launch.mesh import DataMesh
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.sharding import tree_bytes
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.tree import leaves, unflatten
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        build_all()                              # loads the libraries phase 1 built
+    mesh = DataMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
+                    backend="gloo", device=dev)
+    gathered = [0]
+    gather = dist.all_gather_into_tensor
+
+    def counted_gather(out, t, **kw):
+        gathered[0] += out.nbytes
+        return gather(out, t, **kw)
+
+    try:
+        cfg, opt, seed = job["cfg"], job["opt"], job["seed"]
+        state = fsdp.init_state(cfg, opt, seed, mesh, device=dev)
+        out = {"state_bytes": tree_bytes(state), "steps": []}
+        step, one_device = make_train_step(cfg, opt, mesh=mesh), make_train_step(cfg, opt)
+        # rank 0's one-device state: the seed's whole state first, then
+        # each step's gathered dp state (gathered once, after the step)
+        start = init_state(cfg, opt, seed, device=dev) if rank == 0 else None
+        paths = [p for p, _, _ in fsdp.leaf_specs(cfg, mesh.size)]
+        launches = 0
+        for k, batch in enumerate(dp_batches(cfg, seed, dev), 1):
+            row = {}
+            if rank == 0:                        # one device's step from the same state
+                t0 = time.perf_counter()
+                ref, m = one_device(start, batch)
+                row.update(ref_loss=m["loss"].item(), ref_host_s=time.perf_counter() - t0,
+                           lr=m["lr"].item())
+                del start
+            C.dist.all_gather_into_tensor = counted_gather
+            calls, host_s, gathered[0] = C.COUNTS["calls"], C.COUNTS["host_s"], 0
+            approx_matmul.launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            row.update(loss=m["loss"].item(), host_s=time.perf_counter() - t0,
+                       collectives=C.COUNTS["calls"] - calls,
+                       collective_host_s=C.COUNTS["host_s"] - host_s,
+                       gathered_bytes=gathered[0])
+            launches += approx_matmul.launches
+            C.dist.all_gather_into_tensor = gather
+            t0 = time.perf_counter()
+            close = DpClose(row["lr"], sure=k == 1) if rank == 0 else None
+            want = ({"params": leaves(ref["params"]), "m": leaves(ref["opt"]["m"]),
+                     "v": leaves(ref["opt"]["v"])} if rank == 0 else None)
+            seen = {"params": [], "m": [], "v": []}
+            for group, w in dp_whole_leaves(state, cfg, mesh):
+                if rank == 0:
+                    i = len(seen[group])
+                    where = f"{group} {paths[i]}"
+                    if group == "params":
+                        close.param(w, want["params"][i], want["m"][i], where)
+                    else:
+                        close.moment(w, want[group][i], where)
+                    seen[group].append(w)
+            if rank == 0:
+                row.update(close=close.worst, close_ok=close.ok, close_by_leaf=close.leaves,
+                           compare_s=time.perf_counter() - t0)
+                start = {"params": unflatten(state["params"], seen["params"]),
+                         "opt": {"step": state["opt"]["step"].clone(),
+                                 "m": unflatten(state["opt"]["m"], seen["m"]),
+                                 "v": unflatten(state["opt"]["v"], seen["v"])}}
+                del ref, want, seen
+            out["steps"].append(row)
+        del start
+        out["launches"] = launches
+        out["state_bytes_after"] = tree_bytes(state)
+        out["digest"] = state_digest(state)
+        out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                    if dev.type == "cuda" else 0.0)
+        out["peak_reserved_gb"] = (torch.cuda.max_memory_reserved() / 1e9
+                                   if dev.type == "cuda" else 0.0)
+        if job["ckpt"]:
+            t0 = time.perf_counter()
+            save_checkpoint(job["ckpt"], DP_STEPS, state, cfg=cfg, mesh=mesh)
+            out["ckpt_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        C.dist.all_gather_into_tensor = gather
+        mesh.close()
+
+
+def dp_state_bytes(cfg, dp):
+    """A rank's state bytes by the rules: each split leaf's parameter and
+    both moments at 1/dp, each replicated leaf's whole, and the step."""
+    from repro_torch.parallel import fsdp
+
+    return 4 + sum(3 * 4 * math.prod(shape) // (dp if "data" in spec else 1)
+                   for _, shape, spec in fsdp.leaf_specs(cfg, dp))
+
+
+def dp_phase(dev, seed, smi):
+    """Phase 19 (see the module text)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.specs import state_specs
+    from repro_torch.parallel import fsdp
+    from repro_torch.train import optim as O
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.tree import leaves, tree_map
+
+    t_unit = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    report = {"k1_checked": len(dp_kernel_checks(dp_config(DP_LAYERS), dev, gen)), "worlds": {},
+              "launches": {}}
+    log("[dp] one card, gloo over CUDA tensors: the multi-card NCCL path (launch/train.py "
+        "--mesh N on N cards) is unchecked here")
+    with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
+        for dp, layers in zip(DP_DEGREES, (DP_LAYERS, DP4_LAYERS)):
+            cfg = dp_config(layers)
+            opt = O.OptConfig(lr=3e-4, total_steps=DP_STEPS)          # as launch/train.py
+            name = f"dp={dp} {layers} layers"
+            ckpt_dir = os.path.join(tmp, f"ck{dp}") if dp == DP_DEGREES[0] else None
+            job = {"cfg": cfg, "opt": opt, "seed": seed, "device": str(dev), "ckpt": ckpt_dir}
+            t0 = time.perf_counter()
+            ranks = run_ranks(dp_rank, dp, (os.path.join(tmp, f"store{dp}"), job), timeout=900)
+            world_s = time.perf_counter() - t0
+            want_k1 = DP_STEPS * k1_per_train_step(cfg)
+            want_calls = collectives_per_train_step(cfg, dp)
+            want_bytes = dp_state_bytes(cfg, dp)
+            steps = ranks[0]["steps"]
+            for k, st in enumerate(steps, 1):    # (c) against one device from the same state
+                if not abs(st["loss"] - st["ref_loss"]) <= DP_LOSS_RTOL * abs(st["ref_loss"]):
+                    raise AssertionError(f"{name} step {k}: loss {st['loss']}, one device's "
+                                         f"{st['ref_loss']} from the same state "
+                                         f"(rtol {DP_LOSS_RTOL})")
+                if not st["close_ok"]:
+                    raise AssertionError(f"{name} step {k}: the new state is {st['close']} "
+                                         "from one device's (lr units for the parameters): "
+                                         + json.dumps(st["close_by_leaf"]))
+            for rank, r in enumerate(ranks):
+                if [st["loss"] for st in r["steps"]] != [st["loss"] for st in steps]:
+                    raise AssertionError(f"{name}: rank {rank}'s losses are not rank 0's")
+                if r["launches"] != want_k1:
+                    raise AssertionError(f"{name} rank {rank}: K1 launched {r['launches']}, "
+                                         f"want {want_k1} ({DP_STEPS} x k1_per_train_step)")
+                calls = [st["collectives"] for st in r["steps"]]
+                if calls != [want_calls] * DP_STEPS:
+                    raise AssertionError(f"{name} rank {rank}: collectives {calls} per step, "
+                                         f"want {want_calls} (collectives_per_train_step)")
+                if not r["state_bytes"] == r["state_bytes_after"] == want_bytes:
+                    raise AssertionError(f"{name} rank {rank}: state {r['state_bytes']} B, "
+                                         f"after {r['state_bytes_after']} B, want {want_bytes}")
+            row = {"dp": dp, "layers": layers, "world_s": world_s,
+                   "losses": [st["loss"] for st in steps],
+                   "one_device_losses": [st["ref_loss"] for st in steps],
+                   "loss_rel_gap": [abs(st["loss"] - st["ref_loss"]) / abs(st["ref_loss"])
+                                    for st in steps],
+                   "compare_s": [st["compare_s"] for st in steps],
+                   "close_by_step": [st["close"] for st in steps],
+                   "close_by_leaf": [st["close_by_leaf"] for st in steps],
+                   "host_s_per_step": [[st["host_s"] for st in r["steps"]] for r in ranks],
+                   "one_device_host_s_per_step": [st["ref_host_s"] for st in steps],
+                   "collectives_per_step": want_calls,
+                   "collective_host_ms_per_step": [
+                       [1e3 * st["collective_host_s"] for st in r["steps"]] for r in ranks],
+                   "gathered_gb_per_step": [st["gathered_bytes"] / 1e9 for st in steps],
+                   "k1_launches_per_rank": [r["launches"] for r in ranks],
+                   "k1_per_step": k1_per_train_step(cfg),
+                   "state_gb_per_rank": want_bytes / 1e9,
+                   "whole_state_gb": dp_state_bytes(cfg, 1) / 1e9,
+                   "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
+                   "peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks]}
+            if ckpt_dir:
+                # (e) rank 0's checkpoint restored on one device is the ranks'
+                # parts joined, bit for bit (each part digested as its rank did)
+                t0 = time.perf_counter()
+                target = tree_map(lambda t: torch.empty(0, device=dev), state_specs(cfg, opt))
+                got, at = restore_checkpoint(ckpt_dir, target)
+                dims = fsdp.data_dims(cfg, dp)
+                groups = {"params": leaves(got["params"]), "m": leaves(got["opt"]["m"]),
+                          "v": leaves(got["opt"]["v"])}
+                for rank, r in enumerate(ranks):
+                    cut = {g: [t if d is None else t.narrow(d, rank * (t.shape[d] // dp),
+                                                            t.shape[d] // dp)
+                               for t, d in zip(ts, dims)] for g, ts in groups.items()}
+                    digest = state_digest({"params": cut["params"],
+                                           "opt": {"m": cut["m"], "step": got["opt"]["step"],
+                                                   "v": cut["v"]}})
+                    if at != DP_STEPS or digest != r["digest"]:
+                        raise AssertionError(f"{name}: the one-device restore of rank 0's "
+                                             f"checkpoint (step {at}) differs from rank "
+                                             f"{rank}'s parts")
+                row.update(ckpt_write_s=ranks[0]["ckpt_s"],
+                           ckpt_restore_check_s=time.perf_counter() - t0,
+                           ckpt_restores_bit_equal=True)
+                del got, groups, cut, target
+            report["worlds"][name] = row
+            report["launches"][f"train_dp{dp}"] = {
+                "approx_matmul": sum(r["launches"] for r in ranks), "paged_attention": 0}
+            log(f"[dp] {name}: {json.dumps(row)}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_unit
+    log(f"[dp] phase 19 took {report['seconds']:.1f}s (gloo on one card, {smi})")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phases 8-15's units, run by a pool of processes on the one card
 # ---------------------------------------------------------------------------
 
@@ -3936,31 +4292,36 @@ def _backbone_unit(arch):
 # frees each before phase 18's ranks load it (7.9 GB a rank at tp=2, within
 # the unit's budget); a training unit of phase 14 or 15 holds its float32
 # parameters, gradients and both moments, 16 bytes per parameter, and the
-# step's transients; each measured alone on an H100 80GB, see PERF.md),
-# started in this order whenever the units running leave it room.  The pool
-# is bound by memory held over time: no two training units fit together and
-# each leaves room for the small units only, so one training unit opens the
-# pool beside the small family units, the serving units fill the middle,
-# and the two longest training units close it, the longer last
+# step's transients (training qwen2-moe-a2.7b 40.1 GB at 2 layers;
+# falcon-mamba-7b at 8 and zamba2-2.7b at 24 estimated from their peaks
+# at 16 and 54 less the parameters cut); phase 19's, its ranks' peaks
+# together, 18.8 + 8.9 GB at dp=2 and 11.3 + 3 x 7.2 at dp=4; each
+# measured alone on an H100 80GB, see PERF.md), started in this order
+# whenever the units running leave it room.  The pool is bound by memory
+# held over time: phase 19, the longest unit, opens it, so that it does
+# not finish last; no two training units fit together and each leaves
+# room for the small units only, so one training unit opens the pool
+# beside the small family units, the serving units fill the middle, and
+# the two longest training units close it, the longer last
 UNITS = {
-    f"train {FAMILY_ARCHS[1]}": (54, _train_unit(FAMILY_ARCHS[1])),
+    "dp": (34, lambda dev, sh: dp_phase(dev, sh["seed"], sh["smi"])),
+    f"train {FAMILY_ARCHS[1]}": (39, _train_unit(FAMILY_ARCHS[1])),
     FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
     "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
     "slots": (22, _slots_unit),
     "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
     "tiers": (6, lambda dev, sh: tiers_phase(serving_configs()[0], dev, sh["seed"],
                                              sh["trace"], sh["smi"])),
-    f"train {FAMILY_ARCHS[2]}": (60, _train_unit(FAMILY_ARCHS[2])),
+    f"train {FAMILY_ARCHS[2]}": (40, _train_unit(FAMILY_ARCHS[2])),
     "chunked_sync": (22, _chunked_unit(("sync",))),
     "async": (22, _async_unit),
-    "tp": (10, lambda dev, sh: tp_phase(dev, sh["seed"], sh["trace"], sh["paged_tokens"],
-                                        sh["smi"], sh["tp_weights"])),
+    "tp": (10, lambda dev, sh: tp_phase(dev, sh["seed"], sh["trace"], sh["smi"])),
     FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
     "share": (6, _share_unit),
     BACKBONE_ARCHS[0]: (35, _backbone_unit(BACKBONE_ARCHS[0])),
     BACKBONE_ARCHS[1]: (37, _backbone_unit(BACKBONE_ARCHS[1])),
     FAMILY_ARCHS[0]: (25, _family_unit(FAMILY_ARCHS[0])),
-    f"train {FAMILY_ARCHS[0]}": (65, _train_unit(FAMILY_ARCHS[0])),
+    f"train {FAMILY_ARCHS[0]}": (41, _train_unit(FAMILY_ARCHS[0])),
 }
 POOL_GB = 72                         # the units' peaks at once: the card's 85 GB less headroom
 
@@ -4069,7 +4430,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.approx_matmul import approx_matmul
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.models.transformer import forward, init_params, params_to
+    from repro_torch.models.transformer import forward, init_params
     from repro_torch.serve import freeze_params
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32/f64
@@ -4188,12 +4549,6 @@ def main(argv=None) -> int:
     # -- 6. K3 ---------------------------------------------------------------
     report["k3"] = k3_phase(dev, gen)
 
-    # phase 17 loads these weights from a file (its tp=1 references and
-    # ranks), where building them would take 20 GB of the card a process
-    weights_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    tp_weights = os.path.join(weights_dir.name, "granite_frozen.pt")
-    torch.save(params_to(params, "cpu"), tp_weights)
-
     # -- 7. train ------------------------------------------------------------
     # free the serving weights, sessions and pools first: full-width f32
     # params, grads and Adam moments take about 42 GB of the card's 80
@@ -4211,9 +4566,8 @@ def main(argv=None) -> int:
     t_pool = time.perf_counter()
     shared = {"seed": args.seed, "trace": trace, "paged_tokens": paged_tokens,
               "phase4": phase4, "smi": smi, "profile_paged": report.get("profile"),
-              "profile": args.profile, "tp_weights": tp_weights}
+              "profile": args.profile}
     units = run_units(shared)
-    weights_dir.cleanup()
     unit = {name: out for name, (out, _) in units.items()}
     report["pool"] = {"workers": POOL_WORKERS, "wall_s": time.perf_counter() - t_pool,
                       "units": {name: meta for name, (_, meta) in units.items()}}
@@ -4291,6 +4645,12 @@ def main(argv=None) -> int:
     paths.update(ep["launches"])
     log(f"[ep] phase 18 took {ep['seconds']:.1f}s; launches by path "
         f"{json.dumps(ep['launches'])}")
+
+    # -- 19. data-parallel FSDP training -------------------------------------
+    dpr = report["dp"] = unit["dp"]
+    paths.update(dpr["launches"])
+    log(f"[dp] phase 19 took {dpr['seconds']:.1f}s; launches by path "
+        f"{json.dumps(dpr['launches'])}")
 
     # -- 16. roofline ---------------------------------------------------------
     roof = report["roofline"]

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Tensor-parallel serving over NCCL across the host's cards: whether
-``launch/serve.py --tp N`` (rank r on ``cuda:r``) serves the tokens of
-``--tp 0`` on one card, at full width, and refuses more ranks than cards.
+"""Tensor-parallel serving and data-parallel training over NCCL across the
+host's cards: whether ``launch/serve.py --tp N`` (rank r on ``cuda:r``)
+serves the tokens of ``--tp 0`` on one card, at full width, and refuses
+more ranks than cards; with ``--train``, whether ``launch/train.py --mesh
+N`` trains step 1 to the loss of ``--mesh 1``.
 
     python3 scripts/tp_nccl_check.py [--arch qwen2-moe-a2.7b] [--requests 8] [--new 16]
+    python3 scripts/tp_nccl_check.py --train [--arch granite-3-2b]
 
 Runs the launcher (``--arch``, default granite-3-2b; ``--exec approx
 --freeze-weights --loop sync``, the seeded weights and trace) at ``--tp
@@ -11,8 +14,14 @@ Runs the launcher (``--arch``, default granite-3-2b; ``--exec approx
 wall seconds, compares the ``sample:`` lines (the first request's prompt
 and tokens) and exits 1 unless they are equal; then ``--tp`` one past the
 cards must exit non-zero.  qwen2-moe-a2.7b's 60 experts split by expert
-over 2 and 4 cards and column/row inside each expert over 8.  Needs at
-least two cards (``chip_smoke.py`` checks TP on one card over gloo only).
+over 2 and 4 cards and column/row inside each expert over 8.
+
+``--train`` runs the training launcher instead (a dense ``--arch`` at full
+width, 1 step, mul8x8_2 through K1, its seeded state and batch) at
+``--mesh 1`` and at ``--mesh`` = every card (FSDP over NCCL), exits 1
+unless step 1's loss agrees to rtol 1e-5; then ``--mesh`` one past the
+cards must be refused.  Needs at least two cards (``chip_smoke.py``
+checks both on one card over gloo only).
 """
 from __future__ import annotations
 
@@ -40,12 +49,48 @@ def launch(args, *extra):
     return r
 
 
+def train_check(args, n: int) -> int:
+    """``--train``: step 1's loss at ``--mesh n`` against ``--mesh 1``."""
+    import gc
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import train as launch
+
+    losses = {}
+    with tempfile.TemporaryDirectory(prefix="nccl_train_") as tmp:
+        for dp in (1, n):
+            t0 = time.perf_counter()
+            out = launch.main(["--arch", args.arch, "--steps", "1", "--mesh", str(dp),
+                               "--ckpt", os.path.join(tmp, f"ck{dp}"), "--ckpt-every", "1000"])
+            losses[dp] = out["losses"][0]
+            print(f"=== --mesh {dp}: loss {losses[dp]!r}, {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+            del out                   # cuda:0 is rank 0's card in the next run
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = abs(losses[n] - losses[1]) <= 1e-5 * abs(losses[1])
+        print(f"step 1's loss at --mesh {n} within rtol 1e-5 of --mesh 1: {same}", flush=True)
+        try:
+            launch.main(["--arch", args.arch, "--steps", "1", "--mesh", str(n + 1),
+                         "--ckpt", os.path.join(tmp, "over")])
+            refused = False
+        except SystemExit as e:
+            refused = "visible CUDA devices" in str(e)
+    print("--mesh past the cards refused:", refused, flush=True)
+    return 0 if same and refused else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="a dense or moe config (configs.list_archs())")
+                    help="a dense or moe config (configs.list_archs()); --train: dense")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new", type=int, default=16)
+    ap.add_argument("--train", action="store_true",
+                    help="check launch/train.py --mesh N over NCCL instead of serving")
     args = ap.parse_args()
     import torch
 
@@ -57,6 +102,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout,
           flush=True)
+    if args.train:
+        return train_check(args, n)
     runs = {tp: launch(args, "--tp", str(tp)) for tp in sorted({0, 2, n})}
     sample = {tp: next((ln for ln in r.stdout.splitlines() if ln.startswith("sample:")), None)
               for tp, r in runs.items()}

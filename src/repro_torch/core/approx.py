@@ -26,12 +26,19 @@ collective; a row split sums the ranks' int32 code dots and code row sums
 before any cast to float, so in the integer modes its result equals the
 unsharded call's bit for bit, and calibrates the activation (and a float
 weight) over the ranks' parts (``parallel/collectives.py``).
+
+Under data-parallel training (``make_train_step(..., mesh=DataMesh)``) a
+weight arrives as a ``DataPart``: the rank's part of it, gathered whole
+where it is used (``parallel/fsdp.py``), or the whole weight where no rule
+splits it.  Each rank holds other rows of the batch, so a per-tensor
+activation range spans every rank's rows (one MAX all-reduce); per-row
+ranges need none.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +46,18 @@ import torch
 from repro_torch.core import multipliers as mul
 from repro_torch.kernels.approx_matmul.ops import approx_matmul
 from repro_torch.kernels.approx_matmul.ref import approx_matmul_lut, approx_matmul_plain
-from repro_torch.parallel.collectives import all_reduce_sum, max_range
+from repro_torch.parallel.collectives import (
+    all_reduce_sum,
+    gather_dim,
+    gather_value,
+    max_range,
+    owned_whole,
+)
 from repro_torch.quant.affine import calibrate, dequantize, quantize
 
 __all__ = [
     "ApproxConfig",
+    "DataPart",
     "Modes",
     "QWeight",
     "Shard",
@@ -154,9 +168,38 @@ class Shard(NamedTuple):
     mesh: Any                  # launch.mesh.TPMesh
 
 
+class DataPart(NamedTuple):
+    """A float weight on one rank of a data-parallel mesh
+    (``parallel/fsdp.wrap``): ``w`` is the rank's ``1/size`` along ``dim``
+    (a negative dim), or the whole weight where ``dim`` is None.
+    ``whole()`` is the weight every rank computes with; ``mesh`` also
+    carries the activation ranges across the ranks' rows."""
+
+    w: torch.Tensor
+    dim: Any                   # Optional[int]
+    mesh: Any                  # launch.mesh.DataMesh
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The whole weight's shape."""
+        return tuple(n * (self.mesh.size if i - self.w.dim() == self.dim else 1)
+                     for i, n in enumerate(self.w.shape))
+
+    @property
+    def device(self) -> torch.device:
+        return self.w.device
+
+    def whole(self) -> torch.Tensor:
+        """The whole weight: an all-gather along ``dim`` whose backward
+        sums the ranks' gradients of this part."""
+        return self.w if self.dim is None else gather_dim(self.w, self.dim, self.mesh)
+
+
 def w_dim(w, i: int) -> int:
     """Shape accessor that works for float weights, frozen QWeights and
-    their shards (the rank's own size)."""
+    their shards (a ``Shard``'s own size; a ``DataPart``'s whole size)."""
+    if isinstance(w, DataPart):
+        return w.shape[i]
     if isinstance(w, Shard):
         w = w.w
     return (w.codes if isinstance(w, QWeight) else w).shape[i]
@@ -242,7 +285,12 @@ def _code_dot(qx: torch.Tensor, codes: torch.Tensor, cfg: ApproxConfig, mesh):
     return both[..., :-1], both[..., -1:]
 
 
-def _act_codes(x2: torch.Tensor, cfg: ApproxConfig, mesh=None):
+def _act_codes(x2: torch.Tensor, cfg: ApproxConfig, mesh=None, data=None):
+    """The activation's codes; its range spans ``mesh``'s K-parts (a row
+    split), or the rows of every rank of a data mesh ``data`` where it is
+    one range per tensor."""
+    if mesh is None and not cfg.act_per_row:
+        mesh = data
     qp_x = calibrate(x2, axis=(1,) if cfg.act_per_row else None, qmax=cfg.act_qmax,
                      reduce=_ranged(mesh))
     return qp_x, quantize(x2, qp_x)
@@ -257,8 +305,8 @@ def _zero_point_correct(raw, row_x, zx, zw, col_w, K):
 def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     """y = x @ w computed through the approximate-multiplier pipeline.
 
-    x: (..., K) float; w: (K, N) float or a frozen ``QWeight``, or a
-    ``Shard`` of either.  Quantizes
+    x: (..., K) float; w: (K, N) float or a frozen ``QWeight``, a
+    ``Shard`` of either, or a float ``DataPart``.  Quantizes
     both operands to unsigned codes (dynamic activation scale, per-channel
     weight scales), runs the configured integer multiplier, applies the
     zero-point corrections and dequantizes.
@@ -276,8 +324,23 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     On a row ``Shard`` ``x`` holds the rank's columns of the activation
     (its K-part): the ranges, the code dots and the code sums span the
     ranks, and float partial products (float mode, ``y_lin``) are summed
-    in float32, which agrees with the unsharded call to roundoff."""
-    split = mesh = None
+    in float32, which agrees with the unsharded call to roundoff.
+
+    A ``DataPart`` computes with the whole weight on the rank's rows of
+    ``x``; a per-tensor activation range spans every rank's rows, so the
+    codes are those of the whole batch.  A split weight's straight-through
+    product takes its gradient through ``owned_whole``: the ranks' partial
+    weight gradients are summed in float32 and then rounded to bf16, once,
+    as on one device (rounding each rank's part first would not add up to
+    one device's gradient)."""
+    split = mesh = data = part = None
+    if isinstance(w, DataPart):
+        data = w.mesh
+        if w.dim is not None and cfg.mode != "float":
+            part = w
+            w = gather_value(w.w, w.dim, w.mesh)
+        else:
+            w = w.whole()
     if isinstance(w, Shard):
         w, split, mesh = w
         if split == "expert":
@@ -290,7 +353,7 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
         return _sum(x.to(torch.float32) @ w.to(x.dtype).to(torch.float32), rows).to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     xd, wd = x2.detach(), w.detach()
-    qp_x, qx = _act_codes(xd, cfg, rows)
+    qp_x, qx = _act_codes(xd, cfg, rows, data)
     # a column split's per-channel ranges are the rank's own; every other
     # weight range spans the ranks' parts
     w_ranks = None if split is None or (split == "column" and cfg.w_per_channel) else mesh
@@ -303,7 +366,10 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     x_fq = x2 + (dequantize(qx, qp_x).to(x2.dtype) - x2).detach()
     w_fq = w + (dequantize(qw, qp_w).to(w.dtype) - w).detach()
     bf = torch.bfloat16
-    y_lin = _sum(x_fq.to(bf).to(torch.float32) @ w_fq.to(bf).to(torch.float32), rows)
+    w_lin = w_fq.to(bf).to(torch.float32)
+    if part is not None:
+        w_lin = owned_whole(part.w, w_lin, part.dim, data, round_to=bf)
+    y_lin = _sum(x_fq.to(bf).to(torch.float32) @ w_lin, rows)
 
     # integer simulation (value path, gradient-free)
     raw, row_x = _code_dot(qx, qw, cfg, rows)

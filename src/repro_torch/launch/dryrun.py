@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -49,12 +50,14 @@ from repro_torch.core.approx import ApproxConfig
 from repro_torch.launch import roofline as R
 from repro_torch.launch.specs import cache_specs, input_specs, params_specs, state_specs
 from repro_torch.models.transformer import decode_step, forward
+from repro_torch.parallel.fsdp import leaf_specs
 from repro_torch.parallel.sharding import tree_bytes
 from repro_torch.train import optim as O
 from repro_torch.train.loop import make_train_step
+from repro_torch.train.tree import LEAF_CHUNK
 
 __all__ = ["auto_microbatch", "backward_peak", "build_step", "cell_supported",
-           "collectives_per_pass", "extract_costs", "in_depth", "k1_per_pass",
+           "collectives_per_pass", "collectives_per_train_step", "extract_costs", "in_depth", "k1_per_pass",
            "k1_per_train_step", "model_flops", "run_cell"]
 
 DEFAULT_OUT = os.path.join("results", "dryrun_torch")
@@ -133,6 +136,56 @@ def k1_per_train_step(cfg: ModelConfig) -> int:
     if cfg.family == "hybrid":
         return (2 + 1) * n + (7 + 6) * (n // cfg.attn_every) + 1
     return (7 + 6) * n + 1
+
+
+def collectives_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1,
+                               grad_compression: bool = False) -> int:
+    """Collectives of one training step of the dense family on each rank
+    of a ``dp``-rank data mesh (``make_train_step(..., mesh=DataMesh)``,
+    ``parallel/fsdp.py``), from the rules and the code, per microbatch:
+
+    * each use of a split leaf gathers it (every layer's projections, the
+      embedding, the head), and the backward reduce-scatters each gather's
+      cotangent once;
+    * in a quantized mode with per-tensor activation ranges, each
+      projection (the layers' and the head) takes one MAX of its range;
+    * with ``remat`` each layer's recompute in the backward runs again up
+      to the last tensor the backward saved, the last projection's
+      straight-through product: its gather and its range come before that
+      product (its K1 call after it), so every gather and range of the
+      layer reruns.  Without remat every gathered weight stays saved for
+      the backward instead, and the split saves nothing of it;
+    * the band term (``band_reg`` > 0) gathers each split weight whole per
+      chunk of matrices inside its recomputed term: two gathers and one
+      reduce-scatter per chunk;
+
+    then once per step: the replicated leaves' gradient all-reduce, the
+    metrics' all-reduce, the global norm's and, with ``grad_compression``,
+    the scales' MAX.  A leaf kept whole (no rule, or a dim ``dp`` does not
+    divide) is gathered never."""
+    a, n = cfg.approx, cfg.num_layers
+    gathers = layer_gathers = ranges = layer_ranges = band = 0
+    replicated = False
+    for path, shape, spec in leaf_specs(cfg, dp):
+        layer = path.startswith("['layers']")
+        uses = n if layer else 1
+        if spec != () and path != "['embed']":          # a projection weight
+            ranges += uses
+            layer_ranges += uses if layer else 0
+        if "data" not in spec:
+            replicated = True
+            continue
+        gathers += uses
+        layer_gathers += uses if layer else 0
+        if len(shape) >= 2 and shape[-1] > 1:
+            per = max(1, LEAF_CHUNK // (shape[-2] * shape[-1]))
+            band += 3 * -(-math.prod(shape[:-2]) // per)
+    per_mb = 2 * gathers + (layer_gathers if cfg.remat else 0)
+    if a.is_quantized and not a.act_per_row:
+        per_mb += ranges + (layer_ranges if cfg.remat else 0)
+    if a.band_reg > 0:
+        per_mb += band
+    return max(microbatch, 1) * per_mb + replicated + 2 + grad_compression
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[int, int, float]:

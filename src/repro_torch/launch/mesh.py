@@ -1,16 +1,18 @@
 """Meshes: which axes a deployment's cards form and how many cards each
 holds (``MeshShape``, pure data that the sharding rules in
-``parallel/sharding.py`` read), and the one mesh that runs: ``TPMesh``, a
-one-axis ("model") tensor-parallel mesh over a ``torch.distributed``
-process group, with ``run_ranks`` to start its ranks.
+``parallel/sharding.py`` read, and ``parse_mesh`` for the launchers'
+``--mesh`` strings), and the meshes that run, each one axis over a
+``torch.distributed`` process group: ``TPMesh`` ("model", tensor-parallel
+serving) and ``DataMesh`` ("data", data-parallel and FSDP training), with
+``run_ranks`` to start their ranks.
 
 The production shapes are the JAX package's: one pod of (16, 16) cards
 over ("data", "model"), two pods (2, 16, 16) over ("pod", "data",
 "model").
 
-``TPMesh`` takes its backend, store and device from the caller (NCCL with
-``cuda:r`` on rank r, or gloo on the CPU or on one shared card): nothing
-here picks them from what the machine has.
+A running mesh takes its backend, store and device from the caller (NCCL
+with ``cuda:r`` on rank r, or gloo on the CPU or on one shared card):
+nothing here picks them from what the machine has.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import torch.distributed as dist
 
 from repro_torch.device import NoCudaDeviceError
 
-__all__ = ["MeshShape", "TPMesh", "batch_axes", "mesh_tag", "production_mesh_shape",
-           "run_ranks"]
+__all__ = ["DataMesh", "MeshShape", "TPMesh", "batch_axes", "data_ranks", "mesh_tag",
+           "parse_mesh", "production_mesh_shape", "run_ranks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +54,42 @@ def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape((("data", 16), ("model", 16)))
 
 
+def parse_mesh(spec: str, devices: int) -> MeshShape:
+    """A launcher's ``--mesh`` string as the JAX launcher's
+    ``make_mesh_from_args`` reads it: ``"auto"`` is (``devices``, 1) over
+    ("data", "model"), ``"DxM"`` (D, M) over ("data", "model") and
+    ``"PxDxM"`` adds the pod axis.  One number ``"D"`` is a data axis of D
+    (the JAX launcher makes it a model axis; the port trains data-parallel
+    only, see ``data_ranks``)."""
+    if spec == "auto":
+        return MeshShape((("data", devices), ("model", 1)))
+    try:
+        dims = tuple(int(x) for x in spec.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {spec!r}: want auto, D, DxM or PxDxM") from None
+    if not 1 <= len(dims) <= 3 or min(dims) < 1:
+        raise ValueError(f"--mesh {spec!r}: want auto, D, DxM or PxDxM of sizes >= 1")
+    names = ("data",) if len(dims) == 1 else ("pod", "data", "model")[-len(dims):]
+    return MeshShape(tuple(zip(names, dims)))
+
+
+def data_ranks(shape: MeshShape) -> int:
+    """The data-parallel ranks a training mesh of ``shape`` runs.  A model
+    axis above 1 or a pod axis raises ``NotImplementedError``: training
+    under them is not ported (ROADMAP.md section 1: tensor-parallel
+    training, then the pod axis)."""
+    sizes = shape.shape
+    if "pod" in sizes:
+        raise NotImplementedError(
+            f"mesh {mesh_tag(shape)}: training over a pod axis is not ported "
+            "(ROADMAP.md section 1, item 10: the pod axis)")
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {mesh_tag(shape)}: tensor-parallel training (a model axis above 1) "
+            "is not ported (ROADMAP.md section 1, item 9: TP training)")
+    return sizes["data"]
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
     """Mesh axes that carry the global batch (data parallelism)."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
@@ -61,16 +99,15 @@ def mesh_tag(mesh) -> str:
     return "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
 
 
-class TPMesh:
-    """One ``("model",)`` axis of ``world`` ranks over a process group that
-    this constructor initialises (``dist.init_process_group`` with the
-    caller's ``store`` and ``backend``): the rank's index, the axis size
-    and the device the rank computes on.  ``axis_names`` and ``shape``
-    read as ``MeshShape``'s, so ``param_pspec`` and ``cache_pspecs`` take
-    it unchanged.  A CUDA ``device`` without a card raises; ``close()``
-    destroys the group."""
+class _GroupMesh:
+    """One axis of ``world`` ranks over a process group that this
+    constructor initialises (``dist.init_process_group`` with the caller's
+    ``store`` and ``backend``): the rank's index, the axis size and the
+    device the rank computes on.  ``axis_names`` and ``shape`` read as
+    ``MeshShape``'s, so the sharding rules take it unchanged.  A CUDA
+    ``device`` without a card raises; ``close()`` destroys the group."""
 
-    axis_names: Tuple[str, ...] = ("model",)
+    axis_names: Tuple[str, ...] = ()
 
     def __init__(self, *, rank: int, world: int, store: "dist.Store", backend: str,
                  device):
@@ -85,10 +122,25 @@ class TPMesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"model": self.size}
+        return {self.axis_names[0]: self.size}
 
     def close(self) -> None:
         dist.destroy_process_group()
+
+
+class TPMesh(_GroupMesh):
+    """The ``("model",)`` axis of tensor-parallel serving
+    (``ServeSession(mesh=...)``, ``parallel/tp.py``)."""
+
+    axis_names = ("model",)
+
+
+class DataMesh(_GroupMesh):
+    """The ``("data",)`` axis of data-parallel training with FSDP
+    parameter and optimizer-state sharding (``make_train_step(...,
+    mesh=...)``, ``parallel/fsdp.py``)."""
+
+    axis_names = ("data",)
 
 
 def _rank_entry(target, rank, world, args, results):
@@ -101,7 +153,7 @@ def _rank_entry(target, rank, world, args, results):
 def run_ranks(target: Callable[..., Any], world: int, args: Sequence[Any] = (), *,
               timeout: float) -> List[Any]:
     """``target(rank, world, *args)`` in ``world`` spawned processes (the
-    target builds its ``TPMesh``); each rank's return value, in rank
+    target builds its mesh); each rank's return value, in rank
     order.  A rank that raises, dies or outlives ``timeout`` seconds
     fails the run: every rank still alive is then terminated."""
     ctx = mp.get_context("spawn")

@@ -1,15 +1,16 @@
 """Training launcher: QAT retraining with the approximate multiplier,
-checkpoint/restart and fault monitoring, on one device.
+checkpoint/restart and fault monitoring, on one device or data-parallel
+over a mesh of ranks.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --reduced --steps 20 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 4
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --mesh 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
         --reduced --device cpu --steps 2     # also falcon-mamba-7b, zamba2-2.7b
 
-The JAX package's launcher less its mesh (tensor parallelism is a later
-slice of the port), plus ``--device``.  ``--mode kernel`` (the default)
-runs every projection's integer simulation through the CUDA
+The JAX package's launcher plus ``--device``.  ``--mode kernel`` (the
+default) runs every projection's integer simulation through the CUDA
 approximate-matmul kernel; ``lowrank`` is that kernel's plain version, and
 on ``--device cpu`` both take the plain version.  Without ``--device`` the
 run needs a CUDA device and raises without one.  A run resumes from the
@@ -18,33 +19,56 @@ moe loss adds its load-balance term); the vlm and audio backbones take
 embeddings, which this launcher's token stream cannot feed, so it refuses
 them before it builds any weights (the JAX launcher fails inside
 ``forward`` on the missing ``batch["embeddings"]``).
+
+``--mesh`` (``launch.mesh.parse_mesh``; default ``auto``: one rank per
+visible card, one on ``--device cpu``) with more than one data rank trains
+the dense family data-parallel with FSDP sharding (``parallel/fsdp.py``):
+rank r is a process of its own on ``cuda:r`` over NCCL (more ranks than
+visible cards are refused), or on the CPU over gloo with ``--device
+cpu``.  Every rank draws the whole global batch and the step keeps its
+rows, so a run sees the batches one device would; rank 0 prints, rank 0
+writes whole checkpoints (any number of ranks resumes from them), a
+preemption signal stops every rank at the same step, and a failed rank
+restarts the whole world from the newest checkpoint (``--max-restarts``).
+A model axis, a pod axis and the moe, ssm and hybrid families are refused
+under a data mesh (``NotImplementedError`` naming their ROADMAP.md item).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import shutil
 import tempfile
 import time
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.approx import ApproxConfig, Modes
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels.approx_matmul import approx_matmul
+from repro_torch.launch.mesh import DataMesh, MeshShape, data_ranks, parse_mesh, run_ranks
+from repro_torch.parallel import fsdp
 from repro_torch.train import optim as O
 from repro_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.train.fault import PreemptionGuard, StragglerMonitor, run_with_restarts
-from repro_torch.train.loop import as_batch, init_state, make_train_step
+from repro_torch.train.loop import as_batch, check_data_mesh, init_state, make_train_step
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true", help="CPU-sized variant")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--mesh", default="auto",
+                    help='"auto" (one data rank per visible card; one on --device cpu), '
+                         '"D" data ranks, or "DxM" / "PxDxM" as the JAX launcher reads them '
+                         "(a model axis above 1 and a pod axis are refused)")
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--multiplier", default="mul8x8_2")
     ap.add_argument("--mode", default="kernel", choices=Modes)
@@ -57,33 +81,82 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs "
                          "the plain versions)")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def _config(args):
     cfg = get_config(args.arch)
     if not cfg.embed_input:
         raise ValueError(f"{cfg.name} takes embedding inputs (frontend stub); this "
                          "launcher trains on token batches: use an embed-input arch")
-    dev = resolve_device(args.device)
     if args.reduced:
         cfg = reduced_config(cfg)
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, approx=ApproxConfig(multiplier=args.multiplier, mode=args.mode, band_reg=1e-4)
     )
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    cfg = _config(args)
+    on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    dp = data_ranks(parse_mesh(args.mesh, 1 if on_cpu else torch.cuda.device_count()))
+    if dp <= 1:
+        return _train(args, cfg, resolve_device(args.device))
+    check_data_mesh(cfg, MeshShape((("data", dp),)))
+    if not on_cpu and dp > torch.cuda.device_count():
+        raise SystemExit(f"--mesh {args.mesh}: {dp} data ranks > "
+                         f"{torch.cuda.device_count()} visible CUDA devices")
+    store_dir = tempfile.mkdtemp(prefix="train_dp_")
+
+    def world(attempt: int):
+        store = os.path.join(store_dir, f"store{attempt}")
+        return run_ranks(_rank, dp, (store, args, cfg, on_cpu, attempt), timeout=24 * 3600)[0]
+
+    try:
+        return run_with_restarts(world, max_restarts=args.max_restarts,
+                                 on_restart=lambda a, e: print(f"restart {a} after {e!r}"))
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _rank(rank, world, store_path, args, cfg, on_cpu, attempt):
+    device = torch.device("cpu") if on_cpu else torch.device("cuda", rank)
+    if on_cpu:                          # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = DataMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
+                    backend="gloo" if on_cpu else "nccl", device=device)
+    try:
+        return _train(args, cfg, device, mesh, attempt)
+    finally:
+        mesh.close()
+
+
+def _train(args, cfg, dev, mesh=None, attempt=None):
+    """The training run on ``dev``: under ``mesh`` one rank's, whose
+    result is the run's less its state (rank 0 prints); without one the
+    job restarts in this process (``--max-restarts``)."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     opt = O.OptConfig(lr=3e-4, total_steps=args.steps)
     step_fn = make_train_step(cfg, opt, microbatch=args.microbatch,
-                              grad_compression=args.grad_compression)
+                              grad_compression=args.grad_compression, mesh=mesh)
 
     def job(attempt: int):
-        state = init_state(cfg, opt, args.seed, grad_compression=args.grad_compression,
-                           device=dev)
+        if mesh is None:
+            state = init_state(cfg, opt, args.seed, grad_compression=args.grad_compression,
+                               device=dev)
+        else:
+            state = fsdp.init_state(cfg, opt, args.seed, mesh,
+                                    grad_compression=args.grad_compression, device=dev)
         start = 0
         if latest_step(args.ckpt) is not None:
-            state, start = restore_checkpoint(args.ckpt, state)
-            print(f"[attempt {attempt}] resumed at step {start}")
+            state, start = restore_checkpoint(args.ckpt, state, cfg=cfg, mesh=mesh)
+            say(f"[attempt {attempt}] resumed at step {start}")
         losses = []
         mon = StragglerMonitor(threshold=3.0)
         batches = token_batches(cfg.vocab_size, args.batch, args.seq, seed=start)
-        with PreemptionGuard() as guard:
+        out = {"start": start, "losses": losses}
+        with PreemptionGuard(mesh=mesh) as guard:
             for i in range(start, args.steps):
                 batch = as_batch(next(batches), dev)
                 t0 = time.perf_counter()
@@ -91,22 +164,27 @@ def main(argv=None):
                 losses.append(float(m["loss"]))
                 mon.record(i, time.perf_counter() - t0)
                 if i % 10 == 0:
-                    print(f"step {i:4d} loss {losses[-1]:.4f} "
-                          f"gnorm {float(m['grad_norm']):.3f}")
-                if (i + 1) % args.ckpt_every == 0 or guard.should_stop:
-                    save_checkpoint(args.ckpt, i + 1, state, keep=3)
-                    if guard.should_stop:
-                        print("preempted: checkpoint flushed")
-                        return {"state": state, "start": start, "losses": losses}
-        save_checkpoint(args.ckpt, args.steps, state, keep=3)
-        return {"state": state, "start": start, "losses": losses}
+                    say(f"step {i:4d} loss {losses[-1]:.4f} "
+                        f"gnorm {float(m['grad_norm']):.3f}")
+                stop = guard.poll()
+                if (i + 1) % args.ckpt_every == 0 or stop:
+                    save_checkpoint(args.ckpt, i + 1, state, keep=3, cfg=cfg, mesh=mesh)
+                    if stop:
+                        say("preempted: checkpoint flushed")
+                        return {**out, "state": state}
+        save_checkpoint(args.ckpt, args.steps, state, keep=3, cfg=cfg, mesh=mesh)
+        return {**out, "state": state}
 
     launches0 = approx_matmul.launches
-    out = run_with_restarts(job, max_restarts=args.max_restarts,
-                            on_restart=lambda a, e: print(f"restart {a} after {e!r}"))
-    print(f"training complete on {dev}: {len(out['losses'])} steps from step "
-          f"{out['start']}; approx_matmul kernel launches "
-          f"{approx_matmul.launches - launches0}")
+    if mesh is None:
+        out = run_with_restarts(job, max_restarts=args.max_restarts,
+                                on_restart=lambda a, e: print(f"restart {a} after {e!r}"))
+    else:
+        out = job(attempt)
+        out["step"] = int(out.pop("state")["opt"]["step"])
+    ranks = "" if mesh is None else f" x {mesh.size} data ranks"
+    say(f"training complete on {dev}{ranks}: {len(out['losses'])} steps from step "
+        f"{out['start']}; approx_matmul kernel launches {approx_matmul.launches - launches0}")
     return out
 
 

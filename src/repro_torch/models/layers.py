@@ -2,7 +2,10 @@
 the approximate-multiplier pipeline when configured.  Under tensor
 parallelism a weight is a ``Shard`` (``parallel/tp.shard_params``) and
 ``dense``, ``embed`` and ``gather_columns`` dispatch on its split, so the
-model code calls them as it does unsharded."""
+model code calls them as it does unsharded.  Under data-parallel training
+a weight is a ``DataPart`` (``parallel/fsdp.wrap``): ``unstack`` keeps
+each layer's part, and ``dense`` and ``embed`` gather it whole where they
+use it."""
 from __future__ import annotations
 
 import math
@@ -11,7 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig, QWeight, Shard, approx_dense
+from repro_torch.core.approx import ApproxConfig, DataPart, QWeight, Shard, approx_dense
 from repro_torch.parallel.collectives import all_gather_last, all_reduce_sum
 
 __all__ = [
@@ -53,7 +56,9 @@ def dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     ``w`` may be a frozen ``QWeight`` (serving path) or a ``Shard``: a
     column split gives the rank's output columns, a row split (``x`` the
     rank's K-part) the whole output, its float partial products summed over
-    the ranks in float32."""
+    the ranks in float32.  A ``DataPart`` is gathered whole here."""
+    if isinstance(w, DataPart) and cfg.mode == "float":
+        w = w.whole()
     local = w.w if isinstance(w, Shard) else w
     if isinstance(local, QWeight) or cfg.mode != "float":
         return approx_dense(x, w, cfg).to(x.dtype)
@@ -65,7 +70,10 @@ def dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
 def embed(tokens: torch.Tensor, table) -> torch.Tensor:
     """Rows of ``table`` (V, d) for ``tokens``, float32.  A vocab ``Shard``
     looks up the ids in the rank's rows, zeroes the others and sums over
-    the ranks: exact, since each row is one rank's value plus zeros."""
+    the ranks: exact, since each row is one rank's value plus zeros.  A
+    ``DataPart`` is gathered whole first."""
+    if isinstance(table, DataPart):
+        table = table.whole()
     if not isinstance(table, Shard):
         return F.embedding(tokens.long(), table)
     part, mesh = table.w, table.mesh
@@ -88,10 +96,12 @@ def gather_columns(y: torch.Tensor, w) -> torch.Tensor:
 
 def unstack(node, n: int):
     """A tree stacked on a leading axis of ``n`` (dicts of tensors,
-    ``QWeight``s, ``Shard``s and ``None`` leaves) as a list of ``n`` per-entry trees of
+    ``QWeight``s, ``Shard``s, ``DataPart``s and ``None`` leaves) as a list of ``n`` per-entry trees of
     views: the per-layer walk over stacked layers, and the per-expert walk
     over stacked experts.  A ``Shard`` stays a ``Shard`` of the same split
-    (a layer of an expert ``Shard`` holds the rank's experts).  Under
+    (a layer of an expert ``Shard`` holds the rank's experts), and a
+    ``DataPart`` a ``DataPart`` of the layer's part (the stacked axis never
+    splits), gathered only where a layer uses it.  Under
     autograd the backward of ``unbind`` stacks the per-entry gradients
     once, where indexing would add one zero-padded full-size gradient per
     entry."""
@@ -102,6 +112,8 @@ def unstack(node, n: int):
         return [None] * n
     if isinstance(node, Shard):
         return [Shard(w, node.split, node.mesh) for w in unstack(node.w, n)]
+    if isinstance(node, DataPart):
+        return [node._replace(w=w) for w in node.w.unbind(0)]
     if isinstance(node, QWeight):
         fields = [t.unbind(0) if t.dim() > 0 else (t,) * n for t in node]
         return [QWeight(*(f[i] for f in fields)) for i in range(n)]

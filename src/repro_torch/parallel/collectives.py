@@ -1,13 +1,18 @@
-"""The collectives of tensor-parallel serving, over a ``TPMesh``'s group:
-a SUM all-reduce (int32 code dots and row sums, float32 partial
-products), a MAX all-reduce (float32 ranges), an all-gather along the
-last dim (the vocab-split logits) and one along the first (the
-expert-parallel MoE's output rows).  Nothing more, so gloo can carry them
-on CUDA tensors as well as NCCL.  Each call waits for its result and is
-counted in ``COUNTS`` (calls, and host seconds spent in them).
-
-Inference only: a tensor that requires grad raises, since these calls
-are not recorded by autograd.
+"""The collectives of the meshes (``launch/mesh.py``), over a mesh's
+group.  Tensor-parallel serving: a SUM all-reduce (int32 code dots and
+row sums, float32 partial products), a MAX all-reduce (float32 ranges),
+an all-gather along the last dim (the vocab-split logits) and one along
+the first (the expert-parallel MoE's output rows); these are inference
+only: a tensor that requires grad raises, since they are not recorded by
+autograd.  Data-parallel training (``parallel/fsdp.py``): ``gather_dim``,
+an all-gather along any dim that autograd records, its backward the SUM
+reduce-scatter of the cotangent; ``gather_value`` and ``owned_whole``, the
+same split into a value and a gradient path, so that a cast's rounding of
+the gradient can follow the ranks' sum; and ``barrier``; the gradients'
+all-reduce, the ranges' MAX and the optimizer's sums use the functions
+above on tensors that need no gradient.  Nothing more, so gloo can carry
+them on CUDA tensors as well as NCCL.  Each call waits for its result and
+is counted in ``COUNTS`` (calls, and host seconds spent in them).
 """
 from __future__ import annotations
 
@@ -18,20 +23,24 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COUNTS", "all_gather_first", "all_gather_last", "all_reduce_max", "all_reduce_sum",
-           "max_range"]
+           "barrier", "gather_dim", "gather_value", "max_range", "owned_whole"]
 
 COUNTS: Dict[str, float] = {"calls": 0, "host_s": 0.0}
 
 
-def _timed(fn, t: torch.Tensor):
-    if t.requires_grad:
-        raise NotImplementedError("tensor-parallel collectives carry no gradient: "
-                                  "training under a mesh is not ported yet")
+def _counted(fn):
     t0 = time.perf_counter()
     out = fn()
     COUNTS["calls"] += 1
     COUNTS["host_s"] += time.perf_counter() - t0
     return out
+
+
+def _timed(fn, t: torch.Tensor):
+    if t.requires_grad:
+        raise NotImplementedError("these collectives carry no gradient: a tensor that "
+                                  "requires grad crosses the ranks through gather_dim")
+    return _counted(fn)
 
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -73,3 +82,71 @@ def all_gather_first(t: torch.Tensor, mesh) -> torch.Tensor:
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
     _timed(lambda: dist.all_gather(parts, wire, group=mesh.group), t)
     return torch.cat(parts).view(t.dtype)
+
+
+def _gather_along(part: torch.Tensor, pos: int, mesh) -> torch.Tensor:
+    """Every rank's ``part`` concatenated along dim ``pos`` in rank order,
+    contiguous as the whole tensor is."""
+    part = part.contiguous()
+    out = part.new_empty((mesh.size * part.shape[0], *part.shape[1:]))
+    _counted(lambda: dist.all_gather_into_tensor(out, part, group=mesh.group))
+    out = out.view(mesh.size, *part.shape).movedim(0, pos)       # (..., size, n_pos, ...)
+    return out.reshape(*part.shape[:pos], -1, *part.shape[pos + 1:])
+
+
+def _scatter_sum(grad: torch.Tensor, pos: int, mesh) -> torch.Tensor:
+    """This rank's slice along dim ``pos`` of ``grad`` summed over the
+    ranks (a reduce-scatter)."""
+    shape = (*grad.shape[:pos], mesh.size, grad.shape[pos] // mesh.size, *grad.shape[pos + 1:])
+    lead = grad.reshape(shape).movedim(pos, 0).contiguous()       # (size, *part)
+    out = lead.new_empty(lead.shape[1:])
+    _counted(lambda: dist.reduce_scatter_tensor(out, lead.view(-1, *lead.shape[2:]),
+                                                op=dist.ReduceOp.SUM, group=mesh.group))
+    return out
+
+
+class _OwnedWhole(torch.autograd.Function):
+    """A whole tensor computed from the ranks' gathered parts, whose
+    cotangent reaches ``part`` summed over the ranks at its slice (a
+    reduce-scatter), then rounded through ``round_to``."""
+
+    @staticmethod
+    def forward(ctx, part, whole, dim, mesh, round_to):
+        ctx.pos, ctx.mesh, ctx.round_to = dim % part.dim(), mesh, round_to
+        return whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = _scatter_sum(grad, ctx.pos, ctx.mesh)
+        if ctx.round_to is not None:
+            out = out.to(ctx.round_to).to(grad.dtype)
+        return out, None, None, None, None
+
+
+def gather_value(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """``gather_dim``'s value, recorded by no autograd graph."""
+    with torch.no_grad():
+        return _gather_along(part.detach(), dim % part.dim(), mesh)
+
+
+def owned_whole(part: torch.Tensor, whole: torch.Tensor, dim: int, mesh,
+                round_to=None) -> torch.Tensor:
+    """``whole`` (computed without a graph from ``gather_value(part)``) as
+    autograd sees it: its cotangent, summed over the ranks at ``part``'s
+    slice (no collective in the forward; one reduce-scatter in the
+    backward), then rounded through ``round_to`` where given, reaches
+    ``part``.  So a cast's rounding of a gradient happens once, after the
+    ranks' sum, as on one device."""
+    return _OwnedWhole.apply(part, whole, dim, mesh, round_to)
+
+
+def gather_dim(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Every rank's ``part`` concatenated along ``dim`` in rank order, as
+    autograd sees it: the gradient that reaches ``part`` is the sum over
+    the ranks of the whole result's cotangent at ``part``'s slice."""
+    return owned_whole(part, gather_value(part, dim, mesh), dim, mesh)
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits here until all have arrived."""
+    _counted(lambda: dist.barrier(group=mesh.group))

@@ -25,8 +25,8 @@ from repro_torch.core.approx import QWeight, Shard
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.train.tree import leaves_with_path
 
-__all__ = ["Spec", "batch_pspecs", "cache_pspecs", "named_leaves", "param_pspec",
-           "param_pspecs", "prune_pspec", "tree_bytes"]
+__all__ = ["Spec", "batch_pspecs", "cache_pspecs", "named_leaves", "opt_state_pspecs",
+           "param_pspec", "param_pspecs", "prune_pspec", "tree_bytes"]
 
 Spec = Tuple[Any, ...]
 
@@ -109,6 +109,16 @@ def named_leaves(tree: Any) -> List[Tuple[str, torch.Tensor]]:
 def param_pspecs(cfg: ModelConfig, params: Any, mesh) -> Dict[str, Spec]:
     """Path -> spec for every leaf of a parameter tree."""
     return {p: param_pspec(p, tuple(t.shape), cfg, mesh) for p, t in named_leaves(params)}
+
+
+def opt_state_pspecs(opt_cfg, param_specs: Dict[str, Spec]) -> Dict[str, Any]:
+    """The optimizer state's specs, as the JAX package's
+    ``opt_state_shardings`` gives them: the step replicated, each moment
+    leaf (``m``, and ``v`` for AdamW) sharded as its parameter."""
+    out: Dict[str, Any] = {"step": (), "m": dict(param_specs)}
+    if opt_cfg.kind == "adamw":
+        out["v"] = dict(param_specs)
+    return out
 
 
 def batch_pspecs(cfg: ModelConfig, mesh, kind: str) -> Dict[str, Spec]:

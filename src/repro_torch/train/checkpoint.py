@@ -12,6 +12,13 @@ characters outside ``[A-Za-z0-9_.]`` replaced by ``/`` (``train/tree.py``
 walks the port's dicts as the JAX package's trees).  Publishing is atomic:
 the snapshot is written to a staging directory and renamed, then
 ``LATEST`` is replaced.
+
+Under a data mesh (``cfg=``, ``mesh=``: a training state of FSDP parts,
+``parallel/fsdp.py``) every rank calls both functions: the leaves are
+gathered whole and rank 0 writes them in the same format, and a restore
+reads the whole leaves and keeps the rank's part of each.  So a
+checkpoint written at one number of ranks restores at any other, on one
+device, and into the JAX package.
 """
 from __future__ import annotations
 
@@ -26,7 +33,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.train.tree import leaves_with_path, unflatten
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.collectives import barrier
+from repro_torch.train.tree import leaves_with_path, tree_map, unflatten
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "list_steps"]
 
@@ -37,7 +46,22 @@ def _flatten(tree: Any) -> List[Tuple[str, torch.Tensor]]:
     return [(_SAFE.sub("/", path).strip("/"), leaf) for path, leaf in leaves_with_path(tree)]
 
 
-def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3) -> str:
+def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3, cfg=None,
+                    mesh=None) -> Optional[str]:
+    """Write ``tree`` as step ``step`` and keep the newest ``keep``; the
+    snapshot's path.  Under a data ``mesh`` (``tree`` the rank's training
+    state, cut by ``cfg``'s rules) rank 0 writes the whole state and
+    returns its path, the others None, once it is published."""
+    if mesh is None:
+        return _write(directory, step, tree, keep)
+    whole = fsdp.whole_state(tree, cfg, mesh, device="cpu")
+    path = _write(directory, step, whole, keep) if mesh.rank == 0 else None
+    del whole
+    barrier(mesh)
+    return path
+
+
+def _write(directory: str, step: int, tree: Any, keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     name = f"step_{step:09d}"
     stage = tempfile.mkdtemp(prefix=name + ".tmp-", dir=directory)
@@ -94,10 +118,17 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, target_tree: Any, *,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
+def restore_checkpoint(directory: str, target_tree: Any, *, step: Optional[int] = None,
+                       cfg=None, mesh=None) -> Tuple[Any, int]:
     """Restore into the structure of ``target_tree``: each leaf comes back
-    with its stored dtype, on the device of the target's leaf."""
+    with its stored dtype, on the device of the target's leaf.  Under a
+    data ``mesh`` (``target_tree`` the rank's training state, cut by
+    ``cfg``'s rules) each leaf is read whole and the rank's part kept."""
+    if mesh is not None:
+        whole, step = restore_checkpoint(directory, tree_map(lambda t: torch.empty(0),
+                                                             target_tree), step=step)
+        part = fsdp.shard_state(whole, cfg, mesh)
+        return tree_map(lambda p, t: p.detach().to(t.device), part, target_tree), step
     if step is None:
         step = latest_step(directory)
         if step is None:

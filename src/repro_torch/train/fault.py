@@ -7,10 +7,14 @@
   or alert). Here the policy hook is injectable for tests.
 * ``PreemptionGuard`` — SIGTERM/SIGINT handler that requests a final
   checkpoint flush + clean exit at the next step boundary (the GKE/Borg
-  maintenance-event pattern).
+  maintenance-event pattern).  Under a data mesh the ranks agree on the
+  flag once per step (``poll``), so a signal one rank sees stops every
+  rank at the same step.
 * ``run_with_restarts`` — supervisor that restarts a training function from
   the latest checkpoint after a (simulated or real) failure, up to a retry
-  budget: checkpoint/restart fault tolerance in one callable.
+  budget: checkpoint/restart fault tolerance in one callable.  Under a
+  data mesh the launcher restarts the whole world of ranks with it
+  (``launch/train.py``), each rank resuming from the newest checkpoint.
 """
 from __future__ import annotations
 
@@ -18,6 +22,10 @@ import dataclasses
 import signal
 import time
 from typing import Any, Callable, List, Optional
+
+import torch
+
+from repro_torch.parallel.collectives import all_reduce_max
 
 __all__ = ["StragglerMonitor", "PreemptionGuard", "run_with_restarts"]
 
@@ -57,12 +65,23 @@ class StragglerMonitor:
 
 class PreemptionGuard:
     """Install as a context manager; ``should_stop`` flips on SIGTERM/SIGINT
-    so the training loop can flush a checkpoint and exit cleanly."""
+    so the training loop can flush a checkpoint and exit cleanly.  Under a
+    data ``mesh`` the loop asks ``poll()`` at each step boundary."""
 
-    def __init__(self, signals=(signal.SIGTERM,)):
+    def __init__(self, signals=(signal.SIGTERM,), mesh=None):
         self._signals = signals
         self._old = {}
+        self._mesh = mesh
         self.should_stop = False
+
+    def poll(self) -> bool:
+        """Whether to stop at this step boundary: this process's flag, or
+        under a data mesh any rank's (one MAX all-reduce; every rank must
+        call it once per step, so they all stop at the same step)."""
+        if self._mesh is None:
+            return self.should_stop
+        flag = torch.tensor([float(self.should_stop)], device=self._mesh.device)
+        return bool(all_reduce_max(flag, self._mesh).item())
 
     def _handler(self, signum, frame):
         self.should_stop = True

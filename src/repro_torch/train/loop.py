@@ -7,6 +7,14 @@ load-balance term, and the vlm and audio backbones train on embeddings.
 The JAX package's ``train/loop.py`` is the reference; where it traces one
 jitted step, the port runs the same operations eagerly and takes gradients
 with ``torch.autograd.grad``.
+
+Under a data mesh (``make_train_step(..., mesh=DataMesh)``) one step on
+``size`` ranks computes what the JAX package's step computes on the whole
+global batch, up to float32 summation order: each rank runs its rows
+(``parallel/fsdp.rank_rows``) through the forward on its FSDP parts
+(``fsdp.wrap``), its loss the local mean CE plus the whole band term, so
+the ranks' gradients summed and divided by ``size`` are the global
+batch's; the optimizer updates the parts.
 """
 from __future__ import annotations
 
@@ -18,7 +26,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.core.approx import DataPart
 from repro_torch.models.transformer import forward, init_params
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.collectives import all_reduce_sum
 from repro_torch.quant.affine import calibrate
 from repro_torch.quant.qat import band_regularizer
 from repro_torch.train import optim as O
@@ -41,12 +52,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
-def _band_term(leaf: torch.Tensor, qmax: int) -> torch.Tensor:
+def _band_term(leaf, qmax: int) -> torch.Tensor:
+    if isinstance(leaf, DataPart):
+        leaf = leaf.whole()
     qp = calibrate(leaf, axis=(leaf.dim() - 2,), qmax=qmax)
     return band_regularizer(leaf, qp, band=(0, 31))
 
 
-def _leaf_band_term(leaf: torch.Tensor, qmax: int) -> torch.Tensor:
+def _leaf_band_term(leaf, qmax: int) -> torch.Tensor:
     """One weight's band term, the mean over its elements.  A stacked
     weight (layers, experts) calibrates each (K, N) matrix alone (its
     scales are per output channel), so its mean is taken over chunks of
@@ -55,14 +68,18 @@ def _leaf_band_term(leaf: torch.Tensor, qmax: int) -> torch.Tensor:
     each chunk is recomputed in the backward instead of holding its
     intermediates, so no more than a few copies of one chunk exist at once
     (a whole stack's would be about five copies of 5.8 GB for zamba2-2.7b's
-    stacked ``in_proj``)."""
-    if leaf.dim() == 2:
+    stacked ``in_proj``).  A ``DataPart``'s chunks are its part's, each
+    gathered whole inside the recomputed term (so the recompute gathers
+    it again) and chunked by the whole matrices' size."""
+    part = leaf.w if isinstance(leaf, DataPart) else leaf
+    if part.dim() == 2:
         return checkpoint(_band_term, leaf, qmax, use_reentrant=False)
-    mats = leaf.reshape(-1, *leaf.shape[-2:])
+    mats = part.reshape(-1, *part.shape[-2:])
     per = max(1, LEAF_CHUNK // (leaf.shape[-2] * leaf.shape[-1]))
     total = None
     for chunk in mats.split(per):
-        t = checkpoint(_band_term, chunk, qmax, use_reentrant=False) * (
+        piece = leaf._replace(w=chunk) if isinstance(leaf, DataPart) else chunk
+        t = checkpoint(_band_term, piece, qmax, use_reentrant=False) * (
             chunk.shape[0] / mats.shape[0])
         total = t if total is None else total + t
     return total
@@ -71,14 +88,14 @@ def _leaf_band_term(leaf: torch.Tensor, qmax: int) -> torch.Tensor:
 def _band_reg_term(cfg: ModelConfig, params) -> torch.Tensor:
     """The paper's weight-band regularizer over every 2-D+ weight, in the JAX
     package's leaf order, each weight's term recomputed in the backward
-    (``_leaf_band_term``)."""
+    (``_leaf_band_term``); a ``DataPart`` (data mesh) enters whole."""
     a = cfg.approx
     dev = leaves(params)[0].device
     if a.band_reg <= 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
     total, n = torch.zeros((), dtype=torch.float32, device=dev), 0
     for leaf in leaves(params):
-        if leaf.dim() >= 2 and leaf.shape[-1] > 1:
+        if len(leaf.shape) >= 2 and leaf.shape[-1] > 1:
             total = total + _leaf_band_term(leaf, a.w_qmax)
             n += 1
     return a.band_reg * total / max(n, 1)
@@ -108,12 +125,33 @@ def _detached(m: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in m.items()}
 
 
+def check_data_mesh(cfg: ModelConfig, mesh) -> None:
+    """Refuse what data-parallel training does not cover: a mesh other
+    than one data axis, and every family but the dense one (each named
+    with its ROADMAP.md item)."""
+    if tuple(mesh.axis_names) != ("data",):
+        raise NotImplementedError(
+            f"training over mesh axes {tuple(mesh.axis_names)}: only a data axis is ported "
+            "(ROADMAP.md section 1, items 9-10: TP training, the pod axis)")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "data-parallel training of the moe family: its capacity, dropped assignments "
+            "and load-balance term span the global batch (ROADMAP.md section 1, item 8: "
+            "MoE data parallelism with global routing)")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"data-parallel training of the {cfg.family} family is not ported "
+            "(ROADMAP.md section 1, item 7: the ssm, hybrid, vlm and audio families "
+            "under a data mesh)")
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: O.OptConfig,
     *,
     microbatch: int = 0,
     grad_compression: bool = False,
+    mesh=None,
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -123,15 +161,23 @@ def make_train_step(
     ``microbatch``: if > 1, split the batch into that many accumulation
     steps, run one after another (the JAX package's ``lax.scan``), and
     average their gradients and losses; the other metrics are the last
-    microbatch's.  The step updates ``state`` in place (see ``optim``)."""
+    microbatch's.  The step updates ``state`` in place (see ``optim``).
+
+    ``mesh``: a ``launch.mesh.DataMesh`` (dense family).  ``state`` is
+    then the rank's part (``parallel/fsdp.init_state`` or ``shard_state``)
+    and ``batch`` the global batch, of which the step keeps the rank's
+    rows; the metrics are global (the loss and CE the ranks' mean), the
+    same on every rank."""
     loss_fn = make_loss_fn(cfg)
+    if mesh is not None:
+        check_data_mesh(cfg, mesh)
 
     def grads_of(params, batch):
         ps = leaves(params)
         for p in ps:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        loss, m = loss_fn(params, batch)
+        loss, m = loss_fn(params if mesh is None else fsdp.wrap(params, cfg, mesh), batch)
         gs = torch.autograd.grad(loss, ps)
         return loss.detach(), _detached(m), unflatten(params, gs)
 
@@ -156,13 +202,27 @@ def make_train_step(
             a_.div_(microbatch)
         return loss_sum / microbatch, m, acc
 
+    def global_metrics(loss, m):
+        """The ranks' means of the loss and the metrics, in one all-reduce."""
+        keys = sorted(m)
+        t = all_reduce_sum(torch.stack([loss] + [m[k] for k in keys]), mesh) / mesh.size
+        return t[0], {k: v for k, v in zip(keys, t[1:].unbind())}
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        split = None
+        if mesh is not None:
+            batch = fsdp.rank_rows(batch, cfg, mesh, microbatch)
         loss, m, grads = compute_grads(state["params"], batch)
+        if mesh is not None:
+            grads = unflatten(grads, fsdp.reduce_grads(leaves(grads), cfg, mesh))
+            loss, m = global_metrics(loss, m)
+            split = [d is not None for d in fsdp.data_dims(cfg, mesh.size)]
         if grad_compression:
-            grads, state_err = compress_decompress(grads, state.get("grad_err"))
+            grads, state_err = compress_decompress(grads, state.get("grad_err"), mesh)
         else:
             state_err = state.get("grad_err")
-        params, opt, om = O.apply_updates(opt_cfg, state["params"], grads, state["opt"])
+        params, opt, om = O.apply_updates(opt_cfg, state["params"], grads, state["opt"],
+                                          mesh=mesh, split=split)
         del grads
         new_state = {"params": params, "opt": opt}
         if state_err is not None:

@@ -12,15 +12,21 @@ of at most ``LEAF_CHUNK`` elements, so its temporaries stay a few chunks
 in size where a stacked weight's would be a few copies of the stack
 (zamba2-2.7b's stacked ``in_proj`` is 5.8 GB); the update is elementwise,
 so the chunks change no value.
+
+Under a data mesh (``make_train_step(..., mesh=)``) the leaves are the
+rank's parts (``parallel/fsdp.py``): the update stays elementwise on them,
+and the global norm sums each leaf's squares over the ranks in one SUM
+all-reduce, counting a leaf every rank holds whole once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.parallel.collectives import all_reduce_sum
 from repro_torch.train.tree import LEAF_CHUNK, leaves, tree_map
 
 __all__ = [
@@ -73,8 +79,18 @@ def init_opt_state(cfg: OptConfig, params: Any) -> Dict[str, Any]:
     return state
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(x.to(torch.float32).square().sum() for x in leaves(tree)))
+def global_norm(tree: Any, mesh=None, split: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in leaf order.  Under a
+    data ``mesh`` each leaf's sum spans the ranks: ``split[i]`` says leaf
+    i is the rank's part (its squares summed over the ranks), else it is
+    whole on every rank and rank 0's sum alone counts."""
+    sq = [x.to(torch.float32).square().sum() for x in leaves(tree)]
+    if mesh is not None:
+        v = torch.stack(sq)
+        if mesh.rank != 0:
+            v = torch.where(torch.tensor(list(split), device=v.device), v, 0.0)
+        sq = list(all_reduce_sum(v, mesh).unbind())
+    return torch.sqrt(sum(sq))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -97,12 +113,14 @@ def _chunks(*trees_leaves):
 
 @torch.no_grad()
 def apply_updates(
-    cfg: OptConfig, params: Any, grads: Any, state: Dict[str, Any]
+    cfg: OptConfig, params: Any, grads: Any, state: Dict[str, Any], *, mesh=None,
+    split: Optional[Sequence[bool]] = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step: clips ``grads`` by global norm, updates
     ``params`` and the moments in ``state`` in place, and returns
-    ``(params, new_state, {"grad_norm", "lr"})``."""
-    gn = global_norm(grads)
+    ``(params, new_state, {"grad_norm", "lr"})``.  Under a data ``mesh``
+    the leaves are the rank's parts, ``split`` as ``global_norm``'s."""
+    gn = global_norm(grads, mesh, split)
     scale = _clip_scale(gn, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
