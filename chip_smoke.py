@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: granite-3-2b at full width served (on the paged pool and on
 per-slot stripes; with prefix sharing, preemption, spec decode, quality
-tiers and chunked prefill) and retrained (also data-parallel with FSDP
+tiers and chunked prefill; a 32,752-token prompt in query chunks; fused
+q/k/v and gate/up projections) and retrained (also with bfloat16
+parameters) (also data-parallel with FSDP
 over two and four ranks), the paper's CNNs (ResNet-19 at full
 width) trained and QAT-retrained, qwen2-moe-a2.7b, falcon-mamba-7b and
 zamba2-2.7b served and retrained at full width (qwen2-moe-a2.7b also
@@ -244,17 +246,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
            and (c)'s weights and K1 async runs.
 14. train  QAT retraining of the moe, ssm and hybrid families at full width
            through K1, as ``launch/train.py`` trains (mul8x8_2, band_reg
-           1e-4, AdamW, remat on, batch 8 x seq 64): qwen2-moe-a2.7b 2
-           layers deep, falcon-mamba-7b 8, zamba2-2.7b 24 (4 groups)
+           1e-4, AdamW, remat on, batch 8 x seq 64): qwen2-moe-a2.7b 1
+           layer deep, falcon-mamba-7b 4, zamba2-2.7b 12 (2 groups)
            (TRAIN_DEPTHS: the cuts fit a unit's float32 parameters,
-           gradients and both moments beside the pool).  2 steps with K1's
+           gradients and both moments beside the pool, and the pool's
+           memory-time within the run's limit).  2 steps with K1's
            count zeroed just before and read just after: finite losses,
            the moe's load-balance term > 0, K1's launches equal to the
            steps times ``k1_per_train_step`` (every projection, then the
            recompute of each layer in the backward); step seconds, peak
            memory, one profiled step's device ms by kernel.  Oracle, 4
            layers deep (the hybrid: one group of 6; qwen2-moe-a2.7b at its
-           2), from one fresh state
+           1), from one fresh state
            and batch: a step through K1, the same step through K1 again
            and through K1's plain version (``lowrank``): losses and whole
            new states (``state_digest``) bit-identical.  Then
@@ -282,9 +285,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (a) and read after (d), equal to the passes times one pass's
            calls and to layers x steps; then 4 layers deep in float32 the
            teacher-forced decode within JAX's tolerance of ``forward``;
-           (b) training on embeddings as in phase 14 (musicgen 24 of its
-           48 layers; qwen2-vl with a positions grid) with its 4-layer
-           oracle.
+           (b) training on embeddings as in phase 14 (musicgen 12 of its
+           48 layers, qwen2-vl 14 of its 28, with a positions grid) with
+           its 4-layer oracle.
 16. roofline  the launch tooling (``launch/roofline.py``, ``specs.py``,
            ``dryrun.py``) held to the card on granite-3-2b at full width:
            one fused admission prefill (2 rows at bucket 128 into a 40-block
@@ -368,15 +371,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
            of ``launch/train.py --mesh`` is not run here), each holding
            1/dp of every weight the rules split and of its moments: (a) K1
            bit-equal to its plain version at granite's projections' (K, N)
-           at each rank's M (256 and 128); (b)-(c) dp=2 at DP_LAYERS (4):
+           at each rank's M (256 and 128); (b)-(c) dp=2 at DP_LAYERS (2):
            DP_STEPS (2) steps on the seed's state and ``token_batches``,
            each against one device's step from the same state and batch
            (rank 0 steps the seed's whole state, then the state it
            gathered after the step before): the loss within DP_LOSS_RTOL
            and the whole new parameters and moments within ``DpClose``'s
            tolerance, every rank the same losses, K1's launches per rank
-           DP_STEPS x ``k1_per_train_step`` (53), the collectives per rank
-           and step ``collectives_per_train_step`` (175), the state bytes
+           DP_STEPS x ``k1_per_train_step`` (27), the collectives per rank
+           and step ``collectives_per_train_step`` (105), the state bytes
            per rank the split leaves' 1/dp plus the replicated leaves,
            exactly; (d) dp=4 at DP4_LAYERS (2), the same gates; (e) rank
            0's checkpoint of dp=2's last state restored on one device
@@ -384,14 +387,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
            Printed: host seconds per step at dp against one device's,
            collectives and their host ms, GB gathered per step, state and
            peak GB per rank.
+20. levers query chunking (``ModelConfig.q_chunk``), the fused
+           projections (``fuse_qkv``, ``fuse_gate_up``) and bfloat16
+           parameters (``param_dtype``) at full width, phase 4's config and
+           weights from the seed: (a) ``attention_core`` at granite's heads
+           (32 over 8, hd 64), bf16 q/k/v, one row of 4,096 positions,
+           causal, in chunks of 512 within CHUNK_TOL (1e-5) of the whole
+           call, each call's temporaries printed beside the prediction;
+           (b) one request of a 32,752-token prompt and 8 greedy tokens
+           through ``ServeSession`` (paged, f32 pool, one slot, bucket and
+           max_len 32,768: 2,048 blocks a row, ``q_chunk`` 512) through K1
+           and K2: first K1 bit-equal to its plain version on rows of the
+           head's full prefill product (M x N = 1.63e9 outputs) and K2
+           within K2_TOL at W = 2,048 on both pool dtypes; the prefill
+           (``forward`` of the padded prompt) with its temporaries within
+           TEMP_TOL of the dry run's count of that shape and finite logits
+           whose argmax is the session's first token; K1's launches
+           ``k1_per_pass`` times the passes, K2's one per layer per tick;
+           the 8 tokens equal to the same session's through the gather,
+           or parted at a near tie within NEAR_TIE in ``forward``; the
+           seconds to first token and the GB the unchunked scores would
+           take; (c) K1 bit-equal at the fused (K, N) (2048 x 3072 and
+           2048 x 16,384, and their parts at tp 2 and 4) at M = 4 and 512;
+           phase 4's first 2 requests through a session with both fusions
+           (the fused frozen leaves built once, ``fuse_params``) and one
+           without: both equal to phase 4's tokens, K1's launches
+           ``k1_per_pass`` per pass (161 fused, 281 not); host ms per
+           decode tick of each printed; (d) one QAT step 4 layers deep
+           with bf16 parameters and both fusions: through K1, again and
+           through K1's plain version (``lowrank``) from identical state,
+           bit-identical loss, parameters and moments (``train_oracle``);
+           its parameter bytes and peak beside a float32 unfused step's,
+           and the dry run's bytes a dp=2 step gathers at 4 layers in each
+           dtype.
 
 Phases 1-7 run in this process, one after another, and so do the parts
 whose times go into the kernels line: phase 8's K1 at the CNN shapes,
 phase 10's stall probe (its gates are host times) and phase 13's K2 at the
 moe shape, and phase 16 (its serving steps after phase 5, its training
-step inside phase 7).  The rest of phases 8-15 and phases 17-19 then run as units (phase
+step inside phase 7).  The rest of phases 8-15 and phases 17-20 then run as units (phase
 8; 9; 10; 11; 12 (a)-(b), 12 (c) and its sync run; each model of 13, 14
-and 15 (13's qwen2-moe-a2.7b with 18); 17; the ranks of 17 and 18 are
+and 15 (13's qwen2-moe-a2.7b with 18); 17; 19; 20; the ranks of 17 and 18 are
 processes of their own) in up to POOL_WORKERS processes on the one card at once, as many
 as the units' memory peaks allow (POOL_GB), each unit in a fresh process:
 serving is host-bound, and processes sharing the card each serve at the speed of one
@@ -495,16 +531,22 @@ BACKBONE_ARCHS = ("qwen2-vl-2b", "musicgen-large")                    # phase 15
 BACKBONE_SEQ = 32                    # phase 15's embeddings per row: 8 text, a 4 x 4 image, 8
 TRAIN_STEPS_FAMILY = 2               # phases 14 and 15's steps through K1
 TRAIN_DEPTHS = {                     # phases 14 and 15: each model's trained depth (PERF.md 4)
-    "qwen2-moe-a2.7b": 2, "falcon-mamba-7b": 8, "zamba2-2.7b": 24,
-    "qwen2-vl-2b": 28, "musicgen-large": 24}
+    "qwen2-moe-a2.7b": 1, "falcon-mamba-7b": 4, "zamba2-2.7b": 12,
+    "qwen2-vl-2b": 14, "musicgen-large": 12}
 TP_DEGREES = (2, 4)                  # phase 17's tensor-parallel ranks
 TP4_LAYERS = 4                       # phase 17's tp=4 depth
 EP_DEGREES = (2, 4)                  # phase 18's expert-parallel ranks
 EP_COLROW_TP = 8                     # phase 18 (a): 60 experts split inside each at this tp
 DP_DEGREES = (2, 4)                  # phase 19's data-parallel ranks
-DP_LAYERS, DP4_LAYERS = 4, 2         # phase 19's depths at dp=2 and dp=4 (PERF.md 4)
+DP_LAYERS, DP4_LAYERS = 2, 2         # phase 19's depths at dp=2 and dp=4 (PERF.md 4)
 DP_STEPS = 2                         # phase 19's steps per world and reference
 DP_LOSS_RTOL = 1e-4                  # phase 19's loss gate: codes flip on the card (DpClose)
+CHUNK_CHECK_S = 4096                 # phase 20 (a): attention_core, chunked vs whole
+CHUNK_TOL = 1e-5                     # ... float32 roundoff: the library picks its GEMM by shape
+LEVER_MAX_LEN = 32768                # phase 20 (b): one prompt's bucket and max_len
+LEVER_NEW = 8                        # ... its new tokens
+LEVER_PROMPT = LEVER_MAX_LEN - 2 * LEVER_NEW   # 32,752 prompt tokens
+FUSED_REQUESTS = 2                   # phase 20 (c): phase 4's first requests, fused
 
 
 _UNIT_LOG = None                     # a pool worker's log lines, printed when its unit ends
@@ -4236,6 +4278,403 @@ def dp_phase(dev, seed, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: query chunking, a 32,752-token prompt, the fused projections and
+# bfloat16 parameters
+# ---------------------------------------------------------------------------
+
+
+_RESERVED = [0]                      # phase 20's largest reserved bytes across its resets
+
+
+def track_reserved():
+    _RESERVED[0] = max(_RESERVED[0], torch.cuda.max_memory_reserved())
+
+
+def peak_of(fn):
+    """(fn's result, the bytes ``max_memory_allocated`` rose above what
+    was allocated just before: its temporaries and outputs)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    track_reserved()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def chunk_check(cfg, dev, gen):
+    """(a) ``attention_core`` at granite's heads, bf16 q/k/v, one row of
+    CHUNK_CHECK_S positions, causal, in chunks of ``cfg.q_chunk`` against
+    the whole call: within CHUNK_TOL, each call's temporaries beside the
+    prediction (the scores, their float32 softmax and its bf16 copy: 10
+    bytes per score, a chunk's 1/8 of the whole)."""
+    from repro_torch.models.attention import attention_core
+
+    S, H, Hkv, hd = CHUNK_CHECK_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn((1, S, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, S, Hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, S, Hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    outs, temp = {}, {}
+    with torch.no_grad():
+        for name, qc in (("whole", S), ("chunked", cfg.q_chunk)):
+            outs[name], temp[name] = peak_of(
+                lambda: attention_core(q, k, v, causal=True, q_chunk=qc))
+    err = (outs["whole"].float() - outs["chunked"].float()).abs().max().item()
+    scores = H * S * S
+    row = {"S": S, "q_chunk": cfg.q_chunk, "max_abs_err": err,
+           "bit_equal": torch.equal(outs["whole"], outs["chunked"]),
+           "temp_gb": {k: b / 1e9 for k, b in temp.items()},
+           "predicted_temp_gb": {"whole": 10 * scores / 1e9,
+                                 "chunked": 10 * scores * cfg.q_chunk / S / 1e9},
+           "whole_scores_gb": 4 * scores / 1e9}
+    log(f"[levers] (a) chunking: {json.dumps(row)}")
+    if not err <= CHUNK_TOL:
+        raise AssertionError(f"attention_core in chunks of {cfg.q_chunk} is {err} from the "
+                             f"whole call (tolerance {CHUNK_TOL})")
+    return row
+
+
+def k1_rows_check(a, b, cfg, rows=256):
+    """K1 at a full (M, K) x (K, N) against its plain version on the first,
+    a middle and the last ``rows`` rows (the plain version of the whole
+    would take tens of GB): the kernel's offsets at M x N near 2**31."""
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+
+    M = a.shape[0]
+    out = approx_matmul(a, b, multiplier=cfg.approx.multiplier)
+    for r0 in (0, M // 2, M - rows):
+        ref = approx_matmul_plain(a[r0:r0 + rows], b, multiplier=cfg.approx.multiplier)
+        if not torch.equal(out[r0:r0 + rows], ref):
+            raise AssertionError(f"K1 M={M} K={a.shape[1]} N={b.shape[1]}: rows "
+                                 f"{r0}-{r0 + rows} differ from the plain version")
+    return (M, a.shape[1], b.shape[1])
+
+
+def admission_costs(cfg):
+    """The dry run's count (``launch/dryrun.in_depth`` on meta) of one
+    paged admission of one LEVER_MAX_LEN-token row, as ``ServeSession``
+    runs it: the fused prefill (``forward(return_kv=True)``), the row's
+    logits at its last prompt position, the K/V scattered into an f32 pool
+    of one row's blocks."""
+    from repro_torch.launch.dryrun import in_depth
+    from repro_torch.launch.roofline import count_costs
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.models.transformer import forward, init_paged_cache
+    from repro_torch.serve.cache import scatter_prompt_blocks
+
+    W = LEVER_MAX_LEN // BLOCK_SIZE
+
+    def count(c):
+        def admit(params, cache, prompts, lens, seat):
+            logits, kvs = forward(c, params, prompts, return_kv=True)
+            last = logits[torch.arange(prompts.shape[0], device=prompts.device), lens - 1]
+            scatter_prompt_blocks(cache, kvs, seat, BLOCK_SIZE)
+            return last
+
+        meta = torch.device("meta")
+        i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=meta)
+        return count_costs(admit, params_specs(c, frozen=True),
+                           init_paged_cache(c, W, BLOCK_SIZE, device=meta),
+                           i32(1, LEVER_MAX_LEN), i32(1), i32(1, W))
+    # the admission holds every layer's K/V until it scatters them
+    return in_depth(cfg, count, peak="grows")["total"]
+
+
+def long_prompt(cfg, params, dev, seed, gen):
+    """(b) One LEVER_PROMPT-token request of LEVER_NEW greedy tokens at full
+    width through K1 and K2 (paged, f32 pool, max_len LEVER_MAX_LEN: 2,048
+    blocks a row), against the same session through the gather (its
+    admission replayed from the K2 run's); the K2 session's admission held
+    to the dry run's count of its temporaries."""
+    import repro_torch.serve.scheduler as S
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve import ServeSession
+
+    rng = np.random.default_rng(seed + 20)
+    prompt = rng.integers(0, cfg.vocab_size, LEVER_PROMPT).astype(np.int32)
+    W = LEVER_MAX_LEN // BLOCK_SIZE
+    out = {"prompt": LEVER_PROMPT, "new": LEVER_NEW, "max_len": LEVER_MAX_LEN, "blocks": W,
+           "q_chunk": cfg.q_chunk,
+           "unchunked_scores_gb_per_layer": 4 * cfg.num_heads * LEVER_MAX_LEN ** 2 / 1e9}
+    # K1 at the head's prefill shape (M x N = 1.63e9 outputs) and K2 at W
+    a = torch.randint(0, 256, (LEVER_MAX_LEN, cfg.d_model), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    out["k1_checked"] = [k1_rows_check(a, params["lm_head"].codes, cfg)]
+    del a
+    k2rng = np.random.default_rng(seed + 21)
+    k2 = [k2_check(f"W={W}", paged_case(k2rng, dev, 1, W, BLOCK_SIZE, cfg.num_kv_heads,
+                                        cfg.num_heads // cfg.num_kv_heads, cfg.head_dim,
+                                        pool_dtype=dt), BLOCK_SIZE)
+          for dt in K2_POOLS.values()]
+    out["k2_max_abs_err"] = max(e for e, _ in k2)
+    out["k2_max_abs_err_bf16_q"] = max(e for _, e in k2)
+    counted = admission_costs(cfg)
+
+    def session(attn, replay=None):
+        """One session on the prompt; with ``replay`` (the K2 run's pool,
+        admission blocks and first token) its admission writes that pool
+        in place of a second prefill of the same prompt: the prefill does
+        not attend through K2, so the two runs' prefills are one forward,
+        bit for bit (phase 5), and only decode attention differs."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        sess = ServeSession(cfg, params, num_slots=1, max_len=LEVER_MAX_LEN,
+                            prompt_buckets=(LEVER_MAX_LEN,), block_size=BLOCK_SIZE,
+                            policy="fifo", attn_impl=attn, seed=seed, loop="sync", device=dev)
+        sess.submit(prompt, max_new=LEVER_NEW, req_id=0)
+        seen, prefill, fwd = {}, sess._prefill, S.forward
+
+        def last_row(*a, **kw):               # the prompt's last logits, for the report
+            logits, kvs = fwd(*a, **kw)
+            seen["last"] = logits[0, LEVER_PROMPT - 1].clone()
+            return logits, kvs
+
+        def admit(c, prompts, lens, req_ids, seat):
+            out_ = []
+            seen["admission"] = peak_of(lambda: out_.append(prefill(c, prompts, lens, req_ids,
+                                                                    seat)))[1]
+            seen["seat"], seen["first"] = np.array(seat), out_[0].clone()
+            track_reserved()
+            return out_[0]
+
+        def replayed(c, prompts, lens, req_ids, seat):
+            if not np.array_equal(np.asarray(seat), replay["seat"]):
+                raise AssertionError("the replayed admission's blocks are not the K2 run's")
+            for name in ("k", "v"):
+                sess.cache[name].copy_(replay.pop(name))
+            return replay["first"].clone()
+        sess._prefill = admit if replay is None else replayed
+        S.forward = last_row
+        approx_matmul.launches = paged_attention.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = sess.run()
+        finally:
+            S.forward = fwd
+        torch.cuda.synchronize()
+        st = sess.stats
+        row = {"tokens": res[0].tokens.tolist(), "wall_s": time.perf_counter() - t0,
+               "ttft_s": st.ttft_s_p50, "ticks": st.ticks, "admit_calls": st.admit_calls,
+               "table_width": sess.table_width, "num_blocks": sess.num_blocks,
+               "launches": {"approx_matmul": approx_matmul.launches,
+                            "paged_attention": paged_attention.launches},
+               "replayed_admission": replay is not None}
+        if replay is None:
+            row.update(admission_temp_gb=seen["admission"] / 1e9,
+                       admission_peak_gb=(seen["admission"] + torch.cuda.memory_allocated()) / 1e9,
+                       last_logits_finite=bool(torch.isfinite(seen["last"]).all()),
+                       last_argmax=int(seen["last"][:cfg.vocab_size].argmax()))
+            seen.update(sess.cache)
+        del sess
+        track_reserved()
+        return row, seen
+
+    k2run, seen = session("kernel")
+    gather, _ = session("gather", replay={k: seen[k] for k in ("seat", "first", "k", "v")})
+    del seen
+    runs = {"kernel": k2run, "gather": gather}
+    out.update(counted_temp_gb=counted.peak_bytes / 1e9,
+               measured_temp_gb=k2run["admission_temp_gb"])
+    rel, slack = TEMP_TOL
+    temp = k2run["admission_temp_gb"] * 1e9
+    if not abs(counted.peak_bytes - temp) <= rel * temp + slack:
+        raise AssertionError(f"the {LEVER_MAX_LEN}-token admission's temporaries: counted "
+                             f"{counted.peak_bytes} B, measured {temp} B")
+    for attn, r in runs.items():
+        passes = r["ticks"] + (0 if r["replayed_admission"] else r["admit_calls"])
+        want = {"approx_matmul": k1_per_pass(cfg) * passes,
+                "paged_attention": cfg.num_layers * r["ticks"] if attn == "kernel" else 0}
+        if r["launches"] != want:
+            raise AssertionError(f"long prompt ({attn}): launches {r['launches']}, want {want}")
+        if r["table_width"] != W or len(r["tokens"]) != LEVER_NEW:
+            raise AssertionError(f"long prompt ({attn}): {len(r['tokens'])} tokens over "
+                                 f"{r['table_width']} blocks")
+    if not k2run["last_logits_finite"] or k2run["last_argmax"] != k2run["tokens"][0]:
+        raise AssertionError(f"long prompt: the prompt's last logits (finite: "
+                             f"{k2run['last_logits_finite']}) do not pick its first token")
+    got, want = runs["kernel"]["tokens"], runs["gather"]["tokens"]
+    out["tie"] = None
+    if got != want:                       # the near-tie rule, in forward
+        j = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+        seq = np.zeros((1, LEVER_MAX_LEN), np.int32)
+        n = LEVER_PROMPT + j
+        seq[0, :n] = np.concatenate([prompt, np.asarray(want[:j], np.int32)])
+        with torch.no_grad():       # padded to the chunked length: causal, so row n - 1 holds
+            lg = forward(cfg, params, torch.as_tensor(seq, device=dev))[0, n - 1]
+        gap = (lg[want[j]] - lg[got[j]]).item()
+        out["tie"] = {"new_token_index": j, "tokens": [got[j], want[j]], "logit_gap": gap}
+        if abs(gap) > NEAR_TIE:
+            raise AssertionError(f"long prompt: K2 {got} vs gather {want}, no near tie "
+                                 f"(logit gap {gap})")
+    out["runs"] = runs
+    log(f"[levers] (b) long prompt: {json.dumps(out)}")
+    return out
+
+
+def k1_fused_checks(cfg, dev, gen):
+    """(c) K1 bit-equal to its plain version at the fused (K, N) of
+    granite (q/k/v and gate/up) and at their per-rank parts at tp 2 and
+    4, at M = NUM_SLOTS and one admission's rows."""
+    from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
+
+    d, hd = cfg.d_model, cfg.head_dim
+    qkv, gu = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, 2 * cfg.d_ff
+    shapes = sorted({(d, n // tp) for n in (qkv, gu) for tp in (1,) + TP_DEGREES})
+    checked = []
+    for K, N in shapes:
+        for M in (NUM_SLOTS, NUM_SLOTS * BUCKETS[-1]):
+            a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
+            b = torch.randint(0, 256, (K, N), generator=gen, device=dev, dtype=torch.uint8)
+            out = approx_matmul(a, b, multiplier=cfg.approx.multiplier)
+            ref = approx_matmul_plain(a, b, multiplier=cfg.approx.multiplier)
+            if out.dtype != torch.int32 or not torch.equal(out, ref):
+                raise AssertionError(f"K1 fused M={M} K={K} N={N}: "
+                                     f"{int((out != ref).sum())} outputs differ")
+            checked.append((M, K, N))
+    log(f"[levers] (c) K1 bit-equal at the fused shapes {checked}")
+    return checked
+
+
+def fused_serving(cfg, params, dev, seed, trace, phase4):
+    """(c) Phase 4's first FUSED_REQUESTS requests through a session with
+    ``fuse_qkv`` and ``fuse_gate_up`` and through one without, on the
+    same frozen weights: the fused tokens equal phase 4's, K1's launches
+    per pass ``k1_per_pass`` of the fused config; host ms per decode tick
+    of both (recorded, not gated)."""
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.transformer import fuse_params
+    from repro_torch.serve import ServeSession
+
+    fcfg = dataclasses.replace(cfg, fuse_qkv=True, fuse_gate_up=True)
+    fparams = fuse_params(fcfg, params)
+    leaf_bytes = {k: sum(t.nbytes for t in fparams["layers"][blk][k])
+                  for blk, k in (("attn", "wqkv"), ("ffn", "w_gate_up"))}
+    rows = {}
+    for name, c, p in (("unfused", cfg, params), ("fused", fcfg, fparams)):
+        sess = ServeSession(c, p, num_slots=NUM_SLOTS, max_len=MAX_LEN, prompt_buckets=BUCKETS,
+                            block_size=BLOCK_SIZE, policy="fifo", attn_impl="kernel",
+                            seed=seed, loop="sync", device=dev)
+        for i, (pr, n, a) in enumerate(trace[:FUSED_REQUESTS]):
+            sess.submit(pr, max_new=n, arrival=a, req_id=i)
+        ticks, inner = [], sess.step
+
+        def step():
+            admits = sess.stats.admit_calls
+            t0 = time.perf_counter()
+            r = inner()
+            torch.cuda.synchronize()
+            if sess.stats.admit_calls == admits:
+                ticks.append(1e3 * (time.perf_counter() - t0))
+            return r
+        sess.step = step
+        approx_matmul.launches = paged_attention.launches = 0
+        res = sess.run()
+        st = sess.stats
+        passes = st.ticks + st.admit_calls
+        rows[name] = {"tokens": {rid: r.tokens.tolist() for rid, r in res.items()},
+                      "k1_launches": approx_matmul.launches,
+                      "k2_launches": paged_attention.launches, "passes": passes,
+                      "k1_per_pass": approx_matmul.launches / passes,
+                      "k1_per_pass_predicted": k1_per_pass(c),
+                      "decode_tick_host_ms_median": float(np.median(ticks)) if ticks else None,
+                      "decode_ticks_timed": len(ticks)}
+        del sess
+    for name, r in rows.items():
+        if r["k2_launches"] <= 0:
+            raise AssertionError(f"{name}: K2 was never launched")
+        if r["k1_launches"] != r["k1_per_pass_predicted"] * r["passes"]:
+            raise AssertionError(f"{name}: K1 launched {r['k1_launches']} in {r['passes']} "
+                                 f"passes, want {r['k1_per_pass_predicted']} per pass")
+        for rid, toks in r["tokens"].items():
+            if toks != phase4["results"][rid][0]:
+                raise AssertionError(f"{name} request {rid}: {toks}, phase 4 served "
+                                     f"{phase4['results'][rid][0]}")
+    out = {"sessions": rows, "fused_leaf_gb": {k: b / 1e9 for k, b in leaf_bytes.items()}}
+    log(f"[levers] (c) fused serving: {json.dumps(out)}")
+    del fparams
+    return out
+
+
+def bf16_training(dev, seed):
+    """(d) One QAT step at full width, ORACLE_LAYERS deep, with
+    ``param_dtype="bfloat16"``, ``fuse_qkv`` and ``fuse_gate_up``: through
+    K1, again, and through its plain version from identical state,
+    bit-identical (``train_oracle``); the parameter bytes and peak of one
+    such step beside the float32, unfused one; the dry run's bytes a dp=2
+    step at ORACLE_LAYERS gathers, in each dtype."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.dryrun import gathered_bytes_per_train_step
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.parallel.sharding import tree_bytes
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import as_batch
+
+    f32 = train_config(ARCH, ORACLE_LAYERS)
+    bf16 = dataclasses.replace(f32, param_dtype="bfloat16", fuse_qkv=True, fuse_gate_up=True)
+    opt = O.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS)          # as launch/train.py
+    batch = as_batch(next(token_batches(f32.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)), dev)
+    out = {"layers": ORACLE_LAYERS}
+    for name, c in (("float32", f32), ("bfloat16", bf16)):
+        t0 = time.perf_counter()
+        (loss, _, _, k1), peak = peak_of(lambda: one_step(c, opt, seed + 1, batch, dev))
+        if k1 != k1_per_train_step(c):
+            raise AssertionError(f"the {name} step launched K1 {k1} times, want "
+                                 f"{k1_per_train_step(c)} (k1_per_train_step)")
+        out[name] = {"loss": loss, "k1_launches": k1, "k1_predicted": k1_per_train_step(c),
+                     "param_gb": tree_bytes(params_specs(c)) / 1e9,
+                     "peak_gb": peak / 1e9, "s": time.perf_counter() - t0,
+                     "dp2_gathered_gb": gathered_bytes_per_train_step(c, DP_DEGREES[0]) / 1e9}
+    out["oracle"] = train_oracle(bf16, opt, seed, batch, dev, "levers")
+    if not math.isfinite(out["bfloat16"]["loss"]):
+        raise AssertionError(f"the bf16-parameter step's loss is {out['bfloat16']['loss']}")
+    log(f"[levers] (d) bf16 parameters: {json.dumps(out)}")
+    return out
+
+
+def levers_phase(dev, seed, trace, phase4, smi):
+    """Phase 20 (see the module text)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import freeze_params
+
+    t_unit = time.perf_counter()
+    cfg = serving_configs()[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    report = {"chunking": chunk_check(cfg, dev, gen), "launches": {}, "seconds_by_part": {}}
+    t0 = time.perf_counter()
+    report["k1_fused_checked"] = k1_fused_checks(cfg, dev, gen)
+    params = freeze_params(cfg, init_params(cfg, seed=seed, device=dev))
+    report["fused"] = fused_serving(cfg, params, dev, seed, trace, phase4)
+    report["seconds_by_part"]["fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["long"] = long_prompt(cfg, params, dev, seed, gen)
+    report["seconds_by_part"]["long"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["bf16"] = bf16_training(dev, seed)
+    report["seconds_by_part"]["bf16"] = time.perf_counter() - t0
+    fused = report["fused"]["sessions"]["fused"]
+    report["launches"] = {
+        "long_prompt": report["long"]["runs"]["kernel"]["launches"],
+        "long_prompt_gather": report["long"]["runs"]["gather"]["launches"],
+        "fused": {"approx_matmul": fused["k1_launches"],
+                  "paged_attention": fused["k2_launches"]},
+        "train_bf16": {"approx_matmul": report["bf16"]["bfloat16"]["k1_launches"],
+                       "paged_attention": 0}}
+    track_reserved()
+    report["peak_reserved_gb"] = _RESERVED[0] / 1e9
+    report["seconds"] = time.perf_counter() - t_unit
+    log(f"[levers] phase 20 took {report['seconds']:.1f}s, reserved at most "
+        f"{report['peak_reserved_gb']:.2f} GB ({smi})")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phases 8-15's units, run by a pool of processes on the one card
 # ---------------------------------------------------------------------------
 
@@ -4292,36 +4731,42 @@ def _backbone_unit(arch):
 # frees each before phase 18's ranks load it (7.9 GB a rank at tp=2, within
 # the unit's budget); a training unit of phase 14 or 15 holds its float32
 # parameters, gradients and both moments, 16 bytes per parameter, and the
-# step's transients (training qwen2-moe-a2.7b 40.1 GB at 2 layers;
-# falcon-mamba-7b at 8 and zamba2-2.7b at 24 estimated from their peaks
-# at 16 and 54 less the parameters cut); phase 19's, its ranks' peaks
-# together, 18.8 + 8.9 GB at dp=2 and 11.3 + 3 x 7.2 at dp=4; each
-# measured alone on an H100 80GB, see PERF.md), started in this order
+# step's transients (training qwen2-moe-a2.7b 32.0 GB at 1 layer,
+# falcon-mamba-7b 27.4 at 4, zamba2-2.7b 16.8 at 12, reserved in the pool);
+# phase 19's, its ranks' peaks together, 12.1 + 7.1 GB at dp=2 and 11.1 +
+# 3 x 6.0 at dp=4, beside its own 5.6; phase 20's 38.2 (the long prompt's
+# admission: the frozen model, a 2,048-block f32 pool and 29.1 GB of
+# temporaries; see PERF.md; qwen2-vl-2b and musicgen-large trained 14
+# and 12 layers deep estimated from their peaks at 28 and 24, 31.8 and
+# 34.0 GB, less the parameters cut), started in this order
 # whenever the units running leave it room.  The pool is bound by memory
-# held over time: phase 19, the longest unit, opens it, so that it does
-# not finish last; no two training units fit together and each leaves
-# room for the small units only, so one training unit opens the pool
-# beside the small family units, the serving units fill the middle, and
-# the two longest training units close it, the longer last
+# held over time: the three longest units (phases 20, 19 and 13's
+# qwen2-moe-a2.7b with 18) open it, so that none finishes last; no two
+# training units fit together and each leaves room for the small units
+# only, so one training unit starts beside the small family units, the
+# serving units fill the middle, and the two longest training units
+# close it, the longer last
 UNITS = {
+    "levers": (40, lambda dev, sh: levers_phase(dev, sh["seed"], sh["trace"], sh["phase4"],
+                                                sh["smi"])),
     "dp": (34, lambda dev, sh: dp_phase(dev, sh["seed"], sh["smi"])),
-    f"train {FAMILY_ARCHS[1]}": (39, _train_unit(FAMILY_ARCHS[1])),
+    FAMILY_ARCHS[0]: (25, _family_unit(FAMILY_ARCHS[0])),
+    f"train {FAMILY_ARCHS[1]}": (30, _train_unit(FAMILY_ARCHS[1])),
     FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),
     "paper": (22, lambda dev, sh: paper_phase(dev, sh["seed"])),
     "slots": (22, _slots_unit),
     "chunked": (22, _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
-    "tiers": (6, lambda dev, sh: tiers_phase(serving_configs()[0], dev, sh["seed"],
+    "tiers": (7, lambda dev, sh: tiers_phase(serving_configs()[0], dev, sh["seed"],
                                              sh["trace"], sh["smi"])),
-    f"train {FAMILY_ARCHS[2]}": (40, _train_unit(FAMILY_ARCHS[2])),
+    f"train {FAMILY_ARCHS[2]}": (19, _train_unit(FAMILY_ARCHS[2])),
     "chunked_sync": (22, _chunked_unit(("sync",))),
     "async": (22, _async_unit),
     "tp": (10, lambda dev, sh: tp_phase(dev, sh["seed"], sh["trace"], sh["smi"])),
     FAMILY_ARCHS[2]: (6, _family_unit(FAMILY_ARCHS[2])),
     "share": (6, _share_unit),
-    BACKBONE_ARCHS[0]: (35, _backbone_unit(BACKBONE_ARCHS[0])),
-    BACKBONE_ARCHS[1]: (37, _backbone_unit(BACKBONE_ARCHS[1])),
-    FAMILY_ARCHS[0]: (25, _family_unit(FAMILY_ARCHS[0])),
-    f"train {FAMILY_ARCHS[0]}": (41, _train_unit(FAMILY_ARCHS[0])),
+    BACKBONE_ARCHS[0]: (25, _backbone_unit(BACKBONE_ARCHS[0])),
+    BACKBONE_ARCHS[1]: (25, _backbone_unit(BACKBONE_ARCHS[1])),
+    f"train {FAMILY_ARCHS[0]}": (34, _train_unit(FAMILY_ARCHS[0])),
 }
 POOL_GB = 72                         # the units' peaks at once: the card's 85 GB less headroom
 
@@ -4652,6 +5097,14 @@ def main(argv=None) -> int:
     log(f"[dp] phase 19 took {dpr['seconds']:.1f}s; launches by path "
         f"{json.dumps(dpr['launches'])}")
 
+    # -- 20. query chunking, a long prompt, fused projections, bf16 params ---
+    lev = report["levers"] = unit["levers"]
+    paths.update(lev["launches"])
+    lev["train_float32_phase7"] = {"peak_gb": train.get("peak_gb"),
+                                   "oracle": train.get("oracle")}
+    log(f"[levers] phase 20 took {lev['seconds']:.1f}s: {json.dumps(lev['seconds_by_part'])}; "
+        f"launches by path {json.dumps(lev['launches'])}")
+
     # -- 16. roofline ---------------------------------------------------------
     roof = report["roofline"]
     roof["granite"]["train"] = train["roofline"]
@@ -4707,10 +5160,11 @@ def main(argv=None) -> int:
          "launches_by_path": {"serve": launches["paged_attention"],
                               "async": asy["launches"]["paged_attention"],
                               **{path: n["paged_attention"] for path, n in paths.items()}},
-         "max_abs_err": max(k2_err, moe_k2["max_abs_err"],
+         "max_abs_err": max(k2_err, moe_k2["max_abs_err"], lev["long"]["k2_max_abs_err"],
                             *(b["k2_check"]["max_abs_err"] for b in bb.values()),
                             *(r["max_abs_err"] for r in tp["k2"] + ep["k2"])),
          "max_abs_err_bf16_q": max(k2_err16, moe_k2["max_abs_err_bf16_q"],
+                                   lev["long"]["k2_max_abs_err_bf16_q"],
                                    *(b["k2_check"]["max_abs_err_bf16_q"] for b in bb.values()),
                                    *(r["max_abs_err_bf16_q"] for r in tp["k2"] + ep["k2"])),
          "max_abs_err_served_bf16_q": max(b["decode"]["k2_max_abs_err"] for b in bb.values()),

@@ -43,9 +43,19 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
             if tuple(fields) == _QWEIGHT_FIELDS:
                 return QWeight(*(conv(x) for x in node))
             return {f: conv(x) for f, x in zip(fields, node)}
-        return torch.from_numpy(np.array(node, copy=True)).to(device)
+        return _tensor(node).to(device)
 
     return conv(tree)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; JAX's bfloat16 leaves (numpy arrays of
+    the ``ml_dtypes`` bfloat16, which ``torch.from_numpy`` refuses) travel
+    as their 16-bit words, bit for bit."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def state_from_numpy(state: Any, device="cpu") -> Any:

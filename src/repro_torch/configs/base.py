@@ -64,9 +64,14 @@ class ModelConfig:
     approx: ApproxConfig = ApproxConfig(mode="float")
     # --- numerics ---
     dtype: str = "bfloat16"           # activation dtype
+    q_chunk: int = 512                # query chunk of prefill/training attention
     ssm_chunk: int = 256              # time chunk of the Mamba scans in forward
     remat: bool = True                # recompute each layer in the backward
     embed_input: bool = True          # False: the caller gives embeddings (vlm/audio stubs)
+    # --- perf levers (the JAX package's) ---
+    fuse_qkv: bool = False            # one quant+feature pass for q/k/v
+    fuse_gate_up: bool = False        # one quant+feature pass for gate/up
+    param_dtype: str = "float32"      # bf16 halves FSDP gather wire + memory
     source: str = ""                  # citation tag
 
     def __post_init__(self):
@@ -197,8 +202,8 @@ def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
     ``reduced_config`` widths: 2 layers (a hybrid 4), d 128, 4 heads, <= 2
     KV heads, head_dim 32, d_ff 256, vocab <= 512, <= 4 experts top <= 2,
     shared expert ff 128, d_inner 256, dt_rank 8, ssm_state <= 16,
-    attn_every 2, m_rope_sections (4, 6, 6), ssm_chunk 32, float32, no
-    remat)."""
+    attn_every 2, m_rope_sections (4, 6, 6), q_chunk 64, ssm_chunk 32,
+    float32, no remat)."""
     kw = dict(
         num_layers=min(cfg.num_layers, 2 if cfg.family != "hybrid" else 4),
         d_model=128,
@@ -216,6 +221,7 @@ def reduced_config(cfg: ModelConfig, **over) -> ModelConfig:
         attn_every=2 if cfg.attn_every else 0,
         m_rope_sections=(4, 6, 6) if cfg.m_rope_sections else (),
         dtype="float32",
+        q_chunk=64,
         ssm_chunk=32,
         remat=False,
     )

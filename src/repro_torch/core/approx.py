@@ -57,6 +57,7 @@ from repro_torch.quant.affine import calibrate, dequantize, quantize
 
 __all__ = [
     "ApproxConfig",
+    "ConcatError",
     "DataPart",
     "Modes",
     "QWeight",
@@ -191,8 +192,17 @@ class DataPart(NamedTuple):
 
     def whole(self) -> torch.Tensor:
         """The whole weight: an all-gather along ``dim`` whose backward
-        sums the ranks' gradients of this part."""
-        return self.w if self.dim is None else gather_dim(self.w, self.dim, self.mesh)
+        sums the ranks' gradients of this part; for a weight every rank
+        holds whole (``dim`` None), the weight itself, whose backward sums
+        the ranks' gradients of this use in float32 (an all-reduce)."""
+        if self.dim is None:
+            return owned_whole(self.w, self.w.detach(), None, self.mesh)
+        return gather_dim(self.w, self.dim, self.mesh)
+
+    def value(self) -> torch.Tensor:
+        """The whole weight's value, recorded by no autograd graph."""
+        w = self.w.detach()
+        return w if self.dim is None else gather_value(w, self.dim, self.mesh)
 
 
 def w_dim(w, i: int) -> int:
@@ -205,12 +215,41 @@ def w_dim(w, i: int) -> int:
     return (w.codes if isinstance(w, QWeight) else w).shape[i]
 
 
+class ConcatError(ValueError):
+    """``concat_weights`` was given weights it cannot join."""
+
+
 def concat_weights(ws, dim: int = -1):
-    """Concatenate weights along the output-channel axis; QWeights stay
-    frozen (per-channel scales concatenate losslessly)."""
+    """Concatenate weights along the output-channel axis (the JAX
+    package's ``concat_weights``): float tensors; QWeights, which stay
+    frozen (per-channel scales concatenate losslessly; a per-tensor scale
+    is repeated per column); column ``Shard``s of one mesh, as the rank's
+    ``[q_r | k_r | v_r]`` (each rank concatenates its own columns, never
+    a split of the whole concatenation); ``DataPart``s of one data mesh
+    that share their split dim, each rank concatenating its own parts (the
+    ``"fsdp"`` rules split the fused weights along their input dim), so
+    the result's gather takes the rank's slice of the whole concatenation
+    and its backward reaches each part.  Anything else raises
+    ``ConcatError``."""
+    if any(isinstance(w, (Shard, DataPart)) for w in ws):
+        kind = type(ws[0])
+        if not all(type(w) is kind and w.mesh is ws[0].mesh for w in ws):
+            raise ConcatError("concat_weights: every weight must be a Shard, or a DataPart, "
+                              "of one mesh")
+        if kind is Shard:
+            if any(w.split != "column" for w in ws):
+                raise ConcatError("concat_weights: only column Shards concatenate along the "
+                                  "output dim")
+            return Shard(concat_weights([w.w for w in ws], dim), "column", ws[0].mesh)
+        d0 = ws[0].dim
+        if any(w.dim != d0 for w in ws):
+            raise ConcatError("concat_weights: DataParts split along different dims")
+        if d0 is not None and d0 % ws[0].w.dim() == dim % ws[0].w.dim():
+            raise ConcatError("concat_weights: DataParts split along the concatenated dim")
+        return DataPart(torch.cat([w.w for w in ws], dim=dim), d0, ws[0].mesh)
     if any(isinstance(w, QWeight) for w in ws):
         if not all(isinstance(w, QWeight) for w in ws):
-            raise ValueError("cannot concatenate frozen and float weights")
+            raise ConcatError("cannot concatenate frozen and float weights")
         def bcast(t, w):
             return t.expand(*w.col_sum.shape)
         return QWeight(
@@ -219,6 +258,8 @@ def concat_weights(ws, dim: int = -1):
             zero_point=torch.cat([bcast(w.zero_point, w) for w in ws], dim=-1),
             col_sum=torch.cat([w.col_sum for w in ws], dim=-1),
         )
+    if not all(isinstance(w, torch.Tensor) for w in ws):
+        raise ConcatError(f"concat_weights: cannot join {[type(w).__name__ for w in ws]}")
     return torch.cat(ws, dim=dim)
 
 
@@ -328,17 +369,17 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
 
     A ``DataPart`` computes with the whole weight on the rank's rows of
     ``x``; a per-tensor activation range spans every rank's rows, so the
-    codes are those of the whole batch.  A split weight's straight-through
-    product takes its gradient through ``owned_whole``: the ranks' partial
-    weight gradients are summed in float32 and then rounded to bf16, once,
-    as on one device (rounding each rank's part first would not add up to
-    one device's gradient)."""
+    codes are those of the whole batch.  Its straight-through product
+    takes its gradient through ``owned_whole``, split or replicated: the
+    ranks' partial weight gradients of this use are summed in float32 and
+    then rounded to bf16, once, as on one device (rounding each rank's
+    part first would not add up to one device's gradient)."""
     split = mesh = data = part = None
     if isinstance(w, DataPart):
         data = w.mesh
-        if w.dim is not None and cfg.mode != "float":
+        if cfg.mode != "float":
             part = w
-            w = gather_value(w.w, w.dim, w.mesh)
+            w = w.value()
         else:
             w = w.whole()
     if isinstance(w, Shard):

@@ -6,10 +6,14 @@ kernel is launched.
 The steps, as the JAX package lowers them, through the approximate
 multiplier ``mul8x8_2``: a train cell runs ``make_train_step`` (float32
 state, ``mode="kernel"``: K1 on every projection, its STE products in
-float32), a prefill cell ``prefill_step`` and a decode cell the
-slot-layout ``serve_step`` (one new token against a ``seq_len`` cache),
-both on frozen weights through K1.  The vlm and audio backbones take
-embeddings.
+float32, or ``cfg.param_dtype``), a prefill cell ``prefill_step`` and a
+decode cell the slot-layout ``serve_step`` (one new token against a
+``seq_len`` cache), both on frozen weights through K1 (with the fused
+leaves of ``fuse_qkv``/``fuse_gate_up``).  The vlm and audio backbones
+take embeddings.  Attention runs its queries in chunks of
+``cfg.q_chunk``, as the step does (the JAX dry run passes ``q_chunk =
+seq_len`` only to suit XLA's cost extraction), so a prefill cell counts
+one chunk's scores, not the whole (S, S) tensor.
 
 The count is extrapolated in depth from two points, as the JAX package's
 ``extract_costs``: the step at 1 and at 2 layer units (a hybrid's unit is
@@ -57,7 +61,8 @@ from repro_torch.train.loop import make_train_step
 from repro_torch.train.tree import LEAF_CHUNK
 
 __all__ = ["auto_microbatch", "backward_peak", "build_step", "cell_supported",
-           "collectives_per_pass", "collectives_per_train_step", "extract_costs", "in_depth", "k1_per_pass",
+           "collectives_per_pass", "collectives_per_train_step", "extract_costs",
+           "gathered_bytes_per_train_step", "in_depth", "k1_per_pass",
            "k1_per_train_step", "model_flops", "run_cell"]
 
 DEFAULT_OUT = os.path.join("results", "dryrun_torch")
@@ -84,21 +89,36 @@ def auto_microbatch(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1,
     return mb
 
 
+def _attn_products(cfg: ModelConfig) -> int:
+    """K1 calls of one attention block: q/k/v (one with ``fuse_qkv``) and
+    ``wo``."""
+    return (1 if cfg.fuse_qkv else 3) + 1
+
+
+def _ffn_products(cfg: ModelConfig) -> int:
+    """K1 calls of one SwiGLU FFN: gate/up (one with ``fuse_gate_up``) and
+    ``w_down``."""
+    return (1 if cfg.fuse_gate_up else 2) + 1
+
+
 def k1_per_pass(cfg: ModelConfig, tp: int = 1) -> int:
     """K1 calls of one forward or decode pass of ``cfg``'s stack (frozen
     weights) on one rank of a ``tp``-rank mesh: every projection of every
     layer, each routed expert's three included (empty experts too; under
     expert parallelism, where ``tp`` divides the experts, the rank's
-    ``E/tp``), and the LM head."""
+    ``E/tp``), and the LM head.  A fused leaf is one call, in decode too
+    (``transformer.fuse_params``: granite's ``7n + 1`` becomes ``4n + 1``
+    with both levers); the hybrid's shared block fuses gate/up only, as
+    the JAX package's."""
     n = cfg.num_layers
     if cfg.family == "moe":
         experts = cfg.moe_experts // tp if cfg.moe_experts % tp == 0 else cfg.moe_experts
-        return n * (4 + 3 * experts + (3 if cfg.moe_shared_ff else 0)) + 1
+        return n * (_attn_products(cfg) + 3 * experts + (3 if cfg.moe_shared_ff else 0)) + 1
     if cfg.family == "ssm":
         return 4 * n + 1
     if cfg.family == "hybrid":
-        return 2 * n + 7 * (n // cfg.attn_every) + 1
-    return 7 * n + 1
+        return 2 * n + (4 + _ffn_products(cfg)) * (n // cfg.attn_every) + 1
+    return (_attn_products(cfg) + _ffn_products(cfg)) * n + 1
 
 
 def collectives_per_pass(cfg: ModelConfig, tp: int) -> int:
@@ -127,15 +147,19 @@ def k1_per_train_step(cfg: ModelConfig) -> int:
     projection when nothing after it is saved (the FFN's ``w_down``,
     Mamba's ``out_proj``); the MoE block recomputes all of its own (the
     shared expert and the load-balance terms come after the experts).  The
-    LM head runs once."""
+    LM head runs once.  A fused product (``fuse_qkv``, ``fuse_gate_up``) is
+    one call."""
     n = cfg.num_layers
     if cfg.family == "moe":
-        return 2 * n * (4 + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)) + 1
+        per = _attn_products(cfg) + 3 * cfg.moe_experts + (3 if cfg.moe_shared_ff else 0)
+        return 2 * n * per + 1
     if cfg.family == "ssm":
         return (4 + 3) * n + 1
     if cfg.family == "hybrid":
-        return (2 + 1) * n + (7 + 6) * (n // cfg.attn_every) + 1
-    return (7 + 6) * n + 1
+        shared = 4 + _ffn_products(cfg)
+        return (2 + 1) * n + (2 * shared - 1) * (n // cfg.attn_every) + 1
+    per = _attn_products(cfg) + _ffn_products(cfg)
+    return (2 * per - 1) * n + 1
 
 
 def collectives_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1,
@@ -155,37 +179,72 @@ def collectives_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1
       product (its K1 call after it), so every gather and range of the
       layer reruns.  Without remat every gathered weight stays saved for
       the backward instead, and the split saves nothing of it;
+    * a weight a rule covers but kept whole on every rank (its dim ``dp``
+      does not divide) is gathered never; each use's backward sums its
+      gradient over the ranks (one float32 all-reduce per use);
+    * a fused product (``fuse_qkv``, ``fuse_gate_up``) gathers the
+      concatenation of its leaves' parts once, and takes one range;
     * the band term (``band_reg`` > 0) gathers each split weight whole per
       chunk of matrices inside its recomputed term: two gathers and one
-      reduce-scatter per chunk;
+      reduce-scatter per chunk (a replicated weight: one all-reduce);
 
-    then once per step: the replicated leaves' gradient all-reduce, the
-    metrics' all-reduce, the global norm's and, with ``grad_compression``,
-    the scales' MAX.  A leaf kept whole (no rule, or a dim ``dp`` does not
-    divide) is gathered never."""
+    then once per step: the all-reduce of the gradients of the leaves no
+    rule covers (norm scales), the metrics' all-reduce, the global norm's
+    and, with ``grad_compression``, the scales' MAX."""
     a, n = cfg.approx, cfg.num_layers
-    gathers = layer_gathers = ranges = layer_ranges = band = 0
-    replicated = False
+    gathers = layer_gathers = ranges = layer_ranges = band = reduces = 0
+    uncovered = False
+    # a fused product (fuse_qkv, fuse_gate_up) uses its leaves as one
+    # weight: one range and one gather, counted at its first leaf
+    joined = (".wk", ".wv") * cfg.fuse_qkv + (".w_up",) * cfg.fuse_gate_up
     for path, shape, spec in leaf_specs(cfg, dp):
         layer = path.startswith("['layers']")
-        uses = n if layer else 1
-        if spec != () and path != "['embed']":          # a projection weight
+        uses = 0 if layer and joined and path.endswith(joined) else n if layer else 1
+        if spec == ():
+            uncovered = True
+            continue
+        if path != "['embed']":                         # a projection weight
             ranges += uses
             layer_ranges += uses if layer else 0
-        if "data" not in spec:
-            replicated = True
+        chunks = 1
+        if len(shape) >= 2 and shape[-1] > 1:
+            per = max(1, LEAF_CHUNK // (shape[-2] * shape[-1]))
+            chunks = -(-math.prod(shape[:-2]) // per)
+        if "data" not in spec:                          # replicated: reduced per use
+            reduces += uses
+            band += chunks if len(shape) >= 2 and shape[-1] > 1 else 0
             continue
         gathers += uses
         layer_gathers += uses if layer else 0
         if len(shape) >= 2 and shape[-1] > 1:
-            per = max(1, LEAF_CHUNK // (shape[-2] * shape[-1]))
-            band += 3 * -(-math.prod(shape[:-2]) // per)
-    per_mb = 2 * gathers + (layer_gathers if cfg.remat else 0)
+            band += 3 * chunks
+    per_mb = 2 * gathers + (layer_gathers if cfg.remat else 0) + reduces
     if a.is_quantized and not a.act_per_row:
         per_mb += ranges + (layer_ranges if cfg.remat else 0)
     if a.band_reg > 0:
         per_mb += band
-    return max(microbatch, 1) * per_mb + replicated + 2 + grad_compression
+    return max(microbatch, 1) * per_mb + uncovered + 2 + grad_compression
+
+
+def gathered_bytes_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1) -> int:
+    """Bytes the all-gathers of one training step return on each rank of
+    a ``dp``-rank data mesh (``collectives_per_train_step``'s gathers):
+    each use of a split leaf gathers it whole in ``cfg.param_dtype`` (a
+    layer's use its layer), again in each layer's recompute with
+    ``remat``, and twice more in the band term; the reduce-scatters move
+    as much back."""
+    size = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    whole = layers = 0
+    for path, shape, spec in leaf_specs(cfg, dp):
+        if "data" not in spec:
+            continue
+        n = math.prod(shape) * size
+        whole += n
+        layers += n if path.startswith("['layers']") else 0
+    per_mb = whole + (layers if cfg.remat else 0)
+    if cfg.approx.band_reg > 0:
+        per_mb += 2 * whole
+    return max(microbatch, 1) * per_mb
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[int, int, float]:

@@ -60,6 +60,7 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]
 
 
 def state_specs(cfg: ModelConfig, opt_cfg: O.OptConfig) -> Dict[str, Any]:
-    """A training state: float32 parameters and the optimizer's state."""
+    """A training state: parameters in ``cfg.param_dtype`` and the
+    optimizer's float32 state."""
     p = params_specs(cfg)
     return {"params": p, "opt": O.init_opt_state(opt_cfg, p)}

@@ -6,7 +6,9 @@ pool that speculative verification and chunked prefill share
 (``paged_verify_attention``, ``paged_chunk_prefill_attention``).
 
 K/V are never head-repeated: scores use grouped einsums (q reshaped to
-(B, S, Hkv, group, hd)).  All projections route through ``layers.dense``;
+(B, S, Hkv, group, hd)), and prefill runs its queries in chunks of
+``q_chunk`` (``attention_core``).  q/k/v come from one fused product where
+the tree holds ``wqkv`` or the caller asks for ``fuse_qkv``.  All projections route through ``layers.dense``;
 the score/AV einsums stay exact float (plain ``einsum``/``softmax``, as the
 JAX package leaves them to XLA).
 """
@@ -16,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.approx import ApproxConfig, Shard, w_dim
+from repro_torch.core.approx import ApproxConfig, Shard, concat_weights, w_dim
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.kernels.paged_attention.ref import attend_gathered, gather_blocks, softmax_scale
 from repro_torch.models import layers as L
@@ -42,12 +44,33 @@ ATTN_IMPLS = ("kernel", "gather")
 
 def _rank_heads(p: Dict[str, object], n_heads: int, n_kv: int) -> Tuple[int, int]:
     """The query and KV heads this rank computes: all of them, or its
-    ``1/tp`` where ``wq`` is a column ``Shard`` (whole heads per rank:
-    ``validate_tp_heads``)."""
-    wq = p["wq"]
+    ``1/tp`` where ``wq`` (or the fused ``wqkv``) is a column ``Shard``
+    (whole heads per rank: ``validate_tp_heads``)."""
+    wq = p["wq"] if "wq" in p else p["wqkv"]
     if isinstance(wq, Shard):
         return n_heads // wq.mesh.size, n_kv // wq.mesh.size
     return n_heads, n_kv
+
+
+def _attend(q, k, v, *, causal: bool, q_offset: int, kv_len: Optional[torch.Tensor]):
+    """One chunk of queries at positions ``q_offset + [0, Sq)`` against
+    every key: the scores, the masks and the softmax of this chunk only."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qt = (q * softmax_scale(hd, q.dtype)).reshape(B, Sq, Hkv, g, hd)
+    scores = torch.einsum("bchgd,bkhd->bhgck", qt.float(), k.float())
+    kv_pos = torch.arange(Sk, device=q.device)
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        scores.add_(torch.where(q_pos[:, None] >= kv_pos, 0.0, _NEG))
+    if kv_len is not None:
+        neg = torch.where(kv_pos[None, :] < kv_len[:, None], 0.0, _NEG)
+        scores.add_(neg[:, None, None, None, :])
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    out = torch.einsum("bhgck,bkhd->bchgd", probs.float(), v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def attention_core(
@@ -58,24 +81,43 @@ def attention_core(
     causal: bool,
     q_offset: int = 0,
     kv_len: Optional[torch.Tensor] = None,   # (B,) valid cache lengths
+    q_chunk: int = 512,
 ) -> torch.Tensor:
-    """Exact-softmax GQA with f32 scores and accumulation; out in q's dtype."""
-    B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    g = H // Hkv
-    qt = (q * softmax_scale(hd, q.dtype)).reshape(B, Sq, Hkv, g, hd)
-    scores = torch.einsum("bchgd,bkhd->bhgck", qt.float(), k.float())
-    kv_pos = torch.arange(Sk, device=q.device)
-    if causal:
-        q_pos = q_offset + torch.arange(Sq, device=q.device)
-        neg = torch.where(q_pos[:, None] >= kv_pos, 0.0, _NEG)
-        scores = scores + neg
-    if kv_len is not None:
-        neg = torch.where(kv_pos[None, :] < kv_len[:, None], 0.0, _NEG)
-        scores = scores + neg[:, None, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgck,bkhd->bchgd", probs.float(), v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    """Exact-softmax GQA with f32 scores and accumulation; out in q's dtype.
+
+    The queries run in chunks of ``q_chunk`` when ``Sq`` is larger than
+    ``q_chunk`` and a multiple of it (the JAX package's rule; otherwise as
+    one chunk), each chunk's causal mask starting at ``q_offset`` plus the
+    chunk's start: a chunk's (B, Hkv, g, q_chunk, Sk) scores are freed
+    before the next, so prefill holds O(q_chunk * Sk) of them, not
+    O(Sq * Sk)."""
+    Sq = q.shape[1]
+    if Sq <= q_chunk or Sq % q_chunk:
+        return _attend(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return torch.cat([_attend(q[:, s:s + q_chunk], k, v, causal=causal, q_offset=q_offset + s,
+                              kv_len=kv_len) for s in range(0, Sq, q_chunk)], dim=1)
+
+
+def _project_qkv(x: torch.Tensor, p: Dict[str, object], cfg: ApproxConfig, n_heads: int,
+                 n_kv: int, fuse: bool = False):
+    """q (B, S, n_heads, hd), k and v (B, S, n_kv, hd) of ``x`` (B, S, d):
+    one product over the fused ``wqkv`` where the tree holds one (frozen
+    serving weights, ``transformer.fuse_params``) or, with ``fuse``, over
+    ``concat_weights`` of the three (the JAX package's ``fuse_qkv``: one
+    activation quantization, one wide product), split at the heads'
+    columns; else three products."""
+    B, S, _ = x.shape
+    if "wqkv" in p or fuse:
+        w = p["wqkv"] if "wqkv" in p else concat_weights([p["wq"], p["wk"], p["wv"]])
+        hd = w_dim(w, -1) // (n_heads + 2 * n_kv)
+        qkv = L.dense(x, w, cfg)
+        nq, nk = n_heads * hd, n_kv * hd
+        q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
+    else:
+        hd = w_dim(p["wq"], -1) // n_heads
+        q, k, v = (L.dense(x, p[n], cfg) for n in ("wq", "wk", "wv"))
+    return (q.reshape(B, S, n_heads, hd), k.reshape(B, S, n_kv, hd),
+            v.reshape(B, S, n_kv, hd))
 
 
 def self_attention(
@@ -88,36 +130,35 @@ def self_attention(
     m_rope: Optional[Tuple[torch.Tensor, Tuple[int, ...]]] = None,
     rope_theta: float = 10000.0,
     use_rope: bool = True,
+    q_chunk: int = 512,
+    fuse_qkv: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill self-attention at positions 0..S-1.  Returns (out, (k, v))
     so the caller can seed the decode cache (k post-rope).  ``m_rope`` is
     ``(positions_thw (B, 3, S), sections)`` for multimodal rope in place of
     rope; without ``use_rope`` (sinusoidal positions, added to the input)
-    q and k are not rotated."""
+    q and k are not rotated.  ``q_chunk`` chunks the queries
+    (``attention_core``); ``fuse_qkv`` projects q/k/v in one product
+    (``_project_qkv``)."""
     n_heads, n_kv = _rank_heads(p, n_heads, n_kv)
     B, S, _ = x.shape
-    hd = w_dim(p["wq"], -1) // n_heads
-    q = L.dense(x, p["wq"], cfg).reshape(B, S, n_heads, hd)
-    k = L.dense(x, p["wk"], cfg).reshape(B, S, n_kv, hd)
-    v = L.dense(x, p["wv"], cfg).reshape(B, S, n_kv, hd)
+    q, k, v = _project_qkv(x, p, cfg, n_heads, n_kv, fuse_qkv)
+    hd = q.shape[3]
     if use_rope and m_rope is not None:
         q, k = L.apply_m_rope(q, k, m_rope[0], m_rope[1], theta=rope_theta)
     elif use_rope:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         q, k = L.apply_rope(q, k, positions, theta=rope_theta)
-    out = attention_core(q, k, v, causal=True)
+    out = attention_core(q, k, v, causal=True, q_chunk=q_chunk)
     out = L.dense(out.reshape(B, S, n_heads * hd), p["wo"], cfg)
     return out, (k, v)
 
 
 def _decode_qkv(x, p, cur_len, *, n_heads, n_kv, cfg, rope_theta, use_rope):
-    """Project the new token's q/k/v and rotate q/k at each row's cur_len
-    (with ``use_rope``)."""
-    B = x.shape[0]
-    hd = w_dim(p["wq"], -1) // n_heads
-    q = L.dense(x, p["wq"], cfg).reshape(B, 1, n_heads, hd)
-    k = L.dense(x, p["wk"], cfg).reshape(B, 1, n_kv, hd)
-    v = L.dense(x, p["wv"], cfg).reshape(B, 1, n_kv, hd)
+    """Project the new token's q/k/v (through the fused ``wqkv`` where the
+    tree holds one) and rotate q/k at each row's cur_len (with
+    ``use_rope``)."""
+    q, k, v = _project_qkv(x, p, cfg, n_heads, n_kv)
     if use_rope:
         q, k = L.apply_rope(q, k, cur_len[:, None], theta=rope_theta)
     return q, k, v
@@ -268,10 +309,8 @@ def paged_verify_attention(
     always reads through the gather."""
     n_heads, n_kv = _rank_heads(p, n_heads, n_kv)
     B, S, _ = x.shape
-    hd = w_dim(p["wq"], -1) // n_heads
-    q = L.dense(x, p["wq"], cfg).reshape(B, S, n_heads, hd)
-    k = L.dense(x, p["wk"], cfg).reshape(B, S, n_kv, hd)
-    v = L.dense(x, p["wv"], cfg).reshape(B, S, n_kv, hd)
+    q, k, v = _project_qkv(x, p, cfg, n_heads, n_kv)
+    hd = q.shape[3]
     pos = cur_len.long()[:, None] + torch.arange(S, device=x.device)[None, :]
     if use_rope:
         q, k = L.apply_rope(q, k, pos, theta=rope_theta)

@@ -44,7 +44,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.approx import ApproxConfig, QWeight, Shard, prequantize_tree
+from repro_torch.core.approx import (
+    ApproxConfig,
+    QWeight,
+    Shard,
+    concat_weights,
+    prequantize_tree,
+    w_dim,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -59,6 +66,7 @@ from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = [
     "init_params",
+    "fuse_params",
     "forward",
     "init_cache",
     "seed_cache",
@@ -72,9 +80,54 @@ __all__ = [
 ]
 
 
-def _ffn(x, p: Dict[str, Any], cfg: ApproxConfig):
-    h = F.silu(L.dense(x, p["w_gate"], cfg)) * L.dense(x, p["w_up"], cfg)
+def _ffn(x, p: Dict[str, Any], cfg: ApproxConfig, fuse_gate_up: bool = False):
+    """SwiGLU.  gate and up come from one product over the fused
+    ``w_gate_up`` where the tree holds one (frozen serving weights,
+    ``fuse_params``) or, with ``fuse_gate_up``, over ``concat_weights`` of
+    the two (one activation quantization, one wide product)."""
+    if "w_gate_up" in p or fuse_gate_up:
+        w = p["w_gate_up"] if "w_gate_up" in p else concat_weights([p["w_gate"], p["w_up"]])
+        gu = L.dense(x, w, cfg)
+        ff = w_dim(w, -1) // 2
+        h = F.silu(gu[..., :ff]) * gu[..., ff:]
+    else:
+        h = F.silu(L.dense(x, p["w_gate"], cfg)) * L.dense(x, p["w_up"], cfg)
     return L.dense(h, p["w_down"], cfg)
+
+
+def fuse_params(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The serving tree with the fused leaves built once: with
+    ``cfg.fuse_qkv`` each layer's frozen ``wq``/``wk``/``wv`` become one
+    ``wqkv``, with ``cfg.fuse_gate_up`` each FFN's frozen ``w_gate``/
+    ``w_up`` one ``w_gate_up`` (the layers' and the hybrid's shared block's,
+    where the JAX package's ``_ffn`` fuses them), so no pass concatenates
+    codes.  Per-channel weight scales concatenate losslessly, so every pass
+    (decode and verify too, where the JAX package keeps three products)
+    computes what the separate leaves give, bit for bit.  Column
+    ``Shard``s concatenate the rank's parts (``parallel/tp.py``).  Float
+    weights stay separate (training concatenates per pass, as in JAX); a
+    tree fused already passes through."""
+    def frozen(w):
+        return isinstance(w.w if isinstance(w, Shard) else w, QWeight)
+
+    def fused(node, names, key, rest):
+        if not isinstance(node, dict) or not all(n in node and frozen(node[n]) for n in names):
+            return node
+        return {key: concat_weights([node[n] for n in names]), rest: node[rest]}
+
+    out = dict(params)
+    if "layers" in out and isinstance(out["layers"], dict):
+        layers = dict(out["layers"])
+        if cfg.fuse_qkv and "attn" in layers:
+            layers["attn"] = fused(layers["attn"], ("wq", "wk", "wv"), "wqkv", "wo")
+        if cfg.fuse_gate_up and "ffn" in layers:
+            layers["ffn"] = fused(layers["ffn"], ("w_gate", "w_up"), "w_gate_up", "w_down")
+        out["layers"] = layers
+    if cfg.fuse_gate_up and isinstance(out.get("shared_attn"), dict):
+        shared = dict(out["shared_attn"])
+        shared["ffn"] = fused(shared["ffn"], ("w_gate", "w_up"), "w_gate_up", "w_down")
+        out["shared_attn"] = shared
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +146,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 
     ``freeze`` returns ``engine.freeze_params`` of the same weights (equal
     codes and scales: a stacked weight calibrates per layer; float
-    execution keeps them float).  The moe, ssm, hybrid, vlm and audio
+    execution keeps them float; the fused leaves ``fuse_params`` builds).
+    Every float32 leaf is cast to ``cfg.param_dtype`` as it is drawn (the
+    same float32 draw, then the cast, as the JAX package's ``astype``),
+    before any freezing.  The moe, ssm, hybrid, vlm and audio
     families build and freeze one layer at a time, so no more than one
     layer's float32 weights are ever held (qwen2-moe-a2.7b's are 57 GB);
     the dense family draws each weight's stack whole, as before.  A model
@@ -107,11 +163,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
     freeze = freeze and cfg.approx.is_quantized
+    pd = getattr(torch, cfg.param_dtype)
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.to(pd) if tree is not None and tree.dtype == torch.float32 else tree
+
     if cfg.family == "dense":
-        params = _init_dense(cfg, gen, dev)
-        return prequantize_tree(params, cfg.approx) if freeze else params
+        params = _init_dense(cfg, gen, dev, cast)
+        return fuse_params(cfg, prequantize_tree(params, cfg.approx)) if freeze else params
 
     def frozen(tree):
+        tree = cast(tree)
         return prequantize_tree(tree, cfg.approx) if freeze else tree
 
     d = cfg.d_model
@@ -123,8 +187,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
         _put_layer(stack, i, layer)
     params = {"layers": stack}
     if cfg.embed_input:
-        params["embed"] = L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev)
-    params["final_norm"] = torch.ones((d,), device=dev)
+        params["embed"] = cast(L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev))
+    params["final_norm"] = cast(torch.ones((d,), device=dev))
     params.update(frozen({"lm_head": L.init_dense(d, cfg.padded_vocab, gen, dev)}))
     if cfg.family == "hybrid":
         params["shared_attn"] = frozen({
@@ -133,28 +197,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
             "attn": _init_attn(cfg, gen, dev),
             "ffn": _init_ffn(d, cfg.d_ff, gen, dev),
         })
-    return params
+    return fuse_params(cfg, params) if freeze else params
 
 
-def _init_dense(cfg: ModelConfig, gen: torch.Generator, dev) -> Dict[str, Any]:
+def _init_dense(cfg: ModelConfig, gen: torch.Generator, dev, cast) -> Dict[str, Any]:
+    """The dense tree, each leaf drawn whole and then ``cast``."""
     d, Lyr, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
     hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
 
     def stacked(d_in, d_out):
-        return torch.stack([L.init_dense(d_in, d_out, gen, dev) for _ in range(Lyr)])
+        return cast(torch.stack([L.init_dense(d_in, d_out, gen, dev) for _ in range(Lyr)]))
 
     return {
         "layers": {
-            "ln1": torch.ones((Lyr, d), device=dev),
-            "ln2": torch.ones((Lyr, d), device=dev),
+            "ln1": cast(torch.ones((Lyr, d), device=dev)),
+            "ln2": cast(torch.ones((Lyr, d), device=dev)),
             "attn": {"wq": stacked(d, hq), "wk": stacked(d, hkv),
                      "wv": stacked(d, hkv), "wo": stacked(hq, d)},
             "ffn": {"w_gate": stacked(d, ff), "w_up": stacked(d, ff),
                     "w_down": stacked(ff, d)},
         },
-        "embed": L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev),
-        "final_norm": torch.ones((d,), device=dev),
-        "lm_head": L.init_dense(d, cfg.padded_vocab, gen, dev),
+        "embed": cast(L.truncated_normal_init((cfg.vocab_size, d), gen, device=dev)),
+        "final_norm": cast(torch.ones((d,), device=dev)),
+        "lm_head": cast(L.init_dense(d, cfg.padded_vocab, gen, dev)),
     }
 
 
@@ -232,7 +297,8 @@ def _attn_block(cfg: ModelConfig, x, layer, positions_thw=None):
         L.rms_norm(x, layer["ln1"]), layer["attn"],
         n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=cfg.approx,
         m_rope=None if positions_thw is None else (positions_thw, cfg.m_rope_sections),
-        rope_theta=cfg.rope_theta, use_rope=_use_rope(cfg),
+        rope_theta=cfg.rope_theta, use_rope=_use_rope(cfg), q_chunk=cfg.q_chunk,
+        fuse_qkv=cfg.fuse_qkv,
     )
     x = x + h
     if cfg.family == "moe":
@@ -241,7 +307,7 @@ def _attn_block(cfg: ModelConfig, x, layer, positions_thw=None):
                           top_k=cfg.moe_top_k, cfg=cfg.approx,
                           capacity_factor=cfg.capacity_factor)
         return x + h2.reshape(B, Sq, d), kv, aux
-    x = x + _ffn(L.rms_norm(x, layer["ln2"]), layer["ffn"], cfg.approx)
+    x = x + _ffn(L.rms_norm(x, layer["ln2"]), layer["ffn"], cfg.approx, cfg.fuse_gate_up)
     return x, kv, None
 
 
@@ -261,9 +327,9 @@ def _shared_attn_block(cfg: ModelConfig, x, shared):
     """The hybrid's weight-shared attention block (attention then FFN)."""
     h, _ = self_attention(L.rms_norm(x, shared["ln1"]), shared["attn"],
                           n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, cfg=cfg.approx,
-                          rope_theta=cfg.rope_theta)
+                          rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk)
     x = x + h
-    return x + _ffn(L.rms_norm(x, shared["ln2"]), shared["ffn"], cfg.approx)
+    return x + _ffn(L.rms_norm(x, shared["ln2"]), shared["ffn"], cfg.approx, cfg.fuse_gate_up)
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -470,7 +536,7 @@ def decode_step(
                 g = i // cfg.attn_every
                 x = x + _slot_attention(cfg, L.rms_norm(x, shared["ln1"]), shared["attn"],
                                         cache["k"][g], cache["v"][g], cur_len, write_rows)
-                x = x + _ffn(L.rms_norm(x, shared["ln2"]), shared["ffn"], a)
+                x = x + _ffn(L.rms_norm(x, shared["ln2"]), shared["ffn"], a, cfg.fuse_gate_up)
         return _head(cfg, params, x)
     for i, layer in enumerate(layers):
         h = _slot_attention(cfg, L.rms_norm(x, layer["ln1"]), layer["attn"],
@@ -511,7 +577,7 @@ def _decode_mlp(cfg: ModelConfig, x, layer, a: ApproxConfig):
         h2, _ = moe_ffn(L.rms_norm(x, layer["ln2"]).reshape(B, cfg.d_model), layer["moe"],
                         top_k=cfg.moe_top_k, cfg=a, capacity_factor=cfg.capacity_factor)
         return x + h2.reshape(B, 1, cfg.d_model)
-    return x + _ffn(L.rms_norm(x, layer["ln2"]), layer["ffn"], a)
+    return x + _ffn(L.rms_norm(x, layer["ln2"]), layer["ffn"], a, cfg.fuse_gate_up)
 
 
 def paged_decode_step(
@@ -604,7 +670,7 @@ def paged_verify_step(
             use_rope=_use_rope(cfg),
         )
         x = x + h
-        x = x + _ffn(_norm_per_position(x, layer["ln2"]), layer["ffn"], a)
+        x = x + _ffn(_norm_per_position(x, layer["ln2"]), layer["ffn"], a, cfg.fuse_gate_up)
     return _head(cfg, params, x, norm=_norm_per_position)
 
 

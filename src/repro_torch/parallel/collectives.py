@@ -8,11 +8,13 @@ autograd.  Data-parallel training (``parallel/fsdp.py``): ``gather_dim``,
 an all-gather along any dim that autograd records, its backward the SUM
 reduce-scatter of the cotangent; ``gather_value`` and ``owned_whole``, the
 same split into a value and a gradient path, so that a cast's rounding of
-the gradient can follow the ranks' sum; and ``barrier``; the gradients'
-all-reduce, the ranges' MAX and the optimizer's sums use the functions
-above on tensors that need no gradient.  Nothing more, so gloo can carry
-them on CUDA tensors as well as NCCL.  Each call waits for its result and
-is counted in ``COUNTS`` (calls, and host seconds spent in them).
+the gradient can follow the ranks' sum (for a weight every rank holds
+whole, a float32 SUM all-reduce of the cotangent); and ``barrier``; the
+remaining gradients' all-reduce, the ranges' MAX and the optimizer's
+sums use the functions above on tensors that need no gradient.  Nothing
+more, so gloo can carry them on CUDA tensors as well as NCCL.  Each call
+waits for its result and is counted in ``COUNTS`` (calls, and host
+seconds spent in them).
 """
 from __future__ import annotations
 
@@ -108,19 +110,26 @@ def _scatter_sum(grad: torch.Tensor, pos: int, mesh) -> torch.Tensor:
 class _OwnedWhole(torch.autograd.Function):
     """A whole tensor computed from the ranks' gathered parts, whose
     cotangent reaches ``part`` summed over the ranks at its slice (a
-    reduce-scatter), then rounded through ``round_to``."""
+    reduce-scatter), then rounded through ``round_to``.  With no split
+    (``dim`` None, a weight every rank holds whole) the cotangent is
+    summed over the ranks in float32 (an all-reduce), then rounded."""
 
     @staticmethod
     def forward(ctx, part, whole, dim, mesh, round_to):
-        ctx.pos, ctx.mesh, ctx.round_to = dim % part.dim(), mesh, round_to
+        ctx.pos = None if dim is None else dim % part.dim()
+        ctx.mesh, ctx.round_to = mesh, round_to
         return whole.view_as(whole)
 
     @staticmethod
     def backward(ctx, grad):
-        out = _scatter_sum(grad, ctx.pos, ctx.mesh)
+        if ctx.pos is None:
+            out = grad.to(torch.float32, copy=True).contiguous()
+            _counted(lambda: dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.mesh.group))
+        else:
+            out = _scatter_sum(grad, ctx.pos, ctx.mesh)
         if ctx.round_to is not None:
-            out = out.to(ctx.round_to).to(grad.dtype)
-        return out, None, None, None, None
+            out = out.to(ctx.round_to)
+        return out.to(grad.dtype), None, None, None, None
 
 
 def gather_value(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
@@ -129,14 +138,15 @@ def gather_value(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
         return _gather_along(part.detach(), dim % part.dim(), mesh)
 
 
-def owned_whole(part: torch.Tensor, whole: torch.Tensor, dim: int, mesh,
+def owned_whole(part: torch.Tensor, whole: torch.Tensor, dim, mesh,
                 round_to=None) -> torch.Tensor:
-    """``whole`` (computed without a graph from ``gather_value(part)``) as
-    autograd sees it: its cotangent, summed over the ranks at ``part``'s
-    slice (no collective in the forward; one reduce-scatter in the
-    backward), then rounded through ``round_to`` where given, reaches
-    ``part``.  So a cast's rounding of a gradient happens once, after the
-    ranks' sum, as on one device."""
+    """``whole`` (computed without a graph from ``gather_value(part)``, or
+    from ``part`` itself where ``dim`` is None) as autograd sees it: its
+    cotangent, summed over the ranks at ``part``'s slice (no collective in
+    the forward; one reduce-scatter in the backward, or one float32
+    all-reduce where ``dim`` is None), then rounded through ``round_to``
+    where given, reaches ``part``.  So a cast's rounding of a gradient
+    happens once, after the ranks' sum, as on one device."""
     return _OwnedWhole.apply(part, whole, dim, mesh, round_to)
 
 

@@ -18,8 +18,11 @@ In the step (``train.loop.make_train_step(..., mesh=)``) the forward sees
 along the split dim whose backward reduce-scatters the cotangent, so each
 rank gets the sum of the ranks' gradients for its part); a replicated
 projection weight is a ``DataPart`` too, which carries the activation
-ranges across the ranks' rows.  ``reduce_grads`` then divides the parts'
-sums by the ranks and all-reduces the replicated leaves' gradients.
+ranges across the ranks' rows and sums each use's gradient over the ranks
+in its backward (a float32 all-reduce).  Each rank differentiates its
+share of the global loss, so those sums are the global gradients;
+``reduce_grads`` then all-reduces the gradients of the leaves no rule
+covers (norm scales).
 ``rank_rows`` keeps the rank's rows of the global batch.
 """
 from __future__ import annotations
@@ -144,17 +147,18 @@ def wrap(params: Dict[str, Any], cfg: ModelConfig, mesh) -> Dict[str, Any]:
 
 def reduce_grads(grads: List[torch.Tensor], cfg: ModelConfig, mesh) -> List[torch.Tensor]:
     """The global gradients of the rank's parts from its ``autograd.grad``
-    results: a split leaf's (each gather's backward summed the ranks'
-    cotangents) divided by the ranks; the replicated leaves' summed over
-    the ranks in one all-reduce of their concatenation, then divided."""
-    dims = data_dims(cfg, mesh.size)
-    out = [g.div_(mesh.size) if d is not None else g for g, d in zip(grads, dims)]
-    rep = [i for i, d in enumerate(dims) if d is None]
-    if rep:
-        flat = all_reduce_sum(torch.cat([out[i].reshape(-1) for i in rep]), mesh)
-        flat.div_(mesh.size)
-        for i, piece in zip(rep, flat.split([out[i].numel() for i in rep])):
-            out[i] = piece.view(out[i].shape)
+    results (each rank differentiates its share of the global loss,
+    ``train.loop.make_train_step``): a ``DataPart`` leaf's, split or
+    replicated, as they are (each use's backward summed the ranks'
+    cotangents); the leaves no rule covers (norm scales) summed over the
+    ranks in one all-reduce of their concatenation."""
+    rest = [i for i, (_, _, spec) in enumerate(leaf_specs(cfg, mesh.size)) if spec == ()]
+    out = list(grads)
+    if rest:
+        flat = all_reduce_sum(torch.cat([out[i].reshape(-1).to(torch.float32) for i in rest]),
+                              mesh)
+        for i, piece in zip(rest, flat.split([out[i].numel() for i in rest])):
+            out[i] = piece.view(out[i].shape).to(out[i].dtype)
     return out
 
 

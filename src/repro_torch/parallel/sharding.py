@@ -34,6 +34,8 @@ Spec = Tuple[Any, ...]
 _RULES: Tuple[Tuple[str, Dict[int, str]], ...] = (
     # attention / dense projections: (..., d_in, d_out)
     (r"\.wq$|\.wk$|\.wv$|w_gate$|w_up$|shared_gate$|shared_up$", {-2: "fsdp", -1: "tp"}),
+    # the fused serving leaves: column-parallel piece by piece (parallel/tp.py)
+    (r"\.wqkv$|\.w_gate_up$", {-2: "fsdp", -1: "tp"}),
     (r"\.wo$|w_down$|shared_down$", {-2: "tp", -1: "fsdp"}),
     (r"router$|shared_router$", {-2: "fsdp"}),
     # embeddings / head

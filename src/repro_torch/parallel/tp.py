@@ -14,7 +14,9 @@ frozen ``QWeight`` must be frozen whole before it is cut (a K-part's
 per-channel scale would be another scale): a column split slices its
 per-channel scale, zero point and column sums with its codes' columns,
 an expert split slices every field that carries the expert axis, a row
-split keeps them whole.  ``shard_cache`` keeps the rank's KV heads of
+split keeps them whole.  A fused serving leaf (``wqkv``, ``w_gate_up``)
+is cut piece by piece and joined again per rank, so rank r holds
+``[q_r | k_r | v_r]``.  ``shard_cache`` keeps the rank's KV heads of
 the paged pool.  Every part is a copy, so the whole tensor can be freed.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.approx import QWeight, Shard
+from repro_torch.core.approx import QWeight, Shard, concat_weights
 from repro_torch.parallel.collectives import (
     COUNTS,
     all_gather_last,
@@ -45,9 +47,41 @@ def _part(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     return t.narrow(dim, mesh.rank * n, n).clone(memory_format=torch.contiguous_format)
 
 
+# a fused serving leaf (``transformer.fuse_params``) and the leaves it joins
+_FUSED = {".wqkv": (".wq", ".wk", ".wv"), ".w_gate_up": (".w_gate", ".w_up")}
+
+
+def _columns(leaf, widths):
+    """``leaf`` (a tensor or a QWeight whose per-channel fields follow its
+    columns) cut into consecutive column pieces of ``widths``."""
+    if not isinstance(leaf, QWeight):
+        return list(leaf.split(list(widths), dim=-1))
+    n = leaf.codes.shape[-1]
+    fields = [t.split(list(widths), dim=-1) if t.dim() > 0 and t.shape[-1] == n
+              else (t,) * len(widths) for t in leaf]
+    return [QWeight(*f) for f in zip(*fields)]
+
+
+def _shard_fused(path: str, suffix: str, leaf, cfg: ModelConfig, mesh):
+    """A fused leaf cut piece by piece: the rank's ``[q_r | k_r | v_r]``
+    (or ``[gate_r | up_r]``), each piece as its own leaf's rule cuts it."""
+    hd = cfg.head_dim
+    widths = ((cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.num_kv_heads * hd)
+              if suffix == ".wqkv" else (cfg.d_ff, cfg.d_ff))
+    base = path[: -len(suffix)]
+    parts = [_shard_leaf(base + name, piece, cfg, mesh)
+             for name, piece in zip(_FUSED[suffix], _columns(leaf, widths))]
+    if not any(isinstance(p, Shard) for p in parts):
+        return leaf
+    return concat_weights(parts)
+
+
 def _shard_leaf(path: str, leaf, cfg: ModelConfig, mesh):
     if isinstance(leaf, Shard):                    # cut already
         return leaf
+    for suffix in _FUSED:
+        if path.endswith(suffix):
+            return _shard_fused(path, suffix, leaf, cfg, mesh)
     codes = leaf.codes if isinstance(leaf, QWeight) else leaf
     spec = param_pspec(path + (".codes" if isinstance(leaf, QWeight) else ""),
                        tuple(codes.shape), cfg, mesh)

@@ -35,6 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (
     decode_step,
     forward,
+    fuse_params,
     init_cache,
     params_to,
     seed_cache,
@@ -105,10 +106,12 @@ def draft_config(cfg: ModelConfig, draft_mode: str,
 
 def freeze_params(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """Pre-quantize projection weights to frozen uint8 ``QWeight``s for
-    serving (no-op for float execution)."""
+    serving, with the fused leaves of ``cfg.fuse_qkv``/``fuse_gate_up``
+    built once (``transformer.fuse_params``); a no-op for float
+    execution."""
     if not cfg.approx.is_quantized:
         return params
-    return prequantize_tree(params, cfg.approx)
+    return fuse_params(cfg, prequantize_tree(params, cfg.approx))
 
 
 class SamplingConfig(NamedTuple):
@@ -273,7 +276,7 @@ def generate(
         raise ValueError(f"max_len={max_len} < prompt_len + max_new = {S0 + max_new}")
     if cfg.family in ("ssm", "hybrid"):
         prefill_mode = "decode"
-    params = params_to(params, dev)
+    params = fuse_params(cfg, params_to(params, dev))
     cache = init_cache(cfg, B, max_len, cache_dtype, device=dev)
     prefill = _prefill_fused if prefill_mode == "fused" else _prefill_decode
     last_logits = prefill(cfg, params, prompt, cache)
@@ -318,7 +321,7 @@ def greedy_generate_legacy(cfg: ModelConfig, params, prompt_tokens, *, max_new: 
     prompt = torch.as_tensor(prompt_tokens, device=dev).long()
     B, S0 = prompt.shape
     max_len = max_len or (S0 + max_new)
-    params = params_to(params, dev)
+    params = fuse_params(cfg, params_to(params, dev))
     cache = init_cache(cfg, B, max_len, dtype, device=dev)
     tok = torch.argmax(_prefill_decode(cfg, params, prompt, cache), dim=-1)[:, None]
     cur = torch.full((B,), S0, dtype=torch.long, device=dev)

@@ -131,6 +131,7 @@ from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.transformer import (
     decode_step,
     forward,
+    fuse_params,
     init_cache,
     init_paged_cache,
     paged_chunk_prefill_step,
@@ -928,6 +929,9 @@ class ServeSession:
         self.tp = int(mesh.shape[tp_axis]) if mesh is not None else 1
         if mesh is not None:
             self.params = shard_params(self.params, cfg, mesh)
+        # the fused frozen leaves (fuse_qkv / fuse_gate_up), built once here,
+        # after the cut: each rank concatenates its own parts
+        self.params = fuse_params(cfg, self.params)
         self.sampling = sampling if sampling is not None else SamplingConfig()
         self.seed = int(seed)
         self.max_len = int(max_len)

@@ -4,7 +4,8 @@ the JAX launcher wrote restores into the port and back:
   <dir>/step_000123.tmp-<nonce>/   (staging)
   <dir>/step_000123/
       manifest.json                {step, time, leaves: {key: shape, dtype}}
-      arrays.npz                   one entry per leaf
+      arrays.npz                   one entry per leaf (a bfloat16 leaf as its
+                                   uint16 words; the manifest says bfloat16)
   <dir>/LATEST                     text file: "step_000123"
 
 A leaf's key is its ``jax.tree_util.keystr`` path with every run of
@@ -66,13 +67,13 @@ def _write(directory: str, step: int, tree: Any, keep: int) -> str:
     name = f"step_{step:09d}"
     stage = tempfile.mkdtemp(prefix=name + ".tmp-", dir=directory)
     try:
-        arrays = {k: v.detach().cpu().numpy() for k, v in _flatten(tree)}
+        flat = [(k, v.detach().cpu()) for k, v in _flatten(tree)]
+        arrays = {k: _to_numpy(v) for k, v in flat}
         np.savez(os.path.join(stage, "arrays.npz"), **arrays)
         manifest = {
             "step": step,
             "time": time.time(),
-            "leaves": {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
-                       for k, a in arrays.items()},
+            "leaves": {k: {"shape": list(v.shape), "dtype": _dtype_name(v)} for k, v in flat},
         }
         with open(os.path.join(stage, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -88,6 +89,25 @@ def _write(directory: str, step: int, tree: Any, keep: int) -> str:
     os.replace(os.path.join(directory, "LATEST.tmp"), os.path.join(directory, "LATEST"))
     _gc(directory, keep)
     return os.path.join(directory, name)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    """The manifest's dtype: numpy's name, or ``bfloat16``."""
+    return "bfloat16" if t.dtype == torch.bfloat16 else str(_to_numpy(t).dtype)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """numpy has no bfloat16: a bfloat16 leaf is stored as its 16-bit
+    words (uint16), the manifest naming its dtype."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def _gc(directory: str, keep: int) -> None:
@@ -134,10 +154,12 @@ def restore_checkpoint(directory: str, target_tree: Any, *, step: Optional[int] 
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step:09d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        dtypes = {k: v["dtype"] for k, v in json.load(f)["leaves"].items()}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         restored = []
         for k, leaf in _flatten(target_tree):
             if k not in data:
                 raise KeyError(f"checkpoint missing leaf {k!r}")
-            restored.append(torch.from_numpy(np.array(data[k])).to(leaf.device))
+            restored.append(_from_numpy(data[k], dtypes.get(k, "")).to(leaf.device))
     return unflatten(target_tree, restored), step

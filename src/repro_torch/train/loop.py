@@ -12,9 +12,10 @@ Under a data mesh (``make_train_step(..., mesh=DataMesh)``) one step on
 ``size`` ranks computes what the JAX package's step computes on the whole
 global batch, up to float32 summation order: each rank runs its rows
 (``parallel/fsdp.rank_rows``) through the forward on its FSDP parts
-(``fsdp.wrap``), its loss the local mean CE plus the whole band term, so
-the ranks' gradients summed and divided by ``size`` are the global
-batch's; the optimizer updates the parts.
+(``fsdp.wrap``) and differentiates its rows' share of the global mean CE
+(its local mean over ``size``) plus, on rank 0 alone, the band term, so
+the ranks' gradients summed are the global batch's; the optimizer updates
+the parts.
 """
 from __future__ import annotations
 
@@ -168,7 +169,8 @@ def make_train_step(
     and ``batch`` the global batch, of which the step keeps the rank's
     rows; the metrics are global (the loss and CE the ranks' mean), the
     same on every rank."""
-    loss_fn = make_loss_fn(cfg)
+    aux_weight = 0.01
+    loss_fn = make_loss_fn(cfg, aux_weight)
     if mesh is not None:
         check_data_mesh(cfg, mesh)
 
@@ -177,8 +179,18 @@ def make_train_step(
         for p in ps:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        loss, m = loss_fn(params if mesh is None else fsdp.wrap(params, cfg, mesh), batch)
-        gs = torch.autograd.grad(loss, ps)
+        if mesh is None:
+            loss, m = loss_fn(params, batch)
+            objective = loss
+        else:
+            loss, m = loss_fn(fsdp.wrap(params, cfg, mesh), batch)
+            # the rank's rows' share of the global mean, and the band term
+            # once (rank 0's): the ranks' gradients then sum to the global
+            # batch's, each cotangent at one device's scale before its bf16
+            # rounding (dividing a rounded sum by a size such as 3 would not)
+            objective = ((m["ce"] + aux_weight * m["aux"]) / mesh.size
+                         + m["band_reg"] * float(mesh.rank == 0))
+        gs = torch.autograd.grad(objective, ps)
         return loss.detach(), _detached(m), unflatten(params, gs)
 
     def compute_grads(params, batch):

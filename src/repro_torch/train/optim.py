@@ -2,8 +2,9 @@
 global-norm clipping, on parameter dicts.
 
 Each update runs the JAX package's ``train/optim.py`` operations in its
-order and dtypes (float32 moments, a float32 0-dim ``step``), so one step
-agrees with it to float32 roundoff; ``torch.optim.AdamW`` orders its
+order and dtypes (float32 moments, also beside bfloat16 parameters, whose
+update is computed in float32 and rounded once; a float32 0-dim ``step``),
+so one step agrees with it to float32 roundoff; ``torch.optim.AdamW`` orders its
 operations differently.  Unlike the JAX package, ``apply_updates`` writes
 the parameters and moments in place: at granite-3-2b's full width a second
 copy of the float32 parameters and both moments (about 32 GB) would not fit
@@ -128,13 +129,16 @@ def apply_updates(
     gs = [g.contiguous() for g in leaves(grads)]
 
     def clipped(g):
+        # float32 first: a bfloat16 gradient times the float32 scale is a
+        # float32 product, as in the JAX package
+        g = g.to(torch.float32)
         return g * scale if scale is not None else g
 
     if cfg.kind == "adamw":
         b1, b2 = cfg.beta1, cfg.beta2
         vs = leaves(state["v"])
         for g, m_, v_ in _chunks(gs, ms, vs):
-            g = clipped(g).to(torch.float32)
+            g = clipped(g)
             m_.mul_(b1).add_((1 - b1) * g)
             v_.mul_(b2).add_((1 - b2) * g.square())
         stepf = step.to(torch.float32)
@@ -149,7 +153,7 @@ def apply_updates(
         new_state = {"step": step, "m": state["m"], "v": state["v"]}
     else:  # sgd + momentum
         for p, g, m_ in _chunks(ps, gs, ms):
-            m_.mul_(cfg.momentum).add_(clipped(g).to(torch.float32))
+            m_.mul_(cfg.momentum).add_(clipped(g))
             p.copy_((p.to(torch.float32) - lr * m_).to(p.dtype))
         new_state = {"step": step, "m": state["m"]}
     return params, new_state, {"grad_norm": gn, "lr": lr}

@@ -30,6 +30,8 @@ LEAF_CHUNK = 1 << 26
 _FIELD_ORDERS = {
     ("wq", "wk", "wv", "wo"),
     ("w_gate", "w_up", "w_down"),
+    ("wqkv", "wo"),                 # the fused serving leaves (transformer.fuse_params)
+    ("w_gate_up", "w_down"),
     ("router", "w_gate", "w_up", "w_down", "shared_gate", "shared_up", "shared_down",
      "shared_router"),
     ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "a_log", "d_skip",

@@ -23,11 +23,11 @@ Tolerances (each rank's step against JAX's on the global batch):
   0.0118 of a leaf's largest, lowrank 0.0075: the straight-through
   product rounds its weight cotangents to bf16, and a float32 sum that
   differs in its last bit rounds to the neighbouring bf16 value); against
-  that one-device port step the mesh step's moments hold to 2**-9 where
-  every weight is split (the ranks' float32 partial weight gradients are
-  summed before the one rounding, ``core.approx.approx_dense``) and to
-  2**-6 at dp 3, where each rank rounds its replicated weights'
-  gradients before their all-reduce;
+  that one-device port step the mesh step's moments hold to 2**-9, split
+  or replicated (the ranks' float32 partial weight gradients of each use
+  are summed before the one rounding, ``core.approx.approx_dense``, a
+  split weight's by its gather's reduce-scatter, a replicated one's by an
+  all-reduce);
 * the new parameters: AdamW's first step moves each weight by lr times
   about the sign of its gradient, so no weight may differ by more than
   2.1 lr, and a weight whose moment is certain (above twice the moments'
@@ -81,7 +81,7 @@ MODES = ("float", "exact_quant", "lowrank")
 BANDS = (0.0, 1e-4)
 QUANT_TOL = 2.0 ** -6
 FLOAT_TOL = 1e-3
-ONE_DEVICE_TOL = {2: 2.0 ** -9, 3: 2.0 ** -6, 4: 2.0 ** -9}   # by dp: see the module text
+ONE_DEVICE_TOL = {2: 2.0 ** -9, 3: 2.0 ** -9, 4: 2.0 ** -9}   # by dp: see the module text
 ADAMW = dict(kind="adamw", lr=1e-3, warmup_steps=0, total_steps=10)
 SGD = dict(kind="sgd", lr=1e-2, warmup_steps=0, total_steps=10)
 
@@ -416,10 +416,9 @@ def test_new_state_matches_jax_global_step(worlds, jax_oracle, dp, name):
 def test_moments_match_the_one_device_port_step(worlds, dp, name):
     """The mesh step's new moments against the port's own step on one
     device from the same state and batch: within 2**-9 of each leaf's
-    largest where every weight is split (each weight gradient summed over
-    the ranks in float32, then rounded to bf16 once), 2**-6 at dp 3,
-    where each rank rounds its gradients of the replicated weights
-    before their all-reduce.  With gradient compression (SGD: the moment
+    largest, at dp 3 too, where every weight is replicated (each use's
+    weight gradient summed over the ranks in float32, then rounded to
+    bf16 once).  With gradient compression (SGD: the moment
     is the int8-rounded gradient) one int8 step of the leaf's scale: a
     float32 gap can carry a gradient across a rounding boundary."""
     got = worlds[dp][0]["cases"][name]
