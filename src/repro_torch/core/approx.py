@@ -32,7 +32,9 @@ weight arrives as a ``DataPart``: the rank's part of it, gathered whole
 where it is used (``parallel/fsdp.py``), or the whole weight where no rule
 splits it.  Each rank holds other rows of the batch, so a per-tensor
 activation range spans every rank's rows (one MAX all-reduce); per-row
-ranges need none.
+ranges need none.  A MoE layer's experts gather their stacks once per
+layer (``models/moe.py``) and reach ``approx_dense`` as ``Gathered``
+pieces of them, whose inputs are the same on every rank.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ __all__ = [
     "ApproxConfig",
     "ConcatError",
     "DataPart",
+    "Gathered",
     "Modes",
     "QWeight",
     "Shard",
@@ -203,6 +206,19 @@ class DataPart(NamedTuple):
         """The whole weight's value, recorded by no autograd graph."""
         w = self.w.detach()
         return w if self.dim is None else gather_value(w, self.dim, self.mesh)
+
+
+class Gathered(NamedTuple):
+    """One expert's float weight from a stack gathered whole from a data
+    mesh once per layer (``models/moe.py``): it computes as a float
+    weight on an input that is the same on every rank (the dispatch
+    buffer summed over the ranks), so its activation range is the rank's
+    own, and its straight-through product passes the float32 weight
+    cotangent back unrounded: the stack's gather sums the ranks'
+    cotangents of every expert at once and rounds the sum to bf16, as one
+    device rounds each expert's."""
+
+    w: torch.Tensor
 
 
 def w_dim(w, i: int) -> int:
@@ -360,7 +376,9 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     roundoff) and its gradient is that of ``y_lin``, the product of the
     bf16-rounded fake-quantized operands.  The cotangents pass back through
     the bf16 casts, so the weight gradient is bf16-rounded as in JAX.  A
-    QWeight (serving) returns ``x.dtype`` and records no graph.
+    QWeight (serving) returns ``x.dtype`` and records no graph.  A
+    ``Gathered`` weight is a float weight whose weight cotangent is not
+    rounded here (its gather rounds the ranks' sum).
 
     On a row ``Shard`` ``x`` holds the rank's columns of the activation
     (its K-part): the ranges, the code dots and the code sums span the
@@ -375,6 +393,9 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     then rounded to bf16, once, as on one device (rounding each rank's
     part first would not add up to one device's gradient)."""
     split = mesh = data = part = None
+    rounded = not isinstance(w, Gathered)
+    if not rounded:
+        w = w.w
     if isinstance(w, DataPart):
         data = w.mesh
         if cfg.mode != "float":
@@ -410,6 +431,8 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     w_lin = w_fq.to(bf).to(torch.float32)
     if part is not None:
         w_lin = owned_whole(part.w, w_lin, part.dim, data, round_to=bf)
+    elif not rounded:            # the value of the cast, the cotangent unrounded
+        w_lin = w_fq + (w_lin - w_fq).detach()
     y_lin = _sum(x_fq.to(bf).to(torch.float32) @ w_lin, rows)
 
     # integer simulation (value path, gradient-free)

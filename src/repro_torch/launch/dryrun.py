@@ -41,6 +41,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import sys
 import time
 import traceback
@@ -53,6 +54,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.approx import ApproxConfig
 from repro_torch.launch import roofline as R
 from repro_torch.launch.specs import cache_specs, input_specs, params_specs, state_specs
+from repro_torch.models.moe import moe_capacity
 from repro_torch.models.transformer import decode_step, forward
 from repro_torch.parallel.fsdp import leaf_specs
 from repro_torch.parallel.sharding import tree_bytes
@@ -60,10 +62,10 @@ from repro_torch.train import optim as O
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.tree import LEAF_CHUNK
 
-__all__ = ["auto_microbatch", "backward_peak", "build_step", "cell_supported",
-           "collectives_per_pass", "collectives_per_train_step", "extract_costs",
-           "gathered_bytes_per_train_step", "in_depth", "k1_per_pass",
-           "k1_per_train_step", "model_flops", "run_cell"]
+__all__ = ["auto_microbatch", "backward_peak", "band_term_costs", "build_step",
+           "cell_supported", "collectives_per_pass", "collectives_per_train_step",
+           "extract_costs", "gathered_bytes_per_train_step", "in_depth", "k1_per_pass",
+           "k1_per_train_step", "model_flops", "moe_dispatch_costs", "run_cell"]
 
 DEFAULT_OUT = os.path.join("results", "dryrun_torch")
 APPROX = ApproxConfig(multiplier="mul8x8_2", mode="kernel")   # every cell's multiplier and mode
@@ -162,65 +164,107 @@ def k1_per_train_step(cfg: ModelConfig) -> int:
     return (2 * per - 1) * n + 1
 
 
+# the leaves ``dense`` reads (the projections), by their last key: each
+# use takes an activation range; routers and the Mamba blocks' convolution
+# and scan parameters are read raw, and a MoE layer's expert stacks run on
+# the same buffer on every rank (``models/moe.py``)
+_PROJECTIONS = re.compile(r"(\.(wq|wk|wv|wo|wqkv|w_gate|w_up|w_down|w_gate_up|shared_gate|"
+                          r"shared_up|shared_down|in_proj|x_proj|dt_proj|out_proj)"
+                          r"|\['lm_head'\])$")
+
+
+def _uses(cfg: ModelConfig, path: str) -> Tuple[int, bool]:
+    """(uses of a parameter leaf in one forward, whether each layer's
+    recompute under ``remat`` reruns them): a stacked layer leaf once per
+    layer, the hybrid's shared block once per group, the rest once."""
+    if path.startswith("['layers']"):
+        return cfg.num_layers, True
+    if path.startswith("['shared_attn']"):
+        return cfg.num_layers // cfg.attn_every, True
+    return 1, False
+
+
+def _joined(cfg: ModelConfig, path: str) -> bool:
+    """Whether a fused product (``fuse_qkv``: a layer's q/k/v,
+    ``fuse_gate_up``: a dense FFN's gate/up) reads this leaf as one weight
+    with its first leaf: one range and one gather, counted there."""
+    if cfg.fuse_qkv and path.startswith("['layers']['attn']") and path.endswith((".wk", ".wv")):
+        return True
+    return cfg.fuse_gate_up and "['ffn']" in path and path.endswith(".w_up")
+
+
 def collectives_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1,
                                grad_compression: bool = False) -> int:
-    """Collectives of one training step of the dense family on each rank
-    of a ``dp``-rank data mesh (``make_train_step(..., mesh=DataMesh)``,
+    """Collectives of one training step of ``cfg`` (any family) on each
+    rank of a ``dp``-rank data mesh (``make_train_step(..., mesh=DataMesh)``,
     ``parallel/fsdp.py``), from the rules and the code, per microbatch:
 
-    * each use of a split leaf gathers it (every layer's projections, the
-      embedding, the head), and the backward reduce-scatters each gather's
-      cotangent once;
-    * in a quantized mode with per-tensor activation ranges, each
-      projection (the layers' and the head) takes one MAX of its range;
-    * with ``remat`` each layer's recompute in the backward runs again up
-      to the last tensor the backward saved, the last projection's
-      straight-through product: its gather and its range come before that
-      product (its K1 call after it), so every gather and range of the
-      layer reruns.  Without remat every gathered weight stays saved for
-      the backward instead, and the split saves nothing of it;
-    * a weight a rule covers but kept whole on every rank (its dim ``dp``
-      does not divide) is gathered never; each use's backward sums its
-      gradient over the ranks (one float32 all-reduce per use);
+    * each use of a split leaf gathers it (every layer's projections, a
+      MoE layer's router and each expert stack, once per layer, the
+      hybrid's shared block at each of its groups, the embedding, the
+      head), and the backward reduce-scatters each gather's cotangent
+      once;
+    * a leaf a rule covers but kept whole on every rank (no rule splits
+      it over data, as the Mamba blocks' ``dt_proj``, convolution and
+      scan parameters, or its dim ``dp`` does not divide) is gathered
+      never; each use's backward sums its gradient over the ranks (one
+      float32 all-reduce per use);
+    * in a quantized mode with per-tensor activation ranges, each use of
+      a projection (``_PROJECTIONS``: not a router, not a Mamba block's
+      raw parameters, not a MoE expert stack, whose input is the same on
+      every rank) takes one MAX of its range;
+    * a MoE layer's routing all-gathers the ranks' per-expert counts and
+      sums their dispatch buffers: two per layer;
+    * with ``remat`` each layer's recompute in the backward (the hybrid's
+      shared block's too) runs again up to the last tensor the backward
+      saved, which comes after every gather, range and routing collective
+      of the layer (a dense block's last projection saves its
+      straight-through product, after its gather and range; a MoE block
+      ends in its shared expert and load-balance terms; a Mamba block in
+      its ``out_proj``), so they all rerun.  Without remat every gathered
+      weight stays saved for the backward instead, and the split saves
+      nothing of it;
     * a fused product (``fuse_qkv``, ``fuse_gate_up``) gathers the
       concatenation of its leaves' parts once, and takes one range;
-    * the band term (``band_reg`` > 0) gathers each split weight whole per
-      chunk of matrices inside its recomputed term: two gathers and one
-      reduce-scatter per chunk (a replicated weight: one all-reduce);
+    * the band term (``band_reg`` > 0) gathers each split weight whole once
+      per chunk of matrices, in the forward, where each rank takes the
+      chunk's gradient at once (``train.loop._BandChunk``): one gather a
+      chunk (a replicated weight: none);
 
     then once per step: the all-reduce of the gradients of the leaves no
     rule covers (norm scales), the metrics' all-reduce, the global norm's
     and, with ``grad_compression``, the scales' MAX."""
-    a, n = cfg.approx, cfg.num_layers
-    gathers = layer_gathers = ranges = layer_ranges = band = reduces = 0
+    a = cfg.approx
+    gathers = rerun_gathers = ranges = rerun_ranges = band = reduces = 0
     uncovered = False
-    # a fused product (fuse_qkv, fuse_gate_up) uses its leaves as one
-    # weight: one range and one gather, counted at its first leaf
-    joined = (".wk", ".wv") * cfg.fuse_qkv + (".w_up",) * cfg.fuse_gate_up
+    expert = re.compile(r"\['moe'\]\.(w_gate|w_up|w_down)$")
     for path, shape, spec in leaf_specs(cfg, dp):
-        layer = path.startswith("['layers']")
-        uses = 0 if layer and joined and path.endswith(joined) else n if layer else 1
+        uses, reruns = _uses(cfg, path)
+        if _joined(cfg, path):
+            uses = 0
         if spec == ():
             uncovered = True
             continue
-        if path != "['embed']":                         # a projection weight
+        if _PROJECTIONS.search(path) and not expert.search(path):
             ranges += uses
-            layer_ranges += uses if layer else 0
+            rerun_ranges += uses if reruns else 0
         chunks = 1
         if len(shape) >= 2 and shape[-1] > 1:
             per = max(1, LEAF_CHUNK // (shape[-2] * shape[-1]))
             chunks = -(-math.prod(shape[:-2]) // per)
         if "data" not in spec:                          # replicated: reduced per use
             reduces += uses
-            band += chunks if len(shape) >= 2 and shape[-1] > 1 else 0
             continue
         gathers += uses
-        layer_gathers += uses if layer else 0
+        rerun_gathers += uses if reruns else 0
         if len(shape) >= 2 and shape[-1] > 1:
-            band += 3 * chunks
-    per_mb = 2 * gathers + (layer_gathers if cfg.remat else 0) + reduces
+            band += chunks
+    routing = 2 * cfg.num_layers if cfg.family == "moe" else 0
+    per_mb = 2 * gathers + reduces + routing
+    if cfg.remat:
+        per_mb += rerun_gathers + routing
     if a.is_quantized and not a.act_per_row:
-        per_mb += ranges + (layer_ranges if cfg.remat else 0)
+        per_mb += ranges + (rerun_ranges if cfg.remat else 0)
     if a.band_reg > 0:
         per_mb += band
     return max(microbatch, 1) * per_mb + uncovered + 2 + grad_compression
@@ -230,21 +274,67 @@ def gathered_bytes_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int 
     """Bytes the all-gathers of one training step return on each rank of
     a ``dp``-rank data mesh (``collectives_per_train_step``'s gathers):
     each use of a split leaf gathers it whole in ``cfg.param_dtype`` (a
-    layer's use its layer), again in each layer's recompute with
-    ``remat``, and twice more in the band term; the reduce-scatters move
-    as much back."""
+    layer's use its layer, the hybrid's shared block once per group),
+    again in each recompute with ``remat``, and once more in the band
+    term (a weight of more than one column); the reduce-scatters move the
+    first of these back.  The routing's counts
+    (8 bytes an expert and rank) are not in it."""
     size = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
-    whole = layers = 0
+    per_mb = 0
     for path, shape, spec in leaf_specs(cfg, dp):
         if "data" not in spec:
             continue
+        uses, reruns = _uses(cfg, path)
         n = math.prod(shape) * size
-        whole += n
-        layers += n if path.startswith("['layers']") else 0
-    per_mb = whole + (layers if cfg.remat else 0)
-    if cfg.approx.band_reg > 0:
-        per_mb += 2 * whole
+        if path.startswith("['layers']"):
+            n //= cfg.num_layers                        # a use gathers its layer
+        banded = cfg.approx.band_reg > 0 and len(shape) >= 2 and shape[-1] > 1
+        per_mb += n * uses * (1 + (cfg.remat and reruns)) + math.prod(shape) * size * banded
     return max(microbatch, 1) * per_mb
+
+
+def band_term_costs(cfg: ModelConfig, dp: int) -> Dict[str, int]:
+    """What the band term (``band_reg`` > 0) of one training step costs on
+    each rank of a ``dp``-rank data mesh (``train.loop._BandChunk``), per
+    microbatch: its ``chunks`` (one all-gather each; a recompute in the
+    backward would run two gathers and a reduce-scatter a chunk), the
+    bytes those gathers return (``gathered_bytes``: each split weight of
+    more than one column whole, in ``cfg.param_dtype``), and the bytes of
+    band gradient the rank keeps from the forward to the backward
+    (``kept_bytes``: its part of each such weight), which is what the one
+    gather a chunk costs in memory."""
+    size = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    out = {"chunks": 0, "gathered_bytes": 0, "kept_bytes": 0}
+    if cfg.approx.band_reg <= 0:
+        return out
+    for _, shape, spec in leaf_specs(cfg, dp):
+        if "data" not in spec or len(shape) < 2 or shape[-1] <= 1:
+            continue
+        per = max(1, LEAF_CHUNK // (shape[-2] * shape[-1]))
+        out["chunks"] += -(-math.prod(shape[:-2]) // per)
+        out["gathered_bytes"] += math.prod(shape) * size
+        out["kept_bytes"] += math.prod(shape) * size // dp
+    return out
+
+
+def moe_dispatch_costs(cfg: ModelConfig, dp: int, tokens_per_rank: int) -> Dict[str, int]:
+    """One MoE layer's routing in a forward on each rank of a ``dp``-rank
+    data mesh whose ranks route ``tokens_per_rank`` tokens each, as
+    ``models/moe.moe_ffn`` routes over the global batch: the ``capacity``
+    of the global T, the ``buffer_bytes`` of the float32 dispatch buffer
+    (experts x capacity x d) that every rank builds whole and all-reduces,
+    and the ``expert_flops`` of the gate, up and down products that every
+    rank runs on all of it; beside them the rows the rank's own
+    assignments fill at most (``own_rows``: top_k x its tokens) and the
+    FLOPs of those rows alone (``own_flops``), all a rank-local expert
+    pass would need."""
+    capacity = moe_capacity(tokens_per_rank * dp, cfg.moe_top_k, cfg.moe_experts,
+                            cfg.capacity_factor)
+    rows = cfg.moe_experts * capacity
+    own = min(rows, cfg.moe_top_k * tokens_per_rank)
+    per_row = 2 * 3 * cfg.d_model * cfg.d_ff
+    return {"capacity": capacity, "buffer_bytes": 4 * rows * cfg.d_model,
+            "expert_flops": rows * per_row, "own_rows": own, "own_flops": own * per_row}
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[int, int, float]:

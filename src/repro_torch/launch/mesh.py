@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import multiprocessing as mp
 import queue
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, List, Sequence, Tuple
@@ -151,21 +152,29 @@ def _rank_entry(target, rank, world, args, results):
 
 
 def run_ranks(target: Callable[..., Any], world: int, args: Sequence[Any] = (), *,
-              timeout: float) -> List[Any]:
+              timeout: float, rank0_here: bool = False) -> List[Any]:
     """``target(rank, world, *args)`` in ``world`` spawned processes (the
     target builds its mesh); each rank's return value, in rank
     order.  A rank that raises, dies or outlives ``timeout`` seconds
-    fails the run: every rank still alive is then terminated."""
+    fails the run: every rank still alive is then terminated.
+
+    ``rank0_here``: rank 0 runs in the calling process, after the other
+    ranks are spawned (so they start up while it works, and it keeps the
+    caller's CUDA context and libraries); a thread collects the others'
+    results and terminates them all when one fails, so that rank 0, if it
+    waits on one in a collective, fails there rather than waits."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_entry, args=(target, r, world, tuple(args), results),
-                         name=f"rank-{r}") for r in range(world)]
-    for p in procs:
+    first = 1 if rank0_here else 0
+    procs = {r: ctx.Process(target=_rank_entry, args=(target, r, world, tuple(args), results),
+                            name=f"rank-{r}") for r in range(first, world)}
+    for p in procs.values():
         p.start()
     deadline = time.monotonic() + timeout
-    out: Dict[int, Any] = {}
-    try:
-        while len(out) < world:
+    out: Dict[int, Any] = {}                  # the spawned ranks' results
+
+    def collect():
+        while len(out) < len(procs):
             left = deadline - time.monotonic()
             if left <= 0:
                 raise TimeoutError(f"{world} ranks: no result after {timeout:.0f}s "
@@ -173,7 +182,7 @@ def run_ranks(target: Callable[..., Any], world: int, args: Sequence[Any] = (), 
             try:
                 rank, err, value = results.get(timeout=min(left, 1.0))
             except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in out and p.exitcode is not None]
+                dead = [r for r, p in procs.items() if r not in out and p.exitcode is not None]
                 if not dead:
                     continue
                 try:                        # a result may still be on its way
@@ -184,11 +193,44 @@ def run_ranks(target: Callable[..., Any], world: int, args: Sequence[Any] = (), 
             if err is not None:
                 raise RuntimeError(f"rank {rank} failed:\n{err}")
             out[rank] = value
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
+
+    def stop():
+        for p in procs.values():
             if p.is_alive():
                 p.terminate()
+
+    failed: List[BaseException] = []
+
+    def watch():
+        try:
+            collect()
+        except BaseException as e:     # rank 0 reraises it
+            failed.append(e)
+            stop()
+
+    try:
+        if rank0_here:
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            try:
+                here = target(0, world, *args)
+            except BaseException:
+                if failed:                  # the other rank's failure is the cause
+                    raise failed[0]
+                raise
+            watcher.join(max(0.0, deadline - time.monotonic()))
+            if failed:
+                raise failed[0]
+            if watcher.is_alive():
+                raise TimeoutError(f"{world} ranks: no result after {timeout:.0f}s "
+                                   f"(ranks done: {sorted(out)})")
+            out[0] = here
+        else:
+            collect()
+        for p in procs.values():
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        stop()
+        for p in procs.values():
             p.join()
     return [out[r] for r in range(world)]

@@ -8,6 +8,8 @@ over a mesh of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --mesh 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
         --reduced --device cpu --steps 2     # also falcon-mamba-7b, zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
+        --reduced --device cpu --mesh 2 --steps 2
 
 The JAX package's launcher plus ``--device``.  ``--mode kernel`` (the
 default) runs every projection's integer simulation through the CUDA
@@ -22,7 +24,8 @@ them before it builds any weights (the JAX launcher fails inside
 
 ``--mesh`` (``launch.mesh.parse_mesh``; default ``auto``: one rank per
 visible card, one on ``--device cpu``) with more than one data rank trains
-the dense family data-parallel with FSDP sharding (``parallel/fsdp.py``):
+any token-input family (dense, moe with its routing over the global
+batch, ssm, hybrid) data-parallel with FSDP sharding (``parallel/fsdp.py``):
 rank r is a process of its own on ``cuda:r`` over NCCL (more ranks than
 visible cards are refused), or on the CPU over gloo with ``--device
 cpu``.  Every rank draws the whole global batch and the step keeps its
@@ -30,8 +33,9 @@ rows, so a run sees the batches one device would; rank 0 prints, rank 0
 writes whole checkpoints (any number of ranks resumes from them), a
 preemption signal stops every rank at the same step, and a failed rank
 restarts the whole world from the newest checkpoint (``--max-restarts``).
-A model axis, a pod axis and the moe, ssm and hybrid families are refused
-under a data mesh (``NotImplementedError`` naming their ROADMAP.md item).
+A model axis and a pod axis are refused (``NotImplementedError`` naming
+their ROADMAP.md items); the vlm and audio families train under a data
+mesh through ``make_train_step(..., mesh=)`` on embedding batches.
 """
 from __future__ import annotations
 

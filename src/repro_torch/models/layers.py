@@ -5,7 +5,8 @@ parallelism a weight is a ``Shard`` (``parallel/tp.shard_params``) and
 model code calls them as it does unsharded.  Under data-parallel training
 a weight is a ``DataPart`` (``parallel/fsdp.wrap``): ``unstack`` keeps
 each layer's part, and ``dense`` and ``embed`` gather it whole where they
-use it."""
+use it; a leaf read outside ``dense`` (the Mamba blocks' convolution and
+scan parameters, a router) is read through ``whole``."""
 from __future__ import annotations
 
 import math
@@ -14,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig, DataPart, QWeight, Shard, approx_dense
+from repro_torch.core.approx import ApproxConfig, DataPart, Gathered, QWeight, Shard, approx_dense
 from repro_torch.parallel.collectives import all_gather_last, all_reduce_sum
 
 __all__ = [
@@ -30,6 +31,7 @@ __all__ = [
     "sinusoidal_positions",
     "truncated_normal_init",
     "unstack",
+    "whole",
 ]
 
 
@@ -56,9 +58,12 @@ def dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     ``w`` may be a frozen ``QWeight`` (serving path) or a ``Shard``: a
     column split gives the rank's output columns, a row split (``x`` the
     rank's K-part) the whole output, its float partial products summed over
-    the ranks in float32.  A ``DataPart`` is gathered whole here."""
+    the ranks in float32.  A ``DataPart`` is gathered whole here; a
+    ``Gathered`` piece computes as its float weight."""
     if isinstance(w, DataPart) and cfg.mode == "float":
         w = w.whole()
+    if isinstance(w, Gathered) and cfg.mode == "float":
+        w = w.w
     local = w.w if isinstance(w, Shard) else w
     if isinstance(local, QWeight) or cfg.mode != "float":
         return approx_dense(x, w, cfg).to(x.dtype)
@@ -84,6 +89,14 @@ def embed(tokens: torch.Tensor, table) -> torch.Tensor:
     rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                           device=rows.device))
     return all_reduce_sum(rows, mesh)
+
+
+def whole(w):
+    """The tensor a leaf read outside ``dense`` computes with: a
+    ``DataPart``'s whole weight (``DataPart.whole``: gathered, or for a
+    replicated one the weight, each use's gradient summed over the ranks),
+    anything else as it is."""
+    return w.whole() if isinstance(w, DataPart) else w
 
 
 def gather_columns(y: torch.Tensor, w) -> torch.Tensor:

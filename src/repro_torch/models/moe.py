@@ -29,6 +29,28 @@ floats in another order.  Otherwise the stacks are column
 runs through ``dense``'s Megatron split, its ``w_down`` reducing the
 ranks' partial products.  The shared expert takes the column/row split.
 
+Under a data mesh (``make_train_step(..., mesh=DataMesh)``, the leaves
+``DataPart``s) each rank routes its own tokens as the JAX package routes
+the whole global batch, whose tokens run rank after rank
+(``parallel/fsdp.rank_rows``): the capacity is the global T's, and an
+assignment's rank within its expert is its rank among the rank's own
+plus the assignments of the lower ranks to that expert, from one
+all-gather of every rank's per-expert counts, so the kept and dropped
+assignments are the global ones.  Each rank writes its kept tokens at
+their global rows of the dispatch buffer and one float32 SUM of the
+ranks' buffers (``collectives.sum_rows``, exact: each row is one rank's)
+gives every rank the global buffer, so every expert runs on JAX's rows
+and its per-tensor activation range is the global buffer's, empty rows
+counted as zeros; a rank reads back its own tokens' rows.  The expert
+stacks are gathered once per layer and use, then cut by expert
+(``core.approx.Gathered``), their gradient's bf16 rounding after the
+ranks' sum.  The load-balance term ``E * sum_e f_e * P_e`` is bilinear
+in the tokens: each rank returns ``E * sum_e f_e * P_e^rank``, with
+``f`` the global fraction routed (from the same counts; it has no
+gradient) and ``P^rank`` the mean router probability over its own
+tokens, so the ranks' mean, which the training step takes, is the
+global term and its gradient.
+
 The combine is deterministic: each token sums its k contributions in one
 fixed order, by expert ascending from zero, which is the order of the JAX
 package's scatter-add over the stably sorted assignments on the CPU (a
@@ -47,9 +69,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig, Shard
+from repro_torch.core.approx import ApproxConfig, DataPart, Gathered, Shard
 from repro_torch.models import layers as L
-from repro_torch.parallel.collectives import all_gather_first
+from repro_torch.parallel.collectives import all_gather_first, owned_whole, sum_rows
 
 __all__ = ["Routing", "init_moe", "load_balance_loss", "moe_capacity", "moe_ffn", "route"]
 
@@ -96,7 +118,9 @@ class Routing(NamedTuple):
     """One routing of T tokens: ``probs`` (T, E) and ``top_e`` (T, k), then
     the T*k assignments stably sorted by expert: ``order`` (their flat
     (token, choice) index), weight ``sw``, whether each is
-    ``keep``-t and its row ``slot`` of the (E * capacity) dispatch buffer."""
+    ``keep``-t and its row ``slot`` of the (E * capacity) dispatch buffer;
+    under a data mesh ``frac`` (E,), the global fraction of tokens routed
+    to each expert (else None)."""
 
     probs: torch.Tensor
     top_e: torch.Tensor
@@ -104,12 +128,17 @@ class Routing(NamedTuple):
     sw: torch.Tensor
     keep: torch.Tensor
     slot: torch.Tensor
+    frac: Optional[torch.Tensor] = None
 
 
-def route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int) -> Routing:
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int,
+          mesh=None) -> Routing:
     """Top-k routing with capacity for (T, d) tokens: a float32 router,
     softmax, top-k, renormalization, a stable sort by expert, the rank
-    within each expert, and drops past ``capacity``.
+    within each expert, and drops past ``capacity``.  Under a data
+    ``mesh`` ``x`` is the rank's block of the global tokens and the ranks
+    within experts, the drops and the slots are the global batch's (one
+    all-gather of the ranks' per-expert counts; module text).
 
     ``torch.topk`` promises no order among equal values (``jax.lax.top_k``
     takes the lower index); float32 softmax probabilities of a real router
@@ -125,9 +154,19 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int) -> R
     # rank within expert: position minus the first position of its expert
     # (a search of the sorted ids: bincount would read its size on the host)
     rank = torch.arange(T * top_k, device=x.device) - torch.searchsorted(se, se)
+    frac = None
+    if mesh is not None:
+        # the lower ranks' assignments to each expert come first in its
+        # global order; their sum over every rank gives the fraction routed
+        E = probs.shape[-1]
+        counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        every = all_gather_first(counts, mesh).view(mesh.size, E)
+        rank = rank + every[:mesh.rank].sum(dim=0)[se]
+        frac = every.sum(dim=0).to(torch.float32) / float(T * mesh.size)
     keep = rank < capacity
     slot = se * capacity + torch.where(keep, rank, torch.zeros_like(rank))
-    return Routing(probs, top_e, order, sw, keep, slot)
+    return Routing(probs, top_e, order, sw, keep, slot, frac)
 
 
 def _expert_ffn(xb, wg, wu, wd, cfg: ApproxConfig):
@@ -143,11 +182,15 @@ def moe_ffn(
     cfg: ApproxConfig,
     capacity_factor: float = 1.25,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (T, d) in x's dtype, aux_loss float32 scalar)."""
+    """Returns (out (T, d) in x's dtype, aux_loss float32 scalar).  Under
+    a data mesh (``DataPart`` leaves) ``x`` is the rank's block of the
+    global tokens and ``aux`` the rank's term (module text)."""
     T, d = x.shape
     E = p["router"].shape[-1]
-    capacity = moe_capacity(T, top_k, E, capacity_factor)
-    r = route(x, p["router"], top_k, capacity)
+    data = p["router"].mesh if isinstance(p["router"], DataPart) else None
+    capacity = moe_capacity(T * (data.size if data is not None else 1), top_k, E,
+                            capacity_factor)
+    r = route(x, L.whole(p["router"]), top_k, capacity, mesh=data)
 
     # ---- dispatch: kept slots are unique; dropped assignments write one
     # trash row past the buffer, which no expert reads.  The sorted
@@ -157,16 +200,23 @@ def moe_ffn(
     buf = x.new_zeros((E * capacity + 1, d))
     repeated = x[:, None, :].expand(T, top_k, d).reshape(T * top_k, d)
     buf[torch.where(r.keep, r.slot, trash)] = repeated[r.order]
-    buf = buf[:-1].reshape(E, capacity, d)
+    buf = buf[:-1]
+    if data is not None:             # every rank's rows: the global buffer
+        buf = sum_rows(buf, data)
+    buf = buf.reshape(E, capacity, d)
 
     # ---- experts: one dense per projection and expert, empty ones
     # included; under an expert split the rank's experts, then every rank's
-    # rows gathered in expert order
+    # rows gathered in expert order; under a data mesh every expert, each
+    # stack gathered once
     ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
     ep = ws[0] if isinstance(ws[0], Shard) and ws[0].split == "expert" else None
     n = E // ep.mesh.size if ep is not None else E
     lo = ep.mesh.rank * n if ep is not None else 0
-    per = [L.unstack(w.w if ep is not None else w, n) for w in ws]
+    if data is not None:
+        per = [_gathered_experts(w, cfg) for w in ws]
+    else:
+        per = [L.unstack(w.w if ep is not None else w, n) for w in ws]
     out_buf = torch.stack([_expert_ffn(buf[lo + e], per[0][e], per[1][e], per[2][e], cfg)
                            for e in range(n)])
     if ep is not None:
@@ -189,9 +239,24 @@ def moe_ffn(
     # ---- shared expert (qwen2-moe style, sigmoid-gated)
     if p["shared_gate"] is not None:
         sh = _expert_ffn(x, p["shared_gate"], p["shared_up"], p["shared_down"], cfg)
-        gate = torch.sigmoid(x.to(torch.float32) @ p["shared_router"].to(torch.float32))
+        gate = torch.sigmoid(x.to(torch.float32)
+                             @ L.whole(p["shared_router"]).to(torch.float32))
         out = out + sh * gate.to(x.dtype)
 
+    if r.frac is not None:           # the global fraction routed, the rank's probabilities
+        return out, float(E) * (r.frac * r.probs.mean(dim=0)).sum()
     mask = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     mask.scatter_(1, r.top_e, 1.0)
     return out, load_balance_loss(r.probs, mask)
+
+
+def _gathered_experts(stack: DataPart, cfg: ApproxConfig):
+    """A layer's (E, K, N) expert stack on a data mesh, gathered whole once
+    (one all-gather; for a replicated stack, none) and cut by expert into
+    ``Gathered`` pieces: the backward sums the E experts' float32
+    cotangents over the ranks in one reduce-scatter (one all-reduce) and
+    then rounds them to bf16 where the straight-through product would
+    have, as on one device."""
+    bf = None if cfg.mode == "float" else torch.bfloat16
+    whole = owned_whole(stack.w, stack.value(), stack.dim, stack.mesh, round_to=bf)
+    return [Gathered(w) for w in whole.unbind(0)]

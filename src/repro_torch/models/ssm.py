@@ -13,6 +13,11 @@ Projections go through the approximate-multiplier ``dense`` (K1 on frozen
 weights); the convolution, the recurrences and the gating are elementwise
 float work, as in the JAX package, which computes them outside any Pallas
 kernel.  Parameters are dicts keyed by the JAX named tuples' fields.
+Under data-parallel training (``parallel/fsdp.wrap``) every leaf is a
+``DataPart``: the projections gather in ``dense``, and the convolution and
+scan parameters, replicated, are read once per use through ``L.whole``,
+whose backward sums their gradients over the ranks; shapes come from
+``w_dim``.
 ``softplus`` is ``logaddexp(x, 0)``, the JAX package's ``jax.nn.softplus``
 (``F.softplus`` switches to the identity past a threshold).
 """
@@ -102,15 +107,16 @@ def _selective_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tenso
 def _mamba1_core(xz, p: Dict[str, Any], cfg: ApproxConfig, conv_state, h0, chunk: int):
     """Shared by the forward and the decode step; xz (B, S, 2*di)."""
     S = xz.shape[1]
-    N = p["a_log"].shape[1]
+    N = w_dim(p["a_log"], 1)
     dt_rank = w_dim(p["dt_proj"], 0)
     x, z = xz.chunk(2, dim=-1)
-    x, conv_state = _causal_depthwise_conv(x, p["conv_w"], p["conv_b"], conv_state)
+    x, conv_state = _causal_depthwise_conv(x, L.whole(p["conv_w"]), L.whole(p["conv_b"]),
+                                           conv_state)
     x = F.silu(x)
     proj = L.dense(x, p["x_proj"], cfg)
     dt, Bc, Cc = proj[..., :dt_rank], proj[..., dt_rank:dt_rank + N], proj[..., dt_rank + N:]
-    dt = softplus(L.dense(dt, p["dt_proj"], cfg) + p["dt_bias"].to(x.dtype))     # (B,S,di)
-    A = -torch.exp(p["a_log"].to(torch.float32))                                 # (di, N)
+    dt = softplus(L.dense(dt, p["dt_proj"], cfg) + L.whole(p["dt_bias"]).to(x.dtype))  # (B,S,di)
+    A = -torch.exp(L.whole(p["a_log"]).to(torch.float32))                        # (di, N)
     dA = torch.exp(dt.to(torch.float32)[..., None] * A)                          # (B,S,di,N)
     dBx = (dt * x).to(torch.float32)[..., None] * Bc.to(torch.float32)[..., None, :]
     if S == 1:
@@ -119,7 +125,7 @@ def _mamba1_core(xz, p: Dict[str, Any], cfg: ApproxConfig, conv_state, h0, chunk
     else:
         h_all, h_last = _selective_scan_chunked(dA, dBx, h0, min(chunk, S))
     y = torch.einsum("bsdn,bsn->bsd", h_all, Cc.to(torch.float32)).to(x.dtype)
-    y = y + p["d_skip"].to(x.dtype) * x
+    y = y + L.whole(p["d_skip"]).to(x.dtype) * x
     y = y * F.silu(z)
     return L.dense(y, p["out_proj"], cfg), conv_state, h_last
 
@@ -129,7 +135,7 @@ def mamba1_forward(x: torch.Tensor, p: Dict[str, Any], *, cfg: ApproxConfig,
     """x (B, S, d) -> (y, (conv_state, ssm_state)) from a zero state."""
     B = x.shape[0]
     di = w_dim(p["out_proj"], 0)
-    N = p["a_log"].shape[1]
+    N = w_dim(p["a_log"], 1)
     xz = L.dense(x, p["in_proj"], cfg)
     h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
     y, conv_state, h_last = _mamba1_core(xz, p, cfg, None, h0, chunk)
@@ -213,8 +219,8 @@ def ssd_chunked(X, a_log_dt, Bm, Cm, h0, chunk: int):
 
 def _mamba2_split(p: Dict[str, Any], proj):
     di = w_dim(p["out_proj"], 0)
-    N = (p["conv_w"].shape[1] - di) // 2
-    nh = p["a_log"].shape[0]
+    N = (w_dim(p["conv_w"], 1) - di) // 2
+    nh = w_dim(p["a_log"], 0)
     z, xBC, dt = proj[..., :di], proj[..., di:2 * di + 2 * N], proj[..., 2 * di + 2 * N:]
     return z, xBC, dt, di, N, nh
 
@@ -226,21 +232,22 @@ def mamba2_forward(x: torch.Tensor, p: Dict[str, Any], *, cfg: ApproxConfig,
     proj = L.dense(x, p["in_proj"], cfg)
     z, xBC, dt, di, N, nh = _mamba2_split(p, proj)
     hd = di // nh
-    xBC, conv_state = _causal_depthwise_conv(xBC, p["conv_w"], p["conv_b"], None)
+    xBC, conv_state = _causal_depthwise_conv(xBC, L.whole(p["conv_w"]), L.whole(p["conv_b"]),
+                                             None)
     xBC = F.silu(xBC)
     xs, Bm, Cm = xBC[..., :di], xBC[..., di:di + N], xBC[..., di + N:]
-    dt = softplus(dt.to(torch.float32) + p["dt_bias"])               # (B,S,nh)
-    a = -torch.exp(p["a_log"].to(torch.float32))                      # (nh,)
+    dt = softplus(dt.to(torch.float32) + L.whole(p["dt_bias"]))      # (B,S,nh)
+    a = -torch.exp(L.whole(p["a_log"]).to(torch.float32))             # (nh,)
     Xh = xs.reshape(B, S, nh, hd).to(torch.float32) * dt[..., None]
     h0 = torch.zeros((B, nh, hd, N), dtype=torch.float32, device=x.device)
     ck = min(chunk, S)
     if S % ck != 0 or S == 1:
         ck = 1 if S == 1 else S
     Y, h_last = ssd_chunked(Xh, dt * a, Bm.to(torch.float32), Cm.to(torch.float32), h0, ck)
-    Y = Y + p["d_skip"].to(torch.float32)[None, None, :, None] * \
+    Y = Y + L.whole(p["d_skip"]).to(torch.float32)[None, None, :, None] * \
         xs.reshape(B, S, nh, hd).to(torch.float32)
     y = Y.reshape(B, S, di).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm_g"])
+    y = L.rms_norm(y * F.silu(z), L.whole(p["norm_g"]))
     return L.dense(y, p["out_proj"], cfg), (conv_state, h_last)
 
 

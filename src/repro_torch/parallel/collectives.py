@@ -9,7 +9,9 @@ an all-gather along any dim that autograd records, its backward the SUM
 reduce-scatter of the cotangent; ``gather_value`` and ``owned_whole``, the
 same split into a value and a gradient path, so that a cast's rounding of
 the gradient can follow the ranks' sum (for a weight every rank holds
-whole, a float32 SUM all-reduce of the cotangent); and ``barrier``; the
+whole, a float32 SUM all-reduce of the cotangent); ``sum_rows``, the
+ranks' sum of a MoE dispatch buffer whose rows each rank fills alone,
+its backward the rank's own cotangent; and ``barrier``; the
 remaining gradients' all-reduce, the ranges' MAX and the optimizer's
 sums use the functions above on tensors that need no gradient.  Nothing
 more, so gloo can carry them on CUDA tensors as well as NCCL.  Each call
@@ -25,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COUNTS", "all_gather_first", "all_gather_last", "all_reduce_max", "all_reduce_sum",
-           "barrier", "gather_dim", "gather_value", "max_range", "owned_whole"]
+           "barrier", "gather_dim", "gather_value", "max_range", "owned_whole", "sum_rows"]
 
 COUNTS: Dict[str, float] = {"calls": 0, "host_s": 0.0}
 
@@ -155,6 +157,33 @@ def gather_dim(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     autograd sees it: the gradient that reaches ``part`` is the sum over
     the ranks of the whole result's cotangent at ``part``'s slice."""
     return owned_whole(part, gather_value(part, dim, mesh), dim, mesh)
+
+
+class _SumRows(torch.autograd.Function):
+    """The ranks' sum of a tensor whose nonzero rows each rank fills
+    alone, its cotangent passed back to the rank as it is."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        out = t.detach().to(torch.float32, copy=True).contiguous()
+        _counted(lambda: dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group))
+        return out.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``t`` summed, where each row is nonzero on one rank at
+    most (a MoE dispatch buffer, each rank's tokens at their global rows):
+    one float32 SUM all-reduce, exact, since each element is one rank's
+    value plus zeros.  As autograd sees it the cotangent that reaches
+    ``t`` is this rank's own: each rank reads back only the rows it filled
+    and the function after it is row by row, so the other ranks'
+    cotangents at those rows are zeros, and no collective runs in the
+    backward."""
+    return _SumRows.apply(t, mesh)
 
 
 def barrier(mesh) -> None:

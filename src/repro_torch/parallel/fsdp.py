@@ -22,8 +22,17 @@ ranges across the ranks' rows and sums each use's gradient over the ranks
 in its backward (a float32 all-reduce).  Each rank differentiates its
 share of the global loss, so those sums are the global gradients;
 ``reduce_grads`` then all-reduces the gradients of the leaves no rule
-covers (norm scales).
-``rank_rows`` keeps the rank's rows of the global batch.
+covers (norm scales).  The two agree leaf by leaf, by the spec alone: a
+leaf whose spec is ``()`` is a plain tensor whose gradient
+``reduce_grads`` sums once, and every other leaf, split or not (a spec of
+``None``s: the Mamba blocks' ``dt_proj``, convolution and scan
+parameters under a data axis, which the rules split only over
+``model``), is a ``DataPart`` whose every use sums its gradient (model
+code reads it through ``dense``, ``embed``, ``layers.whole`` or, a MoE
+layer's expert stacks, ``owned_whole`` once per layer), so no gradient is
+summed twice or never.
+``rank_rows`` keeps the rank's rows of the global batch: of the tokens or
+embeddings, the labels and the multimodal positions grid.
 """
 from __future__ import annotations
 

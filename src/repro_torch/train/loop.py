@@ -13,9 +13,12 @@ Under a data mesh (``make_train_step(..., mesh=DataMesh)``) one step on
 global batch, up to float32 summation order: each rank runs its rows
 (``parallel/fsdp.rank_rows``) through the forward on its FSDP parts
 (``fsdp.wrap``) and differentiates its rows' share of the global mean CE
-(its local mean over ``size``) plus, on rank 0 alone, the band term, so
-the ranks' gradients summed are the global batch's; the optimizer updates
-the parts.
+(its local mean over ``size``) plus the band term, whose backward gives
+each rank its part's gradient of it (``_BandChunk``), so the ranks'
+gradients summed are the global batch's; the optimizer updates the
+parts.  A MoE layer routes over the global batch (``models/moe.py``)
+and returns the rank's load-balance term, whose ranks' mean is the global
+term, so it takes its share as the CE does.
 """
 from __future__ import annotations
 
@@ -23,14 +26,13 @@ import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.core.approx import DataPart
 from repro_torch.models.transformer import forward, init_params
 from repro_torch.parallel import fsdp
-from repro_torch.parallel.collectives import all_reduce_sum
+from repro_torch.parallel.collectives import all_reduce_sum, gather_value
 from repro_torch.quant.affine import calibrate
 from repro_torch.quant.qat import band_regularizer
 from repro_torch.train import optim as O
@@ -53,51 +55,99 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
-def _band_term(leaf, qmax: int) -> torch.Tensor:
-    if isinstance(leaf, DataPart):
-        leaf = leaf.whole()
-    qp = calibrate(leaf, axis=(leaf.dim() - 2,), qmax=qmax)
-    return band_regularizer(leaf, qp, band=(0, 31))
+def _band_term(w: torch.Tensor, qmax: int) -> torch.Tensor:
+    qp = calibrate(w, axis=(w.dim() - 2,), qmax=qmax)
+    return band_regularizer(w, qp, band=(0, 31))
 
 
-def _leaf_band_term(leaf, qmax: int) -> torch.Tensor:
+def _band_value_and_grad(w: torch.Tensor, qmax: int):
+    """One chunk's band term and its gradient for a unit cotangent."""
+    with torch.enable_grad():
+        w = w.detach().requires_grad_(True)
+        t = _band_term(w, qmax)
+        (g,) = torch.autograd.grad(t, w)
+    return t.detach(), g
+
+
+class _BandChunk(torch.autograd.Function):
+    """One chunk's band term, whose backward is its cotangent times the
+    term's gradient for a unit cotangent.  On one device (``mesh`` None)
+    the gradient is recomputed in the backward from the chunk, so no
+    intermediates are held until then.  A data mesh's part (split along
+    ``dim``, or whole where ``dim`` is None) is gathered whole once, in
+    the forward, where its gradient is taken at once and the rank's part
+    of it kept: one all-gather a chunk, where a recompute would gather it
+    again and reduce-scatter the cotangent.  Every rank computes the same
+    term and gradient (and takes the term into its objective whole), so
+    each part gets the gradient one device would give it, and the two
+    paths compute alike: a one-rank mesh step is the no-mesh step bit for
+    bit.  A leaf no rule covers (a norm scale, a plain tensor on every
+    rank, its gradient summed over the ranks by ``fsdp.reduce_grads``)
+    takes its band gradient on one rank alone (``own`` False elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, w, qmax, dim, mesh, own=True):
+        ctx.qmax, ctx.mesh, ctx.own = qmax, mesh, own
+        if mesh is None:
+            ctx.save_for_backward(w)
+            return _band_term(w.detach(), qmax)
+        whole = w.detach() if dim is None else gather_value(w, dim, mesh)
+        t, g = _band_value_and_grad(whole, qmax)
+        if dim is not None:
+            n = g.shape[dim] // mesh.size
+            g = g.narrow(dim, mesh.rank * n, n).contiguous()
+        ctx.save_for_backward(g)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        (saved,) = ctx.saved_tensors
+        g = _band_value_and_grad(saved, ctx.qmax)[1] if ctx.mesh is None else saved
+        return (grad * g if ctx.own else torch.zeros_like(g)), None, None, None, None
+
+
+def _leaf_band_term(leaf, qmax: int, own: bool = True) -> torch.Tensor:
     """One weight's band term, the mean over its elements.  A stacked
     weight (layers, experts) calibrates each (K, N) matrix alone (its
     scales are per output channel), so its mean is taken over chunks of
     matrices of at most ``LEAF_CHUNK`` elements, each weighted by its
-    share: the same value up to float32 summation order.  Under autograd
-    each chunk is recomputed in the backward instead of holding its
-    intermediates, so no more than a few copies of one chunk exist at once
-    (a whole stack's would be about five copies of 5.8 GB for zamba2-2.7b's
-    stacked ``in_proj``).  A ``DataPart``'s chunks are its part's, each
-    gathered whole inside the recomputed term (so the recompute gathers
-    it again) and chunked by the whole matrices' size."""
-    part = leaf.w if isinstance(leaf, DataPart) else leaf
+    share: the same value up to float32 summation order.  Each chunk is a
+    ``_BandChunk``, so no more than a few copies of one chunk exist at
+    once (a whole stack's would be about five copies of 5.8 GB for
+    zamba2-2.7b's stacked ``in_proj``).  A ``DataPart``'s chunks are its
+    part's, each gathered whole once and chunked by the whole matrices'
+    size; ``own``: whether this rank takes a plain leaf's band gradient
+    (``_BandChunk``)."""
+    data = isinstance(leaf, DataPart)
+    part = leaf.w if data else leaf
+    dim, mesh = (leaf.dim, leaf.mesh) if data else (None, None)
     if part.dim() == 2:
-        return checkpoint(_band_term, leaf, qmax, use_reentrant=False)
+        return _BandChunk.apply(part, qmax, dim, mesh, own)
     mats = part.reshape(-1, *part.shape[-2:])
     per = max(1, LEAF_CHUNK // (leaf.shape[-2] * leaf.shape[-1]))
     total = None
     for chunk in mats.split(per):
-        piece = leaf._replace(w=chunk) if isinstance(leaf, DataPart) else chunk
-        t = checkpoint(_band_term, piece, qmax, use_reentrant=False) * (
-            chunk.shape[0] / mats.shape[0])
+        t = _BandChunk.apply(chunk, qmax, dim, mesh, own) * (chunk.shape[0] / mats.shape[0])
         total = t if total is None else total + t
     return total
 
 
 def _band_reg_term(cfg: ModelConfig, params) -> torch.Tensor:
     """The paper's weight-band regularizer over every 2-D+ weight, in the JAX
-    package's leaf order, each weight's term recomputed in the backward
-    (``_leaf_band_term``); a ``DataPart`` (data mesh) enters whole."""
+    package's leaf order, each weight's term by chunks (``_leaf_band_term``);
+    a ``DataPart`` (data mesh) enters whole."""
     a = cfg.approx
     dev = leaves(params)[0].device
     if a.band_reg <= 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
+    # under a data mesh a plain leaf's band gradient is rank 0's alone: the
+    # ranks' gradients of such a leaf are summed (fsdp.reduce_grads)
+    meshes = [x.mesh for x in leaves(params) if isinstance(x, DataPart)]
+    own = not meshes or meshes[0].rank == 0
     total, n = torch.zeros((), dtype=torch.float32, device=dev), 0
     for leaf in leaves(params):
         if len(leaf.shape) >= 2 and leaf.shape[-1] > 1:
-            total = total + _leaf_band_term(leaf, a.w_qmax)
+            total = total + _leaf_band_term(leaf, a.w_qmax, own or isinstance(leaf, DataPart))
             n += 1
     return a.band_reg * total / max(n, 1)
 
@@ -105,7 +155,12 @@ def _band_reg_term(cfg: ModelConfig, params) -> torch.Tensor:
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01) -> Callable:
     """loss_fn(params, batch) -> (loss, {"ce", "aux", "band_reg"}): token
     CE plus ``aux_weight`` times the MoE load-balance loss (0 for the other
-    families) plus the band regularizer, as in the JAX package.  ``batch``
+    families) plus the band regularizer, as in the JAX package.  On a
+    data mesh's rank (``fsdp.wrap``'d parameters, the rank's rows) ``ce``
+    is the mean over its rows and ``aux`` its load-balance term, whose
+    mean over the ranks is the global batch's (``make_train_step``
+    differentiates their share, ``(ce + aux_weight * aux) / size``, and
+    the band term on every rank).  ``batch``
     holds ``"labels"`` and ``"tokens"``, or ``"embeddings"`` (and, for
     multimodal rope, ``"positions_thw"``) for a model without token
     inputs."""
@@ -128,22 +183,12 @@ def _detached(m: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def check_data_mesh(cfg: ModelConfig, mesh) -> None:
     """Refuse what data-parallel training does not cover: a mesh other
-    than one data axis, and every family but the dense one (each named
-    with its ROADMAP.md item)."""
+    than one data axis (named with its ROADMAP.md items).  Every family
+    trains on a data axis."""
     if tuple(mesh.axis_names) != ("data",):
         raise NotImplementedError(
             f"training over mesh axes {tuple(mesh.axis_names)}: only a data axis is ported "
             "(ROADMAP.md section 1, items 9-10: TP training, the pod axis)")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "data-parallel training of the moe family: its capacity, dropped assignments "
-            "and load-balance term span the global batch (ROADMAP.md section 1, item 8: "
-            "MoE data parallelism with global routing)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"data-parallel training of the {cfg.family} family is not ported "
-            "(ROADMAP.md section 1, item 7: the ssm, hybrid, vlm and audio families "
-            "under a data mesh)")
 
 
 def make_train_step(
@@ -164,7 +209,7 @@ def make_train_step(
     average their gradients and losses; the other metrics are the last
     microbatch's.  The step updates ``state`` in place (see ``optim``).
 
-    ``mesh``: a ``launch.mesh.DataMesh`` (dense family).  ``state`` is
+    ``mesh``: a ``launch.mesh.DataMesh`` (any family).  ``state`` is
     then the rank's part (``parallel/fsdp.init_state`` or ``shard_state``)
     and ``batch`` the global batch, of which the step keeps the rank's
     rows; the metrics are global (the loss and CE the ranks' mean), the
@@ -184,12 +229,12 @@ def make_train_step(
             objective = loss
         else:
             loss, m = loss_fn(fsdp.wrap(params, cfg, mesh), batch)
-            # the rank's rows' share of the global mean, and the band term
-            # once (rank 0's): the ranks' gradients then sum to the global
-            # batch's, each cotangent at one device's scale before its bf16
-            # rounding (dividing a rounded sum by a size such as 3 would not)
-            objective = ((m["ce"] + aux_weight * m["aux"]) / mesh.size
-                         + m["band_reg"] * float(mesh.rank == 0))
+            # the rank's rows' share of the global mean: the ranks'
+            # gradients then sum to the global batch's, each cotangent at
+            # one device's scale before its bf16 rounding (dividing a
+            # rounded sum by a size such as 3 would not); the band term
+            # whole, whose backward gives each part its own gradient
+            objective = (m["ce"] + aux_weight * m["aux"]) / mesh.size + m["band_reg"]
         gs = torch.autograd.grad(objective, ps)
         return loss.detach(), _detached(m), unflatten(params, gs)
 

@@ -610,14 +610,25 @@ def test_parse_mesh_rejects_malformed(spec):
 @pytest.mark.parametrize("arch,item", [("qwen2-moe-a2.7b", "item 8"), ("falcon-mamba-7b", "item 7"),
                                        ("zamba2-2.7b", "item 7")])
 def test_families_are_refused_under_a_data_mesh(arch, item, tmp_path):
+    """Items 7 and 8 are closed: no family is refused on a data axis
+    (``tests/test_torch_dp_families.py`` and ``test_torch_dp_moe.py``
+    train them).  A model axis is still refused for every family, naming
+    items 9-10 and no longer the family's own ``item``, by the step and,
+    before it builds any weights, by the launcher."""
     from repro_torch.launch import train as launch
 
-    with pytest.raises(NotImplementedError, match=item):
-        launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "2",
-                     "--steps", "1", "--ckpt", str(tmp_path / "ck")])
     cfg = reduced_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match=item):
-        loop.make_train_step(cfg, O.OptConfig(), mesh=_Mesh(0, 2))
+    loop.make_train_step(cfg, O.OptConfig(), mesh=_Mesh(0, 2))
+
+    class _ModelAxis(_Mesh):
+        axis_names = ("data", "model")
+
+    with pytest.raises(NotImplementedError, match="items 9-10") as refused:
+        loop.make_train_step(cfg, O.OptConfig(), mesh=_ModelAxis(0, 2))
+    assert item not in str(refused.value)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "1x2",
+                     "--steps", "1", "--ckpt", str(tmp_path / "ck")])
 
 
 # ---------------------------------------------------------------------------
