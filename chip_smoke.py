@@ -366,29 +366,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (both under the pool's load), collectives per tick and their
            host ms, gathered MB per tick, each rank's weight GB and peak,
            the phase's seconds within the unit.
-19. dp     data-parallel FSDP training (``make_train_step(...,
-           mesh=DataMesh(...))``) of granite-3-2b at full width as
+19. dp     training over a mesh (``make_train_step(...,
+           mesh=TrainMesh(...))``) of granite-3-2b at full width as
            ``launch/train.py`` trains (mul8x8_2 through K1, band_reg 1e-4,
            remat, AdamW, global batch 8 x 64), ranks as processes on the
            one card over gloo with CUDA tensors (the multi-card NCCL path
            of ``launch/train.py --mesh`` is not run here), each holding
-           1/dp of every weight the rules split and of its moments: (a) K1
-           bit-equal to its plain version at granite's projections' (K, N)
-           at each rank's M (256 and 128); (b)-(c) dp=2 at DP_LAYERS (2):
-           DP_STEPS (2) steps on the seed's state and ``token_batches``,
-           each against one device's step from the same state and batch
-           (rank 0 steps the seed's whole state, then the state it
-           gathered after the step before): the loss within DP_LOSS_RTOL
-           and the whole new parameters and moments within ``DpClose``'s
-           tolerance, every rank the same losses, K1's launches per rank
-           DP_STEPS x ``k1_per_train_step`` (27), the collectives per rank
-           and step ``collectives_per_train_step`` (87), the state bytes
-           per rank the split leaves' 1/dp plus the replicated leaves,
-           exactly; (d) dp=4 at DP4_LAYERS (2), the same gates; (e) rank
-           0's checkpoint of dp=2's last state restored on one device
-           equal, bit for bit, to each rank's part (``state_digest``).
+           its block of every weight the rules split (1/dp over data, 1/tp
+           over model) and of its moments; one world of 4 rank processes
+           runs the meshes in turn (DP_WORLDS' order: (f), (b)-(c), (d)),
+           each carved from its first ranks, then (a): K1 bit-equal to its plain
+           version at granite's projections' (K, N) at each rank's M (256)
+           and at every per-rank (M, K, N) of the 2x2 and 2x1x2 worlds,
+           fused too (``k1_shapes_per_rank``: the column parts (2048,
+           1024), (2048, 256), (2048, 4096), (2048, 24,832), (2048, 1536),
+           (2048, 8192), the row parts (1024, 2048), (4096, 2048));
+           (b)-(c) dp=2 at DP_LAYERS (2): DP_STEPS (2) steps on the seed's
+           state and ``token_batches``, each against one device's step
+           from the same state and batch (rank 0 steps the seed's whole
+           state, then the state it gathered after the step before): the
+           loss within DP_LOSS_RTOL and the whole new parameters and
+           moments within ``DpClose``'s tolerance, every rank the same
+           losses, K1's launches per rank DP_STEPS x
+           ``k1_per_train_step`` (27), the collectives per rank and step
+           ``collectives_per_train_step`` (87), the GB gathered
+           ``gathered_bytes_per_train_step``, the state bytes per rank
+           ``state_bytes_per_rank``, exactly; (d) a 2x2 world (data x
+           model: Megatron-split projections, FSDP over data) at DP_LAYERS,
+           the same gates at its sizes, then dp=2's checkpoint restored on
+           it, each rank's block equal, bit for bit, to its cut of the
+           one-device restore (``state_digest``); (e) rank 0's checkpoint
+           of dp=2's last state restored on one device equal, bit for bit,
+           to each dp=2 rank's part; (f) a 2x1x2 world (pod x data x
+           model: the batch over the two pods, no data split), the same
+           gates as (d).
            (a) also checks K1 at every per-rank (M, K, N) of each other
-           family's dp=2 step (``dp_family_shapes``: M 256, a MoE's
+           family's dp=2 step (``k1_shapes_per_rank``: M 256, a MoE's
            experts the 40 rows of its global capacity).  (b) for every
            other family, inside its phase 14 or 15 unit at that phase's
            depth and batches: a dp=2 world whose rank 0 takes the phase's
@@ -397,9 +410,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            count gates; a MoE routes over the global batch, and each
            routing call's dropped assignments are printed beside the
            one-device step's.
-           Printed: host seconds per step at dp against one device's,
-           collectives and their host ms, GB gathered per step, state and
-           peak GB per rank.
+           Printed: host seconds per step on each world against dp=2's and
+           one device's, collectives and their host ms, GB gathered per
+           step, state and peak GB per rank.
 20. levers query chunking (``ModelConfig.q_chunk``), the fused
            projections (``fuse_qkv``, ``fuse_gate_up``) and bfloat16
            parameters (``param_dtype``) at full width, phase 4's config and
@@ -493,8 +506,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 if (SRC / "repro_torch").is_dir():      # outside a checkout main() says so and exits 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.launch.dryrun import (collectives_per_train_step, k1_per_pass,
-                                           k1_per_train_step)
+    from repro_torch.launch.dryrun import (collectives_per_train_step,
+                                           gathered_bytes_per_train_step, k1_per_pass,
+                                           k1_per_train_step, k1_shapes_per_rank,
+                                           state_bytes_per_rank)
     from repro_torch.kernels.work import k2_valid_positions
     from repro_torch.launch.roofline import INT8_OPS_PER_S, bound, k2_bound
 
@@ -552,8 +567,9 @@ TP_DEGREES = (2, 4)                  # phase 17's tensor-parallel ranks
 TP4_LAYERS = 4                       # phase 17's tp=4 depth
 EP_DEGREES = (2, 4)                  # phase 18's expert-parallel ranks
 EP_COLROW_TP = 8                     # phase 18 (a): 60 experts split inside each at this tp
-DP_DEGREES = (2, 4)                  # phase 19's data-parallel ranks
-DP_LAYERS, DP4_LAYERS = 2, 2         # phase 19's depths at dp=2 and dp=4 (PERF.md 4)
+DP = 2                               # phase 19 (b)-(c)'s data-parallel ranks
+DP_WORLDS = ("2x1x2", "2", "2x2")    # phase 19's meshes in their order: (f), (b)-(c), (d)
+DP_LAYERS = 2                        # phase 19's depth on every mesh (PERF.md 4)
 DP_STEPS = 2                         # phase 19's steps per world and reference
 DP_LOSS_RTOL = 1e-4                  # phase 19's loss gate: codes flip on the card (DpClose)
 SURE_MOVE = {"ssm": 3e-2, "hybrid": 3e-2}   # phase 19 (b): the Mamba families' sure-sign
@@ -3916,47 +3932,29 @@ def dp_config(layers):
     return train_config(ARCH, layers)
 
 
-def dp_family_shapes(cfg, dp):
-    """The (M, K, N) of every projection of ``cfg``'s training step on a
-    rank of a ``dp``-rank data mesh: M the rank's rows of a global batch
-    of TRAIN_BATCH x TRAIN_SEQ, and for a MoE's experts the rows of its
-    dispatch buffer, the global capacity (the same on every rank)."""
-    from repro_torch.models.moe import moe_capacity
+def dp_mesh_sizes(spec):
+    """(dp, tp, pod) of a mesh string of DP_WORLDS."""
+    from repro_torch.launch.mesh import parse_mesh
 
-    M = TRAIN_BATCH * TRAIN_SEQ // dp
-    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
-    hkv, ff = cfg.num_kv_heads * cfg.head_dim, cfg.d_ff
-    head, attn = {(d, cfg.padded_vocab)}, {(d, hq), (d, hkv), (hq, d)}
-    if cfg.family == "ssm":
-        di, N = cfg.d_inner, cfg.ssm_state
-        kn = {(d, 2 * di), (di, cfg.dt_rank + 2 * N), (cfg.dt_rank, di), (di, d)}
-    elif cfg.family == "hybrid":
-        di, N = cfg.d_inner, cfg.ssm_state
-        kn = {(d, 2 * di + 2 * N + cfg.ssm_heads), (di, d), (d, ff), (ff, d)} | attn
-    elif cfg.family == "moe":
-        sff = cfg.moe_shared_ff
-        kn = attn | {(d, sff), (sff, d)}
-        cap = moe_capacity(TRAIN_BATCH * TRAIN_SEQ, cfg.moe_top_k, cfg.moe_experts,
-                           cfg.capacity_factor)
-        return sorted({(M, K, N) for K, N in kn | head} | {(cap, d, ff), (cap, ff, d)})
-    else:
-        kn = attn | {(d, ff), (ff, d)}
-    return sorted((M, K, N) for K, N in kn | head)
+    n = parse_mesh(spec, 1).shape
+    return n.get("data", 1), n.get("model", 1), n.get("pod", 1)
 
 
 def dp_kernel_checks(cfg, dev, gen):
     """(a) K1 bit-equal to its plain version at every (K, N) of granite's
-    seven projections, at each rank's M of a global batch of
-    TRAIN_BATCH x TRAIN_SEQ over DP_DEGREES ranks, and at every per-rank
-    shape of each family's dp=2 step (``dp_family_shapes``, phase 19 (b))."""
+    seven projections at a dp=2 rank's M, at every per-rank shape of the
+    other meshes of DP_WORLDS, fused too (``k1_shapes_per_rank``), and at
+    every per-rank shape of each family's dp=2 step (phase 19 (b))."""
     from repro_torch.kernels.approx_matmul import approx_matmul, approx_matmul_plain
 
-    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
-    hkv, ff, vp = cfg.num_kv_heads * cfg.head_dim, cfg.d_ff, cfg.padded_vocab
-    todo = {(TRAIN_BATCH * TRAIN_SEQ // dp, K, N) for dp in DP_DEGREES
-            for K, N in {(d, hq), (d, hkv), (hq, d), (d, ff), (ff, d), (d, vp)}}
+    fused = dataclasses.replace(cfg, fuse_qkv=True, fuse_gate_up=True)
+    todo = set()
+    for spec in DP_WORLDS:
+        dp, tp, pod = dp_mesh_sizes(spec)
+        for c in (cfg, fused):
+            todo |= set(k1_shapes_per_rank(c, TRAIN_BATCH * TRAIN_SEQ, dp, tp=tp, pod=pod))
     for arch in FAMILY_ARCHS + BACKBONE_ARCHS:
-        todo |= set(dp_family_shapes(train_config(arch, 1), DP_DEGREES[0]))
+        todo |= set(k1_shapes_per_rank(train_config(arch, 1), TRAIN_BATCH * TRAIN_SEQ, DP))
     checked = []
     for M, K, N in sorted(todo):
         a = torch.randint(0, 256, (M, K), generator=gen, device=dev, dtype=torch.uint8)
@@ -3983,21 +3981,20 @@ def dp_batches(cfg, seed, dev):
 
 def dp_whole_leaves(state, cfg, mesh):
     """(group, whole leaf) for each parameter and moment leaf of the rank's
-    state, in flatten order: every rank takes part in each gather, rank 0
-    gets the whole leaf and the others None, so no rank holds more than
-    one gathered leaf at a time beyond what rank 0 keeps."""
+    state, in flatten order: every rank takes part in each gather (over
+    the data axis, then the model axis), rank 0 keeps the whole leaf and
+    the others None, so no rank holds more than one gathered leaf at a
+    time beyond what rank 0 keeps."""
     from repro_torch.parallel import fsdp
-    from repro_torch.parallel.collectives import gather_dim
     from repro_torch.train.tree import leaves
 
-    dims = fsdp.data_dims(cfg, mesh.size)
-    with torch.no_grad():
-        for group, tree in (("params", state["params"]), ("m", state["opt"]["m"]),
-                            ("v", state["opt"]["v"])):
-            for t, d in zip(leaves(tree), dims):
-                w = t.detach() if d is None else gather_dim(t.detach(), d, mesh)
-                yield group, (w.clone() if mesh.rank == 0 else None)
-                del w
+    dims = fsdp.split_dims(cfg, fsdp.mesh_shape(mesh))
+    for group, tree in (("params", state["params"]), ("m", state["opt"]["m"]),
+                        ("v", state["opt"]["v"])):
+        for t, d in zip(leaves(tree), dims):
+            w = fsdp.join_leaf(t, d, mesh)
+            yield group, (w.clone() if mesh.rank == 0 else None)
+            del w
 
 
 class DpClose:
@@ -4044,29 +4041,16 @@ class DpClose:
 
 
 def dp_rank(rank, world, store_path, job):
-    """One rank of a data-parallel world on ``job["device"]`` over gloo:
-    its part of the seeded state (``fsdp.init_state``), then DP_STEPS
-    steps of ``make_train_step(mesh=)`` on the global batches, each with
-    K1's count and the collectives zeroed just before and read just after
-    (and the bytes its all-gathers returned).  Rank 0 holds each step to
-    one device's from the same state: it steps the seed's whole state
-    (then the state it gathered after the step before) without a mesh
-    while the others wait in their step's first collective, and compares
-    the dp step's new state, gathered leaf by leaf, with it
-    (``DpClose``); the gathered state starts its next one-device step.  With ``job["ckpt"]`` rank 0 writes the last state
-    whole.  Returns its steps, launches, state bytes, peak and the digest
-    of its parts."""
+    """One rank of phase 19's world of ``world`` ranks on ``job["device"]``
+    over gloo, which runs every mesh of ``job["meshes"]`` in turn, each
+    carved from it (``carve_mesh``: the mesh's first ranks; the others
+    wait at a barrier), so the ranks start once: {mesh: ``dp_mesh``'s
+    report}.  Between meshes every rank frees its cached blocks and the
+    unit moves to its next budget."""
     import torch.distributed as dist
 
-    import repro_torch.parallel.collectives as C
     from repro_torch.kernels._build import build_all
-    from repro_torch.kernels.approx_matmul import approx_matmul
-    from repro_torch.launch.mesh import DataMesh
-    from repro_torch.parallel import fsdp
-    from repro_torch.parallel.sharding import tree_bytes
-    from repro_torch.train.checkpoint import save_checkpoint
-    from repro_torch.train.loop import init_state, make_train_step
-    from repro_torch.train.tree import leaves, unflatten
+    from repro_torch.launch.mesh import DataMesh, carve_mesh, mesh_ranks, parse_mesh
 
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4074,14 +4058,57 @@ def dp_rank(rank, world, store_path, job):
     dev = torch.device(job["device"])
     if dev.type == "cuda":
         build_all()                              # loads the libraries phase 1 built
-    cfg, opt, seed = job["cfg"], job["opt"], job["seed"]
-    torch.cuda.reset_peak_memory_stats()         # rank 0 runs in the unit's process
-    # rank 0's one-device state: the seed's whole state first (drawn while
-    # the others start up), then each step's gathered dp state (gathered
-    # once, after the step)
+    everyone = DataMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
+                        backend="gloo", device=dev)
+    try:
+        shapes = {spec: parse_mesh(spec, 1) for spec in job["meshes"]}
+        meshes = {spec: carve_mesh(shape, range(mesh_ranks(shape)), dev)
+                  for spec, shape in shapes.items()}
+        out = {}
+        for spec, mesh in meshes.items():
+            if mesh is not None:
+                out[spec] = dp_mesh(mesh, {**job, **job["meshes"][spec]}, dev)
+            dist.barrier(group=everyone.group)
+            gc.collect()
+            torch.cuda.empty_cache()
+            next_budget()
+        return out
+    finally:
+        everyone.close()
+
+
+def dp_mesh(mesh, job, dev):
+    """One rank of a training mesh (a ``TrainMesh``): its part of the
+    seeded state (``fsdp.init_state``), then DP_STEPS
+    steps of ``make_train_step(mesh=)`` on the global batches, each with
+    K1's count and the collectives zeroed just before and read just after
+    (and the bytes its all-gathers returned).  Rank 0 holds each step to
+    one device's from the same state: it steps the seed's whole state
+    (then the state it gathered after the step before) without a mesh
+    while the others wait in their step's first collective, and compares
+    the step's new state, gathered leaf by leaf, with it (``DpClose``);
+    the gathered state starts its next one-device step.  With
+    ``job["ckpt"]`` rank 0 writes the last state whole; with
+    ``job["restore"]`` every rank restores that checkpoint into its blocks
+    after the steps (and digests them).  Returns its steps, launches,
+    state bytes, peak and the digest of its parts."""
+    import torch.distributed as dist
+
+    import repro_torch.parallel.collectives as C
+    from repro_torch.kernels.approx_matmul import approx_matmul
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.sharding import tree_bytes
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.tree import leaves, unflatten
+
+    cfg, opt, seed, rank = job["cfg"], job["opt"], job["seed"], mesh.rank
+    torch.cuda.reset_peak_memory_stats()
+    t_mesh = time.perf_counter()
+    # rank 0's one-device state: the seed's whole state first (the others
+    # wait in their first collective), then each step's gathered state
+    # (gathered once, after the step)
     start = init_state(cfg, opt, seed, device=dev) if rank == 0 else None
-    mesh = DataMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
-                    backend="gloo", device=dev)
     gathered = [0]
     gather = dist.all_gather_into_tensor
 
@@ -4093,7 +4120,7 @@ def dp_rank(rank, world, store_path, job):
         state = fsdp.init_state(cfg, opt, seed, mesh, device=dev)
         out = {"state_bytes": tree_bytes(state), "steps": []}
         step, one_device = make_train_step(cfg, opt, mesh=mesh), make_train_step(cfg, opt)
-        paths = [p for p, _, _ in fsdp.leaf_specs(cfg, mesh.size)]
+        paths = [p for p, _, _ in fsdp.leaf_specs(cfg, fsdp.mesh_shape(mesh))]
         launches = 0
         for k, batch in enumerate(dp_batches(cfg, seed, dev), 1):
             row = {}
@@ -4149,10 +4176,16 @@ def dp_rank(rank, world, store_path, job):
             t0 = time.perf_counter()
             save_checkpoint(job["ckpt"], DP_STEPS, state, cfg=cfg, mesh=mesh)
             out["ckpt_s"] = time.perf_counter() - t0
+        if job["restore"]:
+            t0 = time.perf_counter()
+            back, at = restore_checkpoint(job["restore"], state, cfg=cfg, mesh=mesh)
+            out.update(restored_at=at, restored_digest=state_digest(back),
+                       restore_s=time.perf_counter() - t0)
+            del back
+        out["mesh_s"] = time.perf_counter() - t_mesh
         return out
     finally:
         C.dist.all_gather_into_tensor = gather
-        mesh.close()
 
 
 def family_batches(cfg, seed, dev):
@@ -4420,7 +4453,7 @@ def train_dp_world(cfg, opt, seed, dev, name):
     from repro_torch.launch.dryrun import gathered_bytes_per_train_step
     from repro_torch.launch.mesh import run_ranks
 
-    dp = DP_DEGREES[0]
+    dp = DP
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dp_family_") as tmp:
         job = {"cfg": cfg, "opt": opt, "seed": seed, "device": str(dev)}
@@ -4449,7 +4482,7 @@ def train_dp_world(cfg, opt, seed, dev, name):
 
     want_k1 = TRAIN_STEPS_FAMILY * k1_per_train_step(cfg)
     want_calls = collectives_per_train_step(cfg, dp)
-    want_bytes = dp_state_bytes(cfg, dp)
+    want_bytes = state_bytes_per_rank(cfg, dp)
     dsteps = r0["dp_steps"]
     tag = f"[dp] {cfg.family} dp={dp} {cfg.num_layers} layers"
     row = {"family": cfg.family, "arch": cfg.name, "dp": dp, "layers": cfg.num_layers,
@@ -4477,7 +4510,7 @@ def train_dp_world(cfg, opt, seed, dev, name):
            "k1_launches_per_rank": [r["dp_launches"] for r in ranks],
            "k1_per_step": k1_per_train_step(cfg),
            "state_gb_per_rank": want_bytes / 1e9,
-           "whole_state_gb": dp_state_bytes(cfg, 1) / 1e9,
+           "whole_state_gb": state_bytes_per_rank(cfg, 1) / 1e9,
            "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
            "peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks]}
     if cfg.family == "moe":                      # per routing call, summed over the ranks
@@ -4513,117 +4546,169 @@ def train_dp_world(cfg, opt, seed, dev, name):
                       "paged_attention": 0}
 
 
-def dp_state_bytes(cfg, dp):
-    """A rank's state bytes by the rules: each split leaf's parameter and
-    both moments at 1/dp, each replicated leaf's whole, and the step."""
-    from repro_torch.parallel import fsdp
+def dp_world_gates(name, ranks, cfg, dp, tp, pod):
+    """Phase 19's gates of one world, against one device's steps from the
+    same states and the counts at its sizes: each step's loss within
+    DP_LOSS_RTOL and its new state within ``DpClose``; every rank the same
+    losses, DP_STEPS x ``k1_per_train_step`` K1 launches,
+    ``collectives_per_train_step`` collectives and
+    ``gathered_bytes_per_train_step`` bytes gathered a step,
+    ``state_bytes_per_rank`` bytes of state before and after."""
+    steps = ranks[0]["steps"]
+    want_k1 = DP_STEPS * k1_per_train_step(cfg)
+    want_calls = collectives_per_train_step(cfg, dp, tp=tp, pod=pod)
+    want_gathered = gathered_bytes_per_train_step(cfg, dp, tp=tp, pod=pod)
+    want_bytes = state_bytes_per_rank(cfg, dp, tp=tp, pod=pod)
+    for k, st in enumerate(steps, 1):        # against one device from the same state
+        if not abs(st["loss"] - st["ref_loss"]) <= DP_LOSS_RTOL * abs(st["ref_loss"]):
+            raise AssertionError(f"{name} step {k}: loss {st['loss']}, one device's "
+                                 f"{st['ref_loss']} from the same state (rtol {DP_LOSS_RTOL})")
+        if not st["close_ok"]:
+            raise AssertionError(f"{name} step {k}: the new state is {st['close']} from one "
+                                 "device's (lr units for the parameters): "
+                                 + json.dumps(st["close_by_leaf"]))
+    for rank, r in enumerate(ranks):
+        if [st["loss"] for st in r["steps"]] != [st["loss"] for st in steps]:
+            raise AssertionError(f"{name}: rank {rank}'s losses are not rank 0's")
+        if r["launches"] != want_k1:
+            raise AssertionError(f"{name} rank {rank}: K1 launched {r['launches']}, "
+                                 f"want {want_k1} ({DP_STEPS} x k1_per_train_step)")
+        calls = [st["collectives"] for st in r["steps"]]
+        if calls != [want_calls] * DP_STEPS:
+            raise AssertionError(f"{name} rank {rank}: collectives {calls} per step, "
+                                 f"want {want_calls} (collectives_per_train_step)")
+        gathered = [st["gathered_bytes"] for st in r["steps"]]
+        if gathered != [want_gathered] * DP_STEPS:
+            raise AssertionError(f"{name} rank {rank}: gathered {gathered} B per step, "
+                                 f"want {want_gathered} (gathered_bytes_per_train_step)")
+        if not r["state_bytes"] == r["state_bytes_after"] == want_bytes:
+            raise AssertionError(f"{name} rank {rank}: state {r['state_bytes']} B, "
+                                 f"after {r['state_bytes_after']} B, want {want_bytes}")
+    return {"losses": [st["loss"] for st in steps],
+            "one_device_losses": [st["ref_loss"] for st in steps],
+            "loss_rel_gap": [abs(st["loss"] - st["ref_loss"]) / abs(st["ref_loss"])
+                             for st in steps],
+            "compare_s": [st["compare_s"] for st in steps],
+            "close_by_step": [st["close"] for st in steps],
+            "close_by_leaf": [st["close_by_leaf"] for st in steps],
+            "host_s_per_step": [[st["host_s"] for st in r["steps"]] for r in ranks],
+            "one_device_host_s_per_step": [st["ref_host_s"] for st in steps],
+            "collectives_per_step": want_calls,
+            "collective_host_ms_per_step": [
+                [1e3 * st["collective_host_s"] for st in r["steps"]] for r in ranks],
+            "gathered_gb_per_step": [st["gathered_bytes"] / 1e9 for st in steps],
+            "k1_launches_per_rank": [r["launches"] for r in ranks],
+            "k1_per_step": k1_per_train_step(cfg),
+            "state_gb_per_rank": want_bytes / 1e9,
+            "whole_state_gb": state_bytes_per_rank(cfg, 1) / 1e9,
+            "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
+            "peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks]}
 
-    return 4 + sum(3 * 4 * math.prod(shape) // (dp if "data" in spec else 1)
-                   for _, shape, spec in fsdp.leaf_specs(cfg, dp))
+
+def dp_block_digests(got, cfg, spec, dev):
+    """The digest of each rank's block of the whole state ``got`` (on the
+    host) on mesh ``spec``, each block moved to ``dev`` to digest."""
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.parallel import fsdp
+    from repro_torch.train.tree import leaves
+
+    shape = parse_mesh(spec, 1)
+    dp, tp, pod = dp_mesh_sizes(spec)
+    dims = fsdp.split_dims(cfg, shape)
+    groups = {"params": leaves(got["params"]), "m": leaves(got["opt"]["m"]),
+              "v": leaves(got["opt"]["v"])}
+    out = []
+    for rank in range(pod * dp * tp):
+        d_rank, m_rank = rank // tp % dp, rank % tp        # the model axis fastest
+
+        def cut(t, ds):
+            for dim, r, n in ((ds[1], m_rank, tp), (ds[0], d_rank, dp)):
+                if dim is not None:
+                    t = t.narrow(dim, r * (t.shape[dim] // n), t.shape[dim] // n)
+            return t.to(dev)
+
+        part = {g: [cut(t, ds) for t, ds in zip(ts, dims)] for g, ts in groups.items()}
+        # the step on ``dev`` too: the digest's weights come from that device's generator
+        out.append(state_digest({"params": part["params"],
+                                 "opt": {"m": part["m"], "step": got["opt"]["step"].to(dev),
+                                         "v": part["v"]}}))
+        del part
+    return out
 
 
 def dp_phase(dev, seed, smi):
     """Phase 19 (see the module text)."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.specs import state_specs
-    from repro_torch.parallel import fsdp
     from repro_torch.train import optim as O
     from repro_torch.train.checkpoint import restore_checkpoint
-    from repro_torch.train.tree import leaves, tree_map
+    from repro_torch.train.tree import tree_map
 
     t_unit = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    report = {"k1_checked": len(dp_kernel_checks(dp_config(DP_LAYERS), dev, gen)), "worlds": {},
-              "launches": {}}
+    cfg = dp_config(DP_LAYERS)
+    opt = O.OptConfig(lr=3e-4, total_steps=DP_STEPS)          # as launch/train.py
+    report = {"worlds": {}, "launches": {}}
     log("[dp] one card, gloo over CUDA tensors: the multi-card NCCL path (launch/train.py "
-        "--mesh N on N cards) is unchecked here")
+        "--mesh on N cards) is unchecked here")
     with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
-        for dp, layers in zip(DP_DEGREES, (DP_LAYERS, DP4_LAYERS)):
-            cfg = dp_config(layers)
-            opt = O.OptConfig(lr=3e-4, total_steps=DP_STEPS)          # as launch/train.py
-            name = f"dp={dp} {layers} layers"
-            ckpt_dir = os.path.join(tmp, f"ck{dp}") if dp == DP_DEGREES[0] else None
-            job = {"cfg": cfg, "opt": opt, "seed": seed, "device": str(dev), "ckpt": ckpt_dir}
-            t0 = time.perf_counter()
-            ranks = run_ranks(dp_rank, dp, (os.path.join(tmp, f"store{dp}"), job),
-                              timeout=900, rank0_here=True)
-            world_s = time.perf_counter() - t0
-            want_k1 = DP_STEPS * k1_per_train_step(cfg)
-            want_calls = collectives_per_train_step(cfg, dp)
-            want_bytes = dp_state_bytes(cfg, dp)
-            steps = ranks[0]["steps"]
-            for k, st in enumerate(steps, 1):    # (c) against one device from the same state
-                if not abs(st["loss"] - st["ref_loss"]) <= DP_LOSS_RTOL * abs(st["ref_loss"]):
-                    raise AssertionError(f"{name} step {k}: loss {st['loss']}, one device's "
-                                         f"{st['ref_loss']} from the same state "
-                                         f"(rtol {DP_LOSS_RTOL})")
-                if not st["close_ok"]:
-                    raise AssertionError(f"{name} step {k}: the new state is {st['close']} "
-                                         "from one device's (lr units for the parameters): "
-                                         + json.dumps(st["close_by_leaf"]))
-            for rank, r in enumerate(ranks):
-                if [st["loss"] for st in r["steps"]] != [st["loss"] for st in steps]:
-                    raise AssertionError(f"{name}: rank {rank}'s losses are not rank 0's")
-                if r["launches"] != want_k1:
-                    raise AssertionError(f"{name} rank {rank}: K1 launched {r['launches']}, "
-                                         f"want {want_k1} ({DP_STEPS} x k1_per_train_step)")
-                calls = [st["collectives"] for st in r["steps"]]
-                if calls != [want_calls] * DP_STEPS:
-                    raise AssertionError(f"{name} rank {rank}: collectives {calls} per step, "
-                                         f"want {want_calls} (collectives_per_train_step)")
-                if not r["state_bytes"] == r["state_bytes_after"] == want_bytes:
-                    raise AssertionError(f"{name} rank {rank}: state {r['state_bytes']} B, "
-                                         f"after {r['state_bytes_after']} B, want {want_bytes}")
-            row = {"dp": dp, "layers": layers, "world_s": world_s,
-                   "losses": [st["loss"] for st in steps],
-                   "one_device_losses": [st["ref_loss"] for st in steps],
-                   "loss_rel_gap": [abs(st["loss"] - st["ref_loss"]) / abs(st["ref_loss"])
-                                    for st in steps],
-                   "compare_s": [st["compare_s"] for st in steps],
-                   "close_by_step": [st["close"] for st in steps],
-                   "close_by_leaf": [st["close_by_leaf"] for st in steps],
-                   "host_s_per_step": [[st["host_s"] for st in r["steps"]] for r in ranks],
-                   "one_device_host_s_per_step": [st["ref_host_s"] for st in steps],
-                   "collectives_per_step": want_calls,
-                   "collective_host_ms_per_step": [
-                       [1e3 * st["collective_host_s"] for st in r["steps"]] for r in ranks],
-                   "gathered_gb_per_step": [st["gathered_bytes"] / 1e9 for st in steps],
-                   "k1_launches_per_rank": [r["launches"] for r in ranks],
-                   "k1_per_step": k1_per_train_step(cfg),
-                   "state_gb_per_rank": want_bytes / 1e9,
-                   "whole_state_gb": dp_state_bytes(cfg, 1) / 1e9,
-                   "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
-                   "peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks]}
-            if ckpt_dir:
+        ckpt_dir = os.path.join(tmp, "ck2")
+        meshes = {spec: {"ckpt": ckpt_dir if spec == "2" else None,
+                         "restore": ckpt_dir if spec == "2x2" else None} for spec in DP_WORLDS}
+        job = {"cfg": cfg, "opt": opt, "seed": seed, "device": str(dev), "meshes": meshes}
+        world = max(math.prod(dp_mesh_sizes(spec)) for spec in DP_WORLDS)
+        t0 = time.perf_counter()
+        every = run_ranks(dp_rank, world, (os.path.join(tmp, "store"), job), timeout=900,
+                          rank0_here=True)
+        report["world_s"] = time.perf_counter() - t0
+        whole = None                   # dp=2's checkpoint restored on one device, on the host
+        for spec in ("2",) + tuple(m for m in DP_WORLDS if m != "2"):
+            dp, tp, pod = dp_mesh_sizes(spec)
+            ranks = [r[spec] for r in every[:dp * tp * pod]]
+            name = f"mesh {spec} {DP_LAYERS} layers"
+            row = {"mesh": spec, "dp": dp, "tp": tp, "pod": pod, "layers": DP_LAYERS,
+                   "mesh_s": ranks[0]["mesh_s"], **dp_world_gates(name, ranks, cfg, dp, tp, pod)}
+            if spec == "2":
                 # (e) rank 0's checkpoint restored on one device is the ranks'
                 # parts joined, bit for bit (each part digested as its rank did)
                 t0 = time.perf_counter()
-                target = tree_map(lambda t: torch.empty(0, device=dev), state_specs(cfg, opt))
-                got, at = restore_checkpoint(ckpt_dir, target)
-                dims = fsdp.data_dims(cfg, dp)
-                groups = {"params": leaves(got["params"]), "m": leaves(got["opt"]["m"]),
-                          "v": leaves(got["opt"]["v"])}
-                for rank, r in enumerate(ranks):
-                    cut = {g: [t if d is None else t.narrow(d, rank * (t.shape[d] // dp),
-                                                            t.shape[d] // dp)
-                               for t, d in zip(ts, dims)] for g, ts in groups.items()}
-                    digest = state_digest({"params": cut["params"],
-                                           "opt": {"m": cut["m"], "step": got["opt"]["step"],
-                                                   "v": cut["v"]}})
-                    if at != DP_STEPS or digest != r["digest"]:
-                        raise AssertionError(f"{name}: the one-device restore of rank 0's "
-                                             f"checkpoint (step {at}) differs from rank "
-                                             f"{rank}'s parts")
+                target = tree_map(lambda t: torch.empty(0), state_specs(cfg, opt))
+                whole, at = restore_checkpoint(ckpt_dir, target)
+                if at != DP_STEPS or dp_block_digests(whole, cfg, spec, dev) != [
+                        r["digest"] for r in ranks]:
+                    raise AssertionError(f"{name}: the one-device restore of rank 0's "
+                                         f"checkpoint (step {at}) differs from the ranks' parts")
                 row.update(ckpt_write_s=ranks[0]["ckpt_s"],
                            ckpt_restore_check_s=time.perf_counter() - t0,
                            ckpt_restores_bit_equal=True)
-                del got, groups, cut, target
+            if meshes[spec]["restore"]:
+                # (d) dp=2's checkpoint restored on this mesh: each rank's blocks
+                # are its cut of the one-device restore, bit for bit
+                t0 = time.perf_counter()
+                if {r["restored_at"] for r in ranks} != {DP_STEPS} or dp_block_digests(
+                        whole, cfg, spec, dev) != [r["restored_digest"] for r in ranks]:
+                    raise AssertionError(f"{name}: dp=2's checkpoint restored on it differs "
+                                         "from its cut of the one-device restore")
+                row.update(restore_s=[r["restore_s"] for r in ranks],
+                           restore_check_s=time.perf_counter() - t0,
+                           restores_dp2_bit_equal=True)
             report["worlds"][name] = row
-            report["launches"][f"train_dp{dp}"] = {
+            report["launches"][f"train_mesh_{spec}"] = {
                 "approx_matmul": sum(r["launches"] for r in ranks), "paged_attention": 0}
             log(f"[dp] {name}: {json.dumps(row)}")
-            gc.collect()
-            torch.cuda.empty_cache()
+    del whole, every
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) after the world, in the unit's last and smallest budget
+    report["k1_checked"] = len(dp_kernel_checks(cfg, dev, gen))
+    base = report["worlds"][f"mesh 2 {DP_LAYERS} layers"]
+    for name, row in report["worlds"].items():
+        log(f"[dp] {name}: host s per step {row['host_s_per_step'][0]} against dp=2's "
+            f"{base['host_s_per_step'][0]} and one device's {row['one_device_host_s_per_step']}; "
+            f"{row['collectives_per_step']} collectives a step, host ms "
+            f"{row['collective_host_ms_per_step'][0]}; GB gathered {row['gathered_gb_per_step']}; "
+            f"state {row['state_gb_per_rank']:.4f} GB a rank; peak reserved "
+            f"{row['peak_reserved_gb']} GB ({smi}; gloo on one card)")
     report["seconds"] = time.perf_counter() - t_unit
     log(f"[dp] phase 19 took {report['seconds']:.1f}s (gloo on one card, {smi})")
     return report
@@ -4979,7 +5064,7 @@ def bf16_training(dev, seed):
         out[name] = {"loss": loss, "k1_launches": k1, "k1_predicted": k1_per_train_step(c),
                      "param_gb": tree_bytes(params_specs(c)) / 1e9,
                      "peak_gb": peak / 1e9, "s": time.perf_counter() - t0,
-                     "dp2_gathered_gb": gathered_bytes_per_train_step(c, DP_DEGREES[0]) / 1e9}
+                     "dp2_gathered_gb": gathered_bytes_per_train_step(c, DP) / 1e9}
     out["oracle"] = train_oracle(bf16, opt, seed, batch, dev, "levers")
     if not math.isfinite(out["bfloat16"]["loss"]):
         raise AssertionError(f"the bf16-parameter step's loss is {out['bfloat16']['loss']}")
@@ -5093,7 +5178,11 @@ def _backbone_unit(arch):
 # 14.0 with its serving parts, musicgen-large 3.5), then the two ranks'
 # parts (22.8 + 23.8, 18.3 + 17.4, 7.8 + 7.5, 12.7 + 12.8, 2.7 + 2.7),
 # then its 4-layer oracle (the one-device steps' peak again); phase 19's
-# rank 0 runs in its unit's process too (12.2 + 7.4 at dp=2, 2 layers);
+# rank 0 runs in its unit's process too, and its world of 4 ranks runs one
+# mesh a stretch (the ranks' peaks summed, plus a CUDA context a process:
+# 13.0 + 3 x 7.7 at 2x1x2, 12.3 + 7.0 at dp=2, 11.5 + 6.5 + 6.1 + 6.5 at
+# 2x2), then rank 0's checks and (a)'s K1 checks alone (11.6: the plain
+# version at qwen2-moe's 152,064-column head);
 # phase 20's 34.1 (the long prompt's admission at 20 layers: the frozen
 # model, a 2,048-block f32 pool and 29.1 GB of temporaries; see PERF.md).
 # They start in this order whenever the budgets still to come of the units
@@ -5110,7 +5199,7 @@ UNITS = {
     "chunked": ((22, 7), _chunked_unit(("async", f"chunk_{CHUNK_SMALL}"))),
     FAMILY_ARCHS[0]: (25, _family_unit(FAMILY_ARCHS[0])),
     f"train {FAMILY_ARCHS[1]}": ((23, 37, 23), _train_unit(FAMILY_ARCHS[1])),
-    "dp": (33, lambda dev, sh: dp_phase(dev, sh["seed"], sh["smi"])),
+    "dp": ((40, 22, 34, 13), lambda dev, sh: dp_phase(dev, sh["seed"], sh["smi"])),
     "tp": (10, lambda dev, sh: tp_phase(dev, sh["seed"], sh["trace"], sh["smi"])),
     "chunked_sync": ((22, 5), _chunked_unit(("sync",))),
     FAMILY_ARCHS[1]: (16, _family_unit(FAMILY_ARCHS[1])),

@@ -3,10 +3,12 @@
 host's cards: whether ``launch/serve.py --tp N`` (rank r on ``cuda:r``)
 serves the tokens of ``--tp 0`` on one card, at full width, and refuses
 more ranks than cards; with ``--train``, whether ``launch/train.py --mesh
-N`` trains step 1 to the loss of ``--mesh 1``.
+N`` (or ``--mesh DxM``, ``PxDxM``) trains step 1 to the loss of ``--mesh
+1``.
 
     python3 scripts/tp_nccl_check.py [--arch qwen2-moe-a2.7b] [--requests 8] [--new 16]
     python3 scripts/tp_nccl_check.py --train [--arch granite-3-2b]
+    python3 scripts/tp_nccl_check.py --train --mesh 2x2 --mesh 2x1x2
 
 Runs the launcher (``--arch``, default granite-3-2b; ``--exec approx
 --freeze-weights --loop sync``, the seeded weights and trace) at ``--tp
@@ -18,10 +20,12 @@ over 2 and 4 cards and column/row inside each expert over 8.
 
 ``--train`` runs the training launcher instead (a dense ``--arch`` at full
 width, 1 step, mul8x8_2 through K1, its seeded state and batch) at
-``--mesh 1`` and at ``--mesh`` = every card (FSDP over NCCL), exits 1
-unless step 1's loss agrees to rtol 1e-5; then ``--mesh`` one past the
-cards must be refused.  Needs at least two cards (``chip_smoke.py``
-checks both on one card over gloo only).
+``--mesh 1`` and at ``--mesh`` = every card (FSDP over NCCL), or at each
+``--mesh`` given (a data x model or pod x data x model mesh: Megatron-split
+projections, FSDP over data, the batch over pod x data), exits 1 unless
+each step 1's loss agrees with ``--mesh 1``'s to rtol 1e-5; then
+``--mesh`` one past the cards must be refused.  Needs at least two cards
+(``chip_smoke.py`` checks both on one card over gloo only).
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ def launch(args, *extra):
 
 
 def train_check(args, n: int) -> int:
-    """``--train``: step 1's loss at ``--mesh n`` against ``--mesh 1``."""
+    """``--train``: step 1's loss at each of ``args.mesh`` (default: ``n``
+    data ranks) against ``--mesh 1``."""
     import gc
     import tempfile
 
@@ -60,19 +65,21 @@ def train_check(args, n: int) -> int:
     from repro_torch.launch import train as launch
 
     losses = {}
+    meshes = args.mesh or [str(n)]
     with tempfile.TemporaryDirectory(prefix="nccl_train_") as tmp:
-        for dp in (1, n):
+        for spec in ["1"] + meshes:
             t0 = time.perf_counter()
-            out = launch.main(["--arch", args.arch, "--steps", "1", "--mesh", str(dp),
-                               "--ckpt", os.path.join(tmp, f"ck{dp}"), "--ckpt-every", "1000"])
-            losses[dp] = out["losses"][0]
-            print(f"=== --mesh {dp}: loss {losses[dp]!r}, {time.perf_counter() - t0:.1f}s",
+            out = launch.main(["--arch", args.arch, "--steps", "1", "--mesh", spec,
+                               "--ckpt", os.path.join(tmp, f"ck{spec}"), "--ckpt-every", "1000"])
+            losses[spec] = out["losses"][0]
+            print(f"=== --mesh {spec}: loss {losses[spec]!r}, {time.perf_counter() - t0:.1f}s",
                   flush=True)
             del out                   # cuda:0 is rank 0's card in the next run
             gc.collect()
             torch.cuda.empty_cache()
-        same = abs(losses[n] - losses[1]) <= 1e-5 * abs(losses[1])
-        print(f"step 1's loss at --mesh {n} within rtol 1e-5 of --mesh 1: {same}", flush=True)
+        same = all(abs(losses[m] - losses["1"]) <= 1e-5 * abs(losses["1"]) for m in meshes)
+        print(f"step 1's loss at --mesh {', '.join(meshes)} within rtol 1e-5 of --mesh 1: "
+              f"{same}", flush=True)
         try:
             launch.main(["--arch", args.arch, "--steps", "1", "--mesh", str(n + 1),
                          "--ckpt", os.path.join(tmp, "over")])
@@ -91,6 +98,9 @@ def main() -> int:
     ap.add_argument("--new", type=int, default=16)
     ap.add_argument("--train", action="store_true",
                     help="check launch/train.py --mesh N over NCCL instead of serving")
+    ap.add_argument("--mesh", action="append",
+                    help="--train: a mesh to hold to --mesh 1 (D, DxM or PxDxM; repeat for "
+                         "more; default: one data rank per card)")
     args = ap.parse_args()
     import torch
 

@@ -35,6 +35,17 @@ activation range spans every rank's rows (one MAX all-reduce); per-row
 ranges need none.  A MoE layer's experts gather their stacks once per
 layer (``models/moe.py``) and reach ``approx_dense`` as ``Gathered``
 pieces of them, whose inputs are the same on every rank.
+
+Under a training mesh with a model axis (``launch.mesh.TrainMesh``) a
+``DataPart`` may also carry a Megatron split: its data gather yields the
+model rank's ``Shard``, which computes as in serving, through the
+autograd-aware "f" on a column split's input and "g" on a row split's
+float32 partial products (``parallel/collectives.py``).  A per-tensor
+activation range spans the batch group (the rows), and for a row split
+the model group too (the columns).  A weight's cotangent is summed over
+every rank that holds a share of it (the data group by the reduce-scatter,
+the pods by an all-reduce) and an input's over the model group ("f"), in
+float32, before the one rounding to bf16.
 """
 from __future__ import annotations
 
@@ -50,9 +61,10 @@ from repro_torch.kernels.approx_matmul.ops import approx_matmul
 from repro_torch.kernels.approx_matmul.ref import approx_matmul_lut, approx_matmul_plain
 from repro_torch.parallel.collectives import (
     all_reduce_sum,
-    gather_dim,
     gather_value,
     max_range,
+    model_input,
+    model_sum,
     owned_whole,
 )
 from repro_torch.quant.affine import calibrate, dequantize, quantize
@@ -69,6 +81,7 @@ __all__ = [
     "concat_weights",
     "prequantize_tree",
     "quantized_matmul",
+    "shard_info",
     "w_dim",
 ]
 
@@ -172,20 +185,33 @@ class Shard(NamedTuple):
     mesh: Any                  # launch.mesh.TPMesh
 
 
+_MODEL_DIM = {"column": -1, "row": -2, "vocab": -2, "expert": -3}
+
+
 class DataPart(NamedTuple):
-    """A float weight on one rank of a data-parallel mesh
-    (``parallel/fsdp.wrap``): ``w`` is the rank's ``1/size`` along ``dim``
-    (a negative dim), or the whole weight where ``dim`` is None.
+    """A float weight on one rank of a training mesh (``parallel/fsdp.wrap``):
+    ``w`` is the rank's ``1/size`` along ``dim`` (a negative dim) of the
+    data axis ``mesh``, or the whole weight where ``dim`` is None.
     ``whole()`` is the weight every rank computes with; ``mesh`` also
-    carries the activation ranges across the ranks' rows."""
+    carries the activation ranges across the ranks' rows.
+
+    On a ``TrainMesh`` (``axes``, its ``TrainAxes``) ``split`` names a
+    Megatron split over the model axis (``"column"``, ``"row"`` or
+    ``"vocab"``): ``w`` is then a block of the weight, cut along the model
+    dim too, and the data gather yields the model rank's part, which
+    ``sharded`` makes a ``Shard``.  Without ``axes`` (a one-axis data
+    mesh) ``mesh`` is the batch group and the world too."""
 
     w: torch.Tensor
     dim: Any                   # Optional[int]
-    mesh: Any                  # launch.mesh.DataMesh
+    mesh: Any                  # the data axis (launch.mesh.DataMesh or an Axis), or None
+    split: Any = None          # Optional[str]: a split over the model axis
+    axes: Any = None           # launch.mesh.TrainAxes, or None on a one-axis data mesh
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        """The whole weight's shape."""
+        """The data-gathered weight's shape: the whole weight's, or the
+        model rank's part of it under a split."""
         return tuple(n * (self.mesh.size if i - self.w.dim() == self.dim else 1)
                      for i, n in enumerate(self.w.shape))
 
@@ -193,19 +219,56 @@ class DataPart(NamedTuple):
     def device(self) -> torch.device:
         return self.w.device
 
-    def whole(self) -> torch.Tensor:
-        """The whole weight: an all-gather along ``dim`` whose backward
-        sums the ranks' gradients of this part; for a weight every rank
-        holds whole (``dim`` None), the weight itself, whose backward sums
-        the ranks' gradients of this use in float32 (an all-reduce)."""
+    @property
+    def model(self):
+        """The model axis of a split, else None."""
+        return self.axes.model if self.split is not None else None
+
+    @property
+    def batch(self):
+        """The ranks that hold other rows of the batch (pod x data)."""
+        return self.mesh if self.axes is None else self.axes.batch
+
+    @property
+    def world(self):
+        """Every rank of the mesh: the batch group's rows and the model
+        group's columns."""
+        return self.mesh if self.axes is None else self.axes.world
+
+    def cuts(self):
+        """((dim, axis), ...) whose gathers, in order, make the whole weight
+        of the rank's ``w``: the data axis's, then the model axis's."""
+        out = [] if self.dim is None else [(self.dim, self.mesh)]
+        return out + ([] if self.split is None else [(_MODEL_DIM[self.split], self.model)])
+
+    def owned(self, whole: torch.Tensor, round_to=None) -> torch.Tensor:
+        """``whole``, computed without a graph from ``value()``, as autograd
+        sees it (``collectives.owned_whole``): its cotangent, summed over the
+        data ranks at the part's slice and over the pods (for a weight the
+        data axis does not split, over the batch group), then rounded
+        through ``round_to``, reaches ``w``."""
         if self.dim is None:
-            return owned_whole(self.w, self.w.detach(), None, self.mesh)
-        return gather_dim(self.w, self.dim, self.mesh)
+            return owned_whole(self.w, whole, None, self.batch, round_to)
+        pod = None if self.axes is None else self.axes.pod
+        return owned_whole(self.w, whole, self.dim, self.mesh, round_to, pod)
+
+    def whole(self) -> torch.Tensor:
+        """The data-gathered weight: an all-gather along ``dim`` whose
+        backward sums the ranks' gradients of this part; for a weight every
+        data rank holds whole (``dim`` None), the weight itself, whose
+        backward sums the ranks' gradients of this use in float32 (an
+        all-reduce)."""
+        return self.owned(self.value())
 
     def value(self) -> torch.Tensor:
-        """The whole weight's value, recorded by no autograd graph."""
+        """The data-gathered weight's value, recorded by no autograd graph."""
         w = self.w.detach()
         return w if self.dim is None else gather_value(w, self.dim, self.mesh)
+
+    def sharded(self, t: torch.Tensor):
+        """``t`` (the data-gathered weight) as the ``Shard`` of its split,
+        or as it is."""
+        return t if self.split is None else Shard(t, self.split, self.model)
 
 
 class Gathered(NamedTuple):
@@ -219,6 +282,16 @@ class Gathered(NamedTuple):
     device rounds each expert's."""
 
     w: torch.Tensor
+
+
+def shard_info(w):
+    """(split, model mesh) of a ``Shard`` or of a ``DataPart`` with a
+    split; None for a weight no model axis splits."""
+    if isinstance(w, Shard):
+        return w.split, w.mesh
+    if isinstance(w, DataPart) and w.split is not None:
+        return w.split, w.model
+    return None
 
 
 def w_dim(w, i: int) -> int:
@@ -242,11 +315,12 @@ def concat_weights(ws, dim: int = -1):
     is repeated per column); column ``Shard``s of one mesh, as the rank's
     ``[q_r | k_r | v_r]`` (each rank concatenates its own columns, never
     a split of the whole concatenation); ``DataPart``s of one data mesh
-    that share their split dim, each rank concatenating its own parts (the
-    ``"fsdp"`` rules split the fused weights along their input dim), so
-    the result's gather takes the rank's slice of the whole concatenation
-    and its backward reaches each part.  Anything else raises
-    ``ConcatError``."""
+    that share their split dim and model split, each rank concatenating
+    its own parts (the ``"fsdp"`` rules split the fused weights along
+    their input dim; a column split gives the rank's ``[q_r | k_r | v_r]``),
+    so the result's gather takes the rank's slice of the whole
+    concatenation and its backward reaches each part.  Anything else
+    raises ``ConcatError``."""
     if any(isinstance(w, (Shard, DataPart)) for w in ws):
         kind = type(ws[0])
         if not all(type(w) is kind and w.mesh is ws[0].mesh for w in ws):
@@ -257,12 +331,15 @@ def concat_weights(ws, dim: int = -1):
                 raise ConcatError("concat_weights: only column Shards concatenate along the "
                                   "output dim")
             return Shard(concat_weights([w.w for w in ws], dim), "column", ws[0].mesh)
-        d0 = ws[0].dim
-        if any(w.dim != d0 for w in ws):
+        d0, sp = ws[0].dim, ws[0].split
+        if any(w.dim != d0 or w.split != sp for w in ws):
             raise ConcatError("concat_weights: DataParts split along different dims")
         if d0 is not None and d0 % ws[0].w.dim() == dim % ws[0].w.dim():
             raise ConcatError("concat_weights: DataParts split along the concatenated dim")
-        return DataPart(torch.cat([w.w for w in ws], dim=dim), d0, ws[0].mesh)
+        if sp not in (None, "column"):
+            raise ConcatError("concat_weights: only column-split DataParts concatenate along "
+                              "the output dim")
+        return ws[0]._replace(w=torch.cat([w.w for w in ws], dim=dim))
     if any(isinstance(w, QWeight) for w in ws):
         if not all(isinstance(w, QWeight) for w in ws):
             raise ConcatError("cannot concatenate frozen and float weights")
@@ -314,9 +391,15 @@ def prequantize_tree(params: Dict[str, Any], cfg: ApproxConfig) -> Dict[str, Any
 
 
 def _sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` summed over ``mesh``'s ranks (a row split's partial products);
-    ``t`` itself without one."""
-    return t if mesh is None else all_reduce_sum(t, mesh)
+    """A row split's float partial products summed over ``mesh``'s ranks
+    in float32 ("g"); ``t`` itself without one."""
+    return t if mesh is None else model_sum(t, mesh)
+
+
+def _input(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A column split's replicated input, whose cotangent is summed over
+    ``mesh``'s ranks ("f"); ``t`` itself without one."""
+    return t if mesh is None else model_input(t, mesh)
 
 
 def _ranged(mesh):
@@ -327,7 +410,8 @@ def _ranged(mesh):
 def _code_sum(q: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """float32 sums of uint8 codes along ``dim`` (kept), over ``mesh``'s
     ranks too: summed as int32 first, so the sum of the parts is exact."""
-    return _sum(q.to(torch.int32).sum(dim=dim, keepdim=True), mesh).to(torch.float32)
+    t = q.to(torch.int32).sum(dim=dim, keepdim=True)
+    return (t if mesh is None else all_reduce_sum(t, mesh)).to(torch.float32)
 
 
 def _code_dot(qx: torch.Tensor, codes: torch.Tensor, cfg: ApproxConfig, mesh):
@@ -344,9 +428,10 @@ def _code_dot(qx: torch.Tensor, codes: torch.Tensor, cfg: ApproxConfig, mesh):
 
 def _act_codes(x2: torch.Tensor, cfg: ApproxConfig, mesh=None, data=None):
     """The activation's codes; its range spans ``mesh``'s K-parts (a row
-    split), or the rows of every rank of a data mesh ``data`` where it is
-    one range per tensor."""
-    if mesh is None and not cfg.act_per_row:
+    split), or, where it is one range per tensor, every rank of ``data``
+    (the ranks that hold the tensor's rows, and under a row split its
+    K-parts too)."""
+    if data is not None and not cfg.act_per_row:
         mesh = data
     qp_x = calibrate(x2, axis=(1,) if cfg.act_per_row else None, qmax=cfg.act_qmax,
                      reduce=_ranged(mesh))
@@ -388,34 +473,41 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     A ``DataPart`` computes with the whole weight on the rank's rows of
     ``x``; a per-tensor activation range spans every rank's rows, so the
     codes are those of the whole batch.  Its straight-through product
-    takes its gradient through ``owned_whole``, split or replicated: the
+    takes its gradient through ``DataPart.owned``, split or replicated: the
     ranks' partial weight gradients of this use are summed in float32 and
     then rounded to bf16, once, as on one device (rounding each rank's
-    part first would not add up to one device's gradient)."""
+    part first would not add up to one device's gradient).  A ``DataPart``
+    with a model split computes as its ``Shard`` under autograd: a column
+    split's float32 input passes through "f", so its cotangent is summed
+    over the model ranks before the cast rounds it, and a row split's
+    partial products through "g"."""
     split = mesh = data = part = None
     rounded = not isinstance(w, Gathered)
     if not rounded:
         w = w.w
     if isinstance(w, DataPart):
-        data = w.mesh
+        data = w
         if cfg.mode != "float":
             part = w
-            w = w.value()
+            w = w.sharded(w.value())
         else:
-            w = w.whole()
+            w = w.sharded(w.whole())
     if isinstance(w, Shard):
         w, split, mesh = w
         if split == "expert":
             raise ValueError("approx_dense: an expert Shard is a stack of experts, not "
                              "one projection (moe_ffn runs each of the rank's experts)")
     rows = mesh if split == "row" else None
+    cols = mesh if split == "column" else None
     if isinstance(w, QWeight):
         return _approx_dense_frozen(x, w, cfg, rows)
     if cfg.mode == "float":
-        return _sum(x.to(torch.float32) @ w.to(x.dtype).to(torch.float32), rows).to(x.dtype)
+        y = _input(x.to(torch.float32), cols) @ w.to(x.dtype).to(torch.float32)
+        return _sum(y, rows).to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     xd, wd = x2.detach(), w.detach()
-    qp_x, qx = _act_codes(xd, cfg, rows, data)
+    ranks = None if data is None else data.world if rows is not None else data.batch
+    qp_x, qx = _act_codes(xd, cfg, rows, ranks)
     # a column split's per-channel ranges are the rank's own; every other
     # weight range spans the ranks' parts
     w_ranks = None if split is None or (split == "column" and cfg.w_per_channel) else mesh
@@ -430,10 +522,10 @@ def approx_dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     bf = torch.bfloat16
     w_lin = w_fq.to(bf).to(torch.float32)
     if part is not None:
-        w_lin = owned_whole(part.w, w_lin, part.dim, data, round_to=bf)
+        w_lin = part.owned(w_lin, round_to=bf)
     elif not rounded:            # the value of the cast, the cotangent unrounded
         w_lin = w_fq + (w_lin - w_fq).detach()
-    y_lin = _sum(x_fq.to(bf).to(torch.float32) @ w_lin, rows)
+    y_lin = _sum(_input(x_fq.to(bf).to(torch.float32), cols) @ w_lin, rows)
 
     # integer simulation (value path, gradient-free)
     raw, row_x = _code_dot(qx, qw, cfg, rows)

@@ -25,8 +25,11 @@ peak of live storages (``temp_size_in_bytes``) goes with depth as
 ``in_depth`` says: a prefill or decode step's is that of two units (each
 layer frees its temporaries), a train cell's the larger of its line
 through 1 and 2 units and the end of its backward (``backward_peak``).
-The costs of a mesh (collectives, per-device work) wait for tensor
-parallelism.
+A training step's per-rank counts on a mesh (``collectives_per_train_step``,
+``gathered_bytes_per_train_step``, ``state_bytes_per_rank``,
+``k1_shapes_per_rank``) follow the rules and the code of
+``parallel/fsdp.py``; the whole dry run of the production cells on a mesh
+is still to come (ROADMAP.md item 11).
 
 Usage (host only; writes one JSON per cell under ``results/dryrun_torch``,
 counted anew each time):
@@ -45,7 +48,7 @@ import re
 import sys
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,8 +59,9 @@ from repro_torch.launch import roofline as R
 from repro_torch.launch.specs import cache_specs, input_specs, params_specs, state_specs
 from repro_torch.models.moe import moe_capacity
 from repro_torch.models.transformer import decode_step, forward
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.parallel.fsdp import leaf_specs
-from repro_torch.parallel.sharding import tree_bytes
+from repro_torch.parallel.sharding import opt_state_pspecs, tree_bytes
 from repro_torch.train import optim as O
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.tree import LEAF_CHUNK
@@ -65,7 +69,8 @@ from repro_torch.train.tree import LEAF_CHUNK
 __all__ = ["auto_microbatch", "backward_peak", "band_term_costs", "build_step",
            "cell_supported", "collectives_per_pass", "collectives_per_train_step",
            "extract_costs", "gathered_bytes_per_train_step", "in_depth", "k1_per_pass",
-           "k1_per_train_step", "model_flops", "moe_dispatch_costs", "run_cell"]
+           "k1_per_train_step", "k1_shapes_per_rank", "model_flops", "moe_dispatch_costs",
+           "run_cell", "state_bytes_per_rank"]
 
 DEFAULT_OUT = os.path.join("results", "dryrun_torch")
 APPROX = ApproxConfig(multiplier="mul8x8_2", mode="kernel")   # every cell's multiplier and mode
@@ -193,104 +198,221 @@ def _joined(cfg: ModelConfig, path: str) -> bool:
     return cfg.fuse_gate_up and "['ffn']" in path and path.endswith(".w_up")
 
 
-def collectives_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1,
-                               grad_compression: bool = False) -> int:
-    """Collectives of one training step of ``cfg`` (any family) on each
-    rank of a ``dp``-rank data mesh (``make_train_step(..., mesh=DataMesh)``,
-    ``parallel/fsdp.py``), from the rules and the code, per microbatch:
+def _mesh_key(dp: int, tp: int, pod: int):
+    """``leaf_specs``' key: the data axis alone (``DataMesh``, counted as
+    it runs even at one rank), or a ``TrainMesh``'s shape."""
+    if tp == 1 and pod == 1:
+        return dp
+    return MeshShape((("pod", pod), ("data", dp), ("model", tp)))
 
-    * each use of a split leaf gathers it (every layer's projections, a
-      MoE layer's router and each expert stack, once per layer, the
-      hybrid's shared block at each of its groups, the embedding, the
-      head), and the backward reduce-scatters each gather's cotangent
-      once;
-    * a leaf a rule covers but kept whole on every rank (no rule splits
+
+class _Lines(NamedTuple):
+    data: bool
+    model: bool
+    pod: bool
+    batch: bool
+    world: bool
+
+
+def _lines(dp: int, tp: int, pod: int) -> _Lines:
+    """Which lines of the mesh hold more than one rank (a one-axis data
+    mesh's always run its collectives)."""
+    one_axis = tp == 1 and pod == 1
+    return _Lines(data=dp > 1 or one_axis, model=tp > 1, pod=pod > 1,
+                  batch=pod * dp > 1 or one_axis, world=pod * dp * tp > 1 or one_axis)
+
+
+def _use_collectives(cfg: ModelConfig, path: str, spec, ln: _Lines) -> Tuple[int, int, int]:
+    """(forward, of which after the product, backward) collectives of one
+    use of a covered leaf on a rank."""
+    a = cfg.approx
+    d, m = (spec.index(x) - len(spec) if x in spec else None for x in ("data", "model"))
+    fwd = bwd = after = 0
+    if d is not None:                       # the gather; its reduce-scatter, the pods' sum
+        fwd, bwd = 1, 1 + ln.pod
+    elif ln.batch:                          # the batch group's sum of a replicated use
+        bwd = 1
+    if path == "['embed']":
+        return fwd + (m is not None), 0, bwd                      # a vocab split's "g"
+    if not _PROJECTIONS.search(path) or re.search(r"\['moe'\]\.w_", path):
+        return fwd, 0, bwd
+    row, col = m == -2, m == -1
+    if a.is_quantized:
+        if a.act_per_row:
+            fwd += row                                   # the K-parts' per-row ranges
+        else:
+            fwd += (ln.world if row else ln.batch)
+        fwd += row or (col and not a.w_per_channel)      # the weight's range
+        after = 3 * row                                  # "g", the code dot, the code sums
+    else:
+        after = int(row)                                 # "g"
+    bwd += col                                           # "f"
+    fwd += col and path == "['lm_head']"                 # the head's gather
+    return fwd + after, after, bwd
+
+
+def collectives_per_train_step(cfg: ModelConfig, dp: int, *, tp: int = 1, pod: int = 1,
+                               microbatch: int = 1, grad_compression: bool = False) -> int:
+    """Collectives of one training step of ``cfg`` (any family; a model
+    axis the dense family) on each rank of a mesh of ``pod x dp x tp``
+    ranks (``make_train_step(..., mesh=)``, ``parallel/fsdp.py``; with
+    ``tp`` and ``pod`` 1 a one-axis ``DataMesh``, else a ``TrainMesh``,
+    whose lines of one rank run none), from the rules and the code, per
+    microbatch:
+
+    * each use of a leaf split over data gathers it (every layer's
+      projections, a MoE layer's router and each expert stack, once per
+      layer, the hybrid's shared block at each of its groups, the
+      embedding, the head), and the backward reduce-scatters each
+      gather's cotangent once, then sums it across the pods (one more
+      all-reduce over a pod axis);
+    * a leaf a rule covers but the data axis keeps whole (no rule splits
       it over data, as the Mamba blocks' ``dt_proj``, convolution and
       scan parameters, or its dim ``dp`` does not divide) is gathered
-      never; each use's backward sums its gradient over the ranks (one
-      float32 all-reduce per use);
+      never; each use's backward sums its gradient over the batch group
+      (one float32 all-reduce per use);
     * in a quantized mode with per-tensor activation ranges, each use of
       a projection (``_PROJECTIONS``: not a router, not a Mamba block's
       raw parameters, not a MoE expert stack, whose input is the same on
-      every rank) takes one MAX of its range;
+      every rank) takes one MAX of its range (over the batch group, or
+      the whole mesh for a row split);
+    * over a model axis, each use of a column split sums its input's
+      cotangent over the model group ("f", in the backward); a row split
+      takes its weight's per-channel range (a MAX) and, with per-row
+      activation ranges, its rows' (a MAX), then sums its partial
+      products ("g") and, in a quantized mode, its int32 code dot and code
+      sums (two SUMs); the vocab-split embedding sums its lookups ("g")
+      and the head gathers its columns;
     * a MoE layer's routing all-gathers the ranks' per-expert counts and
       sums their dispatch buffers: two per layer;
     * with ``remat`` each layer's recompute in the backward (the hybrid's
       shared block's too) runs again up to the last tensor the backward
-      saved, which comes after every gather, range and routing collective
-      of the layer (a dense block's last projection saves its
-      straight-through product, after its gather and range; a MoE block
-      ends in its shared expert and load-balance terms; a Mamba block in
-      its ``out_proj``), so they all rerun.  Without remat every gathered
-      weight stays saved for the backward instead, and the split saves
-      nothing of it;
+      saved, the straight-through product of its last projection, which
+      comes after every gather, range and routing collective of the layer
+      and before its last row split's "g" and code sums (a MoE block ends
+      in its shared expert and load-balance terms; a Mamba block in its
+      ``out_proj``).  Without remat every gathered weight stays saved for
+      the backward instead, and the split saves nothing of it;
     * a fused product (``fuse_qkv``, ``fuse_gate_up``) gathers the
       concatenation of its leaves' parts once, and takes one range;
     * the band term (``band_reg`` > 0) gathers each split weight whole once
       per chunk of matrices, in the forward, where each rank takes the
       chunk's gradient at once (``train.loop._BandChunk``): one gather a
-      chunk (a replicated weight: none);
+      chunk and split axis (a replicated weight: none);
 
-    then once per step: the all-reduce of the gradients of the leaves no
-    rule covers (norm scales), the metrics' all-reduce, the global norm's
-    and, with ``grad_compression``, the scales' MAX."""
+    then once per step: the batch group's all-reduce of the gradients of
+    the leaves no rule covers (norm scales), the metrics' all-reduce (the
+    batch group's), the global norm's (the mesh's) and, with
+    ``grad_compression``, the scales' MAX (the mesh's)."""
     a = cfg.approx
-    gathers = rerun_gathers = ranges = rerun_ranges = band = reduces = 0
+    ln = _lines(dp, tp, pod)
+    per_mb = rerun = band = 0
     uncovered = False
-    expert = re.compile(r"\['moe'\]\.(w_gate|w_up|w_down)$")
-    for path, shape, spec in leaf_specs(cfg, dp):
+    last = "ffn" if cfg.family == "dense" else None   # the block whose w_down ends a layer
+    for path, shape, spec in leaf_specs(cfg, _mesh_key(dp, tp, pod)):
         uses, reruns = _uses(cfg, path)
         if _joined(cfg, path):
             uses = 0
         if spec == ():
             uncovered = True
             continue
-        if _PROJECTIONS.search(path) and not expert.search(path):
-            ranges += uses
-            rerun_ranges += uses if reruns else 0
-        chunks = 1
+        fwd, after, bwd = _use_collectives(cfg, path, spec, ln)
+        per_mb += uses * (fwd + bwd)
+        if cfg.remat and reruns:
+            ends = last is not None and path.endswith(f"['{last}'].w_down")
+            rerun += uses * (fwd - (after if ends else 0))
         if len(shape) >= 2 and shape[-1] > 1:
             per = max(1, LEAF_CHUNK // (shape[-2] * shape[-1]))
             chunks = -(-math.prod(shape[:-2]) // per)
-        if "data" not in spec:                          # replicated: reduced per use
-            reduces += uses
-            continue
-        gathers += uses
-        rerun_gathers += uses if reruns else 0
-        if len(shape) >= 2 and shape[-1] > 1:
-            band += chunks
-    routing = 2 * cfg.num_layers if cfg.family == "moe" else 0
-    per_mb = 2 * gathers + reduces + routing
-    if cfg.remat:
-        per_mb += rerun_gathers + routing
-    if a.is_quantized and not a.act_per_row:
-        per_mb += ranges + (rerun_ranges if cfg.remat else 0)
+            band += chunks * (("data" in spec) + ("model" in spec))
+    if cfg.family == "moe" and ln.batch:
+        per_mb += 2 * cfg.num_layers * (1 + cfg.remat)
     if a.band_reg > 0:
         per_mb += band
-    return max(microbatch, 1) * per_mb + uncovered + 2 + grad_compression
+    once = (uncovered and ln.batch) + ln.batch + ln.world + (grad_compression and ln.world)
+    return max(microbatch, 1) * (per_mb + rerun) + once
 
 
-def gathered_bytes_per_train_step(cfg: ModelConfig, dp: int, *, microbatch: int = 1) -> int:
-    """Bytes the all-gathers of one training step return on each rank of
-    a ``dp``-rank data mesh (``collectives_per_train_step``'s gathers):
-    each use of a split leaf gathers it whole in ``cfg.param_dtype`` (a
-    layer's use its layer, the hybrid's shared block once per group),
-    again in each recompute with ``remat``, and once more in the band
-    term (a weight of more than one column); the reduce-scatters move the
-    first of these back.  The routing's counts
-    (8 bytes an expert and rank) are not in it."""
+def gathered_bytes_per_train_step(cfg: ModelConfig, dp: int, *, tp: int = 1, pod: int = 1,
+                                  microbatch: int = 1) -> int:
+    """Bytes the all-gathers of weights return on each rank in one training
+    step on a mesh of ``pod x dp x tp`` ranks
+    (``collectives_per_train_step``'s gathers): each use of a leaf split
+    over data gathers the model rank's part of it in ``cfg.param_dtype``
+    (a layer's use its layer, the hybrid's shared block once per group),
+    again in each recompute with ``remat``; the band term gathers each
+    split weight of more than one column once, over data and then over
+    the model axis (the whole weight).  The reduce-scatters move the
+    first of these back.  The routing's counts (8 bytes an expert and
+    rank) and the head's gathered logits are not in it."""
     size = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
     per_mb = 0
-    for path, shape, spec in leaf_specs(cfg, dp):
-        if "data" not in spec:
+    for path, shape, spec in leaf_specs(cfg, _mesh_key(dp, tp, pod)):
+        if spec == ():
             continue
         uses, reruns = _uses(cfg, path)
-        n = math.prod(shape) * size
-        if path.startswith("['layers']"):
-            n //= cfg.num_layers                        # a use gathers its layer
-        banded = cfg.approx.band_reg > 0 and len(shape) >= 2 and shape[-1] > 1
-        per_mb += n * uses * (1 + (cfg.remat and reruns)) + math.prod(shape) * size * banded
+        whole = math.prod(shape) * size
+        part = whole // (tp if "model" in spec else 1)            # the data gather's result
+        if "data" in spec:
+            n = part // (cfg.num_layers if path.startswith("['layers']") else 1)
+            per_mb += n * uses * (1 + (cfg.remat and reruns))
+        if cfg.approx.band_reg > 0 and len(shape) >= 2 and shape[-1] > 1:
+            per_mb += part * ("data" in spec) + whole * ("model" in spec)
     return max(microbatch, 1) * per_mb
+
+
+def state_bytes_per_rank(cfg: ModelConfig, dp: int, *, tp: int = 1, pod: int = 1,
+                         opt_kind: str = "adamw", grad_compression: bool = False) -> int:
+    """Bytes of a rank's training state on a mesh of ``pod x dp x tp``
+    ranks (``fsdp.init_state``): each parameter leaf (``cfg.param_dtype``)
+    and its float32 moments (two for AdamW, one for SGD) and error-feedback
+    buffer cut to ``1/dp`` along its data dim and ``1/tp`` along its model
+    dim where the rules split them (the pods replicate), and the int32
+    step."""
+    size = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    specs = leaf_specs(cfg, _mesh_key(dp, tp, pod))
+    opt = opt_state_pspecs(O.OptConfig(kind=opt_kind), {p: s for p, _, s in specs})
+    moments = len(opt) - 1 + grad_compression
+    total = 4
+    for _, shape, spec in specs:
+        n = math.prod(shape) // (dp if "data" in spec else 1) // (tp if "model" in spec else 1)
+        total += n * (size + 4 * moments)
+    return total
+
+
+def k1_shapes_per_rank(cfg: ModelConfig, tokens: int, dp: int, *, tp: int = 1,
+                       pod: int = 1) -> list:
+    """The sorted (M, K, N) of every K1 call of ``cfg``'s training step on
+    a rank of a ``pod x dp x tp`` mesh, for a global batch of ``tokens``:
+    M the rank's rows (the batch over pod x dp), (K, N) each projection's
+    part (a column split's ``N/tp``, a row split's ``K/tp``; a fused
+    product's concatenated parts), and for a MoE's experts the rows of
+    its dispatch buffer, the global capacity (the same on every rank)."""
+    M = tokens // (pod * dp)
+    out = set()
+    fused: Dict[str, Tuple[int, int]] = {}
+    for path, shape, spec in leaf_specs(cfg, _mesh_key(dp, tp, pod)):
+        if not _PROJECTIONS.search(path):
+            continue
+        K, N = shape[-2:]
+        if "model" in spec:
+            K, N = (K // tp, N) if spec[-2] == "model" else (K, N // tp)
+        if re.search(r"\['moe'\]\.w_", path):
+            cap = moe_capacity(tokens, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
+            out.add((cap, K, N))
+            continue
+        group = ("qkv" if cfg.fuse_qkv and path.startswith("['layers']['attn']")
+                 and path.endswith((".wq", ".wk", ".wv"))
+                 else "gate_up" if cfg.fuse_gate_up and "['ffn']" in path
+                 and path.endswith((".w_gate", ".w_up")) else None)
+        if group is not None:
+            key = path.rsplit(".", 1)[0] + group
+            k0, n0 = fused.get(key, (K, 0))
+            fused[key] = (k0, n0 + N)
+            continue
+        out.add((M, K, N))
+    out |= {(M, K, N) for K, N in fused.values()}
+    return sorted(out)
 
 
 def band_term_costs(cfg: ModelConfig, dp: int) -> Dict[str, int]:

@@ -3,8 +3,10 @@ holds (``MeshShape``, pure data that the sharding rules in
 ``parallel/sharding.py`` read, and ``parse_mesh`` for the launchers'
 ``--mesh`` strings), and the meshes that run, each one axis over a
 ``torch.distributed`` process group: ``TPMesh`` ("model", tensor-parallel
-serving) and ``DataMesh`` ("data", data-parallel and FSDP training), with
-``run_ranks`` to start their ranks.
+serving) and ``DataMesh`` ("data", data-parallel and FSDP training), and
+``TrainMesh``, the training mesh of up to three axes ("pod", "data",
+"model") with a process group per axis line, with ``run_ranks`` to start
+their ranks.
 
 The production shapes are the JAX package's: one pod of (16, 16) cards
 over ("data", "model"), two pods (2, 16, 16) over ("pod", "data",
@@ -17,20 +19,22 @@ nothing here picks them from what the machine has.
 from __future__ import annotations
 
 import dataclasses
+import math
 import multiprocessing as mp
 import queue
 import threading
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import NoCudaDeviceError
 
-__all__ = ["DataMesh", "MeshShape", "TPMesh", "batch_axes", "data_ranks", "mesh_tag",
-           "parse_mesh", "production_mesh_shape", "run_ranks"]
+__all__ = ["Axis", "DataMesh", "MeshShape", "TPMesh", "TrainAxes", "TrainMesh", "batch_axes",
+           "carve_mesh", "mesh_ranks", "mesh_tag", "parse_mesh", "production_mesh_shape",
+           "run_ranks", "train_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +64,7 @@ def parse_mesh(spec: str, devices: int) -> MeshShape:
     ``make_mesh_from_args`` reads it: ``"auto"`` is (``devices``, 1) over
     ("data", "model"), ``"DxM"`` (D, M) over ("data", "model") and
     ``"PxDxM"`` adds the pod axis.  One number ``"D"`` is a data axis of D
-    (the JAX launcher makes it a model axis; the port trains data-parallel
-    only, see ``data_ranks``)."""
+    (the JAX launcher makes it a model axis: ROADMAP.md section 3)."""
     if spec == "auto":
         return MeshShape((("data", devices), ("model", 1)))
     try:
@@ -74,21 +77,11 @@ def parse_mesh(spec: str, devices: int) -> MeshShape:
     return MeshShape(tuple(zip(names, dims)))
 
 
-def data_ranks(shape: MeshShape) -> int:
-    """The data-parallel ranks a training mesh of ``shape`` runs.  A model
-    axis above 1 or a pod axis raises ``NotImplementedError``: training
-    under them is not ported (ROADMAP.md section 1: tensor-parallel
-    training, then the pod axis)."""
-    sizes = shape.shape
-    if "pod" in sizes:
-        raise NotImplementedError(
-            f"mesh {mesh_tag(shape)}: training over a pod axis is not ported "
-            "(ROADMAP.md section 1, item 10: the pod axis)")
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {mesh_tag(shape)}: tensor-parallel training (a model axis above 1) "
-            "is not ported (ROADMAP.md section 1, item 9: TP training)")
-    return sizes["data"]
+def mesh_ranks(shape: MeshShape) -> int:
+    """The ranks a training mesh of ``shape`` runs: the product of its axes
+    (``pod x data x model``).  What a family or a head count cannot take
+    on it, ``train.loop.check_data_mesh`` refuses."""
+    return math.prod(shape.shape.values())
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -142,6 +135,143 @@ class DataMesh(_GroupMesh):
     mesh=...)``, ``parallel/fsdp.py``)."""
 
     axis_names = ("data",)
+
+
+class Axis(NamedTuple):
+    """One line of a training mesh: the process group of the ranks that
+    differ only along it (for the batch group, along pod and data), this
+    rank's index in it and its size.  The collectives take it as they take
+    a one-axis mesh."""
+
+    group: Any
+    rank: int
+    size: int
+
+
+class TrainAxes(NamedTuple):
+    """The lines of a training mesh through one rank, each an ``Axis`` or
+    None where it holds one rank: ``data`` (FSDP), ``model`` (the Megatron
+    splits), ``pod``, ``batch`` (pod x data: the ranks that hold other rows
+    of the global batch) and ``world`` (every rank of the mesh)."""
+
+    data: Optional[Axis]
+    model: Optional[Axis]
+    pod: Optional[Axis]
+    batch: Optional[Axis]
+    world: Optional[Axis]
+
+
+def _sizes(shape: MeshShape) -> Tuple[int, int, int]:
+    s = shape.shape
+    return s.get("pod", 1), s.get("data", 1), s.get("model", 1)
+
+
+class TrainMesh:
+    """A training mesh of ``shape``'s axes (``parse_mesh``: data, data x
+    model, or pod x data x model).  Rank r sits at (pod, data, model) =
+    ``np.unravel_index(r, (P, D, M))``, the model axis fastest, as in
+    ``jax.make_mesh``.  ``axis_names`` and ``shape`` read as
+    ``MeshShape``'s, so the sharding rules take it unchanged; ``axes``
+    holds the rank's lines (``TrainAxes``), each with its own group, and
+    ``rank``, ``size`` and ``group`` are the world's (rank 0 writes
+    checkpoints, the preemption flag spans every rank).
+
+    Built by ``TrainMesh(shape, rank=, world=, store=, backend=, device=)``,
+    which initialises the process group (``close()`` destroys it), or by
+    ``carve_mesh`` inside a world that is running already."""
+
+    def __init__(self, shape: MeshShape, *, device, rank: int = 0, world: Optional[int] = None,
+                 store: "Optional[dist.Store]" = None, backend: Optional[str] = None,
+                 _axes: Optional[TrainAxes] = None):
+        self.mesh_shape = shape
+        self.axis_names = shape.axis_names
+        self.shape = shape.shape
+        self.device = torch.device(device)
+        self._owns_group = _axes is None
+        if _axes is None:
+            if world != mesh_ranks(shape):
+                raise ValueError(f"mesh {mesh_tag(shape)} holds {mesh_ranks(shape)} ranks, "
+                                 f"not {world}")
+            if self.device.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise NoCudaDeviceError(f"rank {rank}: no CUDA device for {self.device}")
+                torch.cuda.set_device(self.device)
+            dist.init_process_group(backend=backend, store=store, rank=rank, world_size=world)
+            _axes = _carve(shape, list(range(world)))
+        self.axes = _axes
+        w = _axes.world
+        self.rank, self.size = (w.rank, w.size) if w is not None else (0, 1)
+        self.group = w.group if w is not None else None
+
+    data = property(lambda self: self.axes.data)
+    model = property(lambda self: self.axes.model)
+    pod = property(lambda self: self.axes.pod)
+    batch = property(lambda self: self.axes.batch)
+    world = property(lambda self: self.axes.world)
+
+    def close(self) -> None:
+        if self._owns_group:
+            dist.destroy_process_group()
+
+
+def _carve(shape: MeshShape, ranks: List[int]) -> Optional[TrainAxes]:
+    """Every line of a mesh of ``shape`` over the global ``ranks`` (in
+    mesh order), one group each: every rank of the running world calls
+    ``dist.new_group`` for every line, in the same order, members or not
+    (a line equal to one made already reuses its group; a one-rank line
+    has none).  The lines through this rank, or None outside the mesh."""
+    P, D, M = _sizes(shape)
+    if len(ranks) != P * D * M:
+        raise ValueError(f"mesh {mesh_tag(shape)} wants {P * D * M} ranks, got {len(ranks)}")
+    grid = [[[ranks[(p * D + d) * M + m] for m in range(M)] for d in range(D)] for p in range(P)]
+    everyone = list(range(dist.get_world_size()))
+    made: Dict[Tuple[int, ...], Any] = {}
+
+    def group(members):
+        members = tuple(members)
+        if len(members) > 1 and members not in made:
+            made[members] = (dist.group.WORLD if list(members) == everyone
+                             else dist.new_group(list(members)))
+        return members
+
+    lines = {
+        "model": [group(grid[p][d]) for p in range(P) for d in range(D)],
+        "data": [group([grid[p][d][m] for d in range(D)]) for p in range(P) for m in range(M)],
+        "pod": [group([grid[p][d][m] for p in range(P)]) for d in range(D) for m in range(M)],
+        "batch": [group([grid[p][d][m] for p in range(P) for d in range(D)]) for m in range(M)],
+        "world": [group(ranks)],
+    }
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+
+    def axis(name):
+        members = next(line for line in lines[name] if me in line)
+        return Axis(made[members], members.index(me), len(members)) if len(members) > 1 else None
+
+    return TrainAxes(*(axis(n) for n in TrainAxes._fields))
+
+
+def carve_mesh(shape: MeshShape, ranks: Sequence[int], device) -> Optional[TrainMesh]:
+    """A ``TrainMesh`` of ``shape`` over the global ``ranks`` (in mesh
+    order) of the process group running already: every rank of that world
+    calls it with the same arguments, in the same order as its other
+    group calls; the ranks outside ``ranks`` get None.  Its ``close()``
+    leaves the world's group alone."""
+    axes = _carve(shape, list(ranks))
+    return None if axes is None else TrainMesh(shape, device=device, _axes=axes)
+
+
+def train_axes(mesh) -> TrainAxes:
+    """The lines of a training mesh: a ``TrainMesh``'s own, or for a
+    one-axis data mesh (``DataMesh``, or any object with ``group``,
+    ``rank`` and ``size`` whose ``axis_names`` are ``("data",)``) that
+    mesh as the data axis, the batch group and the world."""
+    if isinstance(mesh, TrainMesh):
+        return mesh.axes
+    if tuple(mesh.axis_names) != ("data",):
+        raise TypeError(f"a training mesh over {tuple(mesh.axis_names)} must be a TrainMesh")
+    return TrainAxes(data=mesh, model=None, pod=None, batch=mesh, world=mesh)
 
 
 def _rank_entry(target, rank, world, args, results):

@@ -10,6 +10,8 @@ over a mesh of ranks.
         --reduced --device cpu --steps 2     # also falcon-mamba-7b, zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
         --reduced --device cpu --mesh 2 --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --mesh 2x1x2
 
 The JAX package's launcher plus ``--device``.  ``--mode kernel`` (the
 default) runs every projection's integer simulation through the CUDA
@@ -23,19 +25,25 @@ them before it builds any weights (the JAX launcher fails inside
 ``forward`` on the missing ``batch["embeddings"]``).
 
 ``--mesh`` (``launch.mesh.parse_mesh``; default ``auto``: one rank per
-visible card, one on ``--device cpu``) with more than one data rank trains
-any token-input family (dense, moe with its routing over the global
-batch, ssm, hybrid) data-parallel with FSDP sharding (``parallel/fsdp.py``):
-rank r is a process of its own on ``cuda:r`` over NCCL (more ranks than
-visible cards are refused), or on the CPU over gloo with ``--device
-cpu``.  Every rank draws the whole global batch and the step keeps its
-rows, so a run sees the batches one device would; rank 0 prints, rank 0
-writes whole checkpoints (any number of ranks resumes from them), a
+visible card, one on ``--device cpu``) with more than one rank trains on
+a ``launch.mesh.TrainMesh``: ``D`` data ranks, ``DxM`` data x model or
+``PxDxM`` pod x data x model, ``P*D*M`` ranks in all.  Every token-input
+family (dense, moe with its routing over the global batch, ssm, hybrid)
+trains over pod and data, with FSDP sharding over data
+(``parallel/fsdp.py``) and the batch over pod x data; the dense family
+also over a model axis, its projections split Megatron-style (q/k/v and
+gate/up by output column, ``wo`` and ``w_down`` by input row, the head by
+vocab column).  Rank r is a process of its own on ``cuda:r`` over NCCL
+(more ranks than visible cards are refused), or on the CPU over gloo with
+``--device cpu``.  Every rank draws the whole global batch and the step
+keeps its rows, so a run sees the batches one device would; rank 0
+prints, rank 0 writes whole checkpoints (any mesh resumes from them), a
 preemption signal stops every rank at the same step, and a failed rank
 restarts the whole world from the newest checkpoint (``--max-restarts``).
-A model axis and a pod axis are refused (``NotImplementedError`` naming
-their ROADMAP.md items); the vlm and audio families train under a data
-mesh through ``make_train_step(..., mesh=)`` on embedding batches.
+A model axis for another family, or one that does not divide the heads,
+is refused before any weight is built (naming ROADMAP.md's item 17); the
+vlm and audio families train under a mesh through ``make_train_step(...,
+mesh=)`` on embedding batches.
 """
 from __future__ import annotations
 
@@ -54,7 +62,7 @@ from repro_torch.core.approx import ApproxConfig, Modes
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels.approx_matmul import approx_matmul
-from repro_torch.launch.mesh import DataMesh, MeshShape, data_ranks, parse_mesh, run_ranks
+from repro_torch.launch.mesh import TrainMesh, mesh_ranks, mesh_tag, parse_mesh, run_ranks
 from repro_torch.parallel import fsdp
 from repro_torch.train import optim as O
 from repro_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -72,7 +80,7 @@ def _parser():
     ap.add_argument("--mesh", default="auto",
                     help='"auto" (one data rank per visible card; one on --device cpu), '
                          '"D" data ranks, or "DxM" / "PxDxM" as the JAX launcher reads them '
-                         "(a model axis above 1 and a pod axis are refused)")
+                         "(a model axis above 1 trains the dense family only)")
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--multiplier", default="mul8x8_2")
     ap.add_argument("--mode", default="kernel", choices=Modes)
@@ -104,18 +112,20 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     cfg = _config(args)
     on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
-    dp = data_ranks(parse_mesh(args.mesh, 1 if on_cpu else torch.cuda.device_count()))
-    if dp <= 1:
+    shape = parse_mesh(args.mesh, 1 if on_cpu else torch.cuda.device_count())
+    n = mesh_ranks(shape)
+    if n <= 1:
         return _train(args, cfg, resolve_device(args.device))
-    check_data_mesh(cfg, MeshShape((("data", dp),)))
-    if not on_cpu and dp > torch.cuda.device_count():
-        raise SystemExit(f"--mesh {args.mesh}: {dp} data ranks > "
+    check_data_mesh(cfg, shape)
+    if not on_cpu and n > torch.cuda.device_count():
+        raise SystemExit(f"--mesh {args.mesh}: {n} ranks > "
                          f"{torch.cuda.device_count()} visible CUDA devices")
     store_dir = tempfile.mkdtemp(prefix="train_dp_")
 
     def world(attempt: int):
         store = os.path.join(store_dir, f"store{attempt}")
-        return run_ranks(_rank, dp, (store, args, cfg, on_cpu, attempt), timeout=24 * 3600)[0]
+        return run_ranks(_rank, n, (store, args, cfg, on_cpu, attempt, shape),
+                         timeout=24 * 3600)[0]
 
     try:
         return run_with_restarts(world, max_restarts=args.max_restarts,
@@ -124,12 +134,12 @@ def main(argv=None):
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
-def _rank(rank, world, store_path, args, cfg, on_cpu, attempt):
+def _rank(rank, world, store_path, args, cfg, on_cpu, attempt, shape):
     device = torch.device("cpu") if on_cpu else torch.device("cuda", rank)
     if on_cpu:                          # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    mesh = DataMesh(rank=rank, world=world, store=dist.FileStore(store_path, world),
-                    backend="gloo" if on_cpu else "nccl", device=device)
+    mesh = TrainMesh(shape, rank=rank, world=world, store=dist.FileStore(store_path, world),
+                     backend="gloo" if on_cpu else "nccl", device=device)
     try:
         return _train(args, cfg, device, mesh, attempt)
     finally:
@@ -186,7 +196,12 @@ def _train(args, cfg, dev, mesh=None, attempt=None):
     else:
         out = job(attempt)
         out["step"] = int(out.pop("state")["opt"]["step"])
-    ranks = "" if mesh is None else f" x {mesh.size} data ranks"
+    if mesh is None:
+        ranks = ""
+    elif mesh.axis_names == ("data",):
+        ranks = f" x {mesh.size} data ranks"
+    else:
+        ranks = f" on mesh {mesh_tag(mesh)} ({' x '.join(mesh.axis_names)}, {mesh.size} ranks)"
     say(f"training complete on {dev}{ranks}: {len(out['losses'])} steps from step "
         f"{out['start']}; approx_matmul kernel launches {approx_matmul.launches - launches0}")
     return out

@@ -18,14 +18,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.approx import ApproxConfig, Shard, concat_weights, w_dim
+from repro_torch.core.approx import ApproxConfig, concat_weights, shard_info, w_dim
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.kernels.paged_attention.ref import attend_gathered, gather_blocks, softmax_scale
 from repro_torch.models import layers as L
 
 __all__ = [
     "ATTN_IMPLS",
+    "TPHeadsError",
     "attention_core",
+    "check_tp_heads",
     "self_attention",
     "seed_kv_cache",
     "decode_attention",
@@ -42,13 +44,31 @@ _NEG = -1e30
 ATTN_IMPLS = ("kernel", "gather")
 
 
+class TPHeadsError(ValueError):
+    """A model axis that does not divide the query or the KV heads."""
+
+
+def check_tp_heads(num_heads: int, num_kv_heads: int, tp: int) -> None:
+    """Training over a model axis of ``tp`` runs ``attention_core`` on each
+    rank's ``H/tp`` query and ``Hkv/tp`` KV heads, so both must divide.
+    Where they do not, the JAX package pads the heads or falls back to a
+    sequence split (``src/repro/models/attention.py:112-130``), which the
+    port does not have (ROADMAP.md section 1, item 17)."""
+    if num_heads % tp or num_kv_heads % tp:
+        raise TPHeadsError(
+            f"a model axis of {tp} must divide the {num_heads} query and {num_kv_heads} KV "
+            "heads: the padded-head and sequence-parallel fallbacks are not ported "
+            "(ROADMAP.md section 1, item 17)")
+
+
 def _rank_heads(p: Dict[str, object], n_heads: int, n_kv: int) -> Tuple[int, int]:
     """The query and KV heads this rank computes: all of them, or its
-    ``1/tp`` where ``wq`` (or the fused ``wqkv``) is a column ``Shard``
-    (whole heads per rank: ``validate_tp_heads``)."""
-    wq = p["wq"] if "wq" in p else p["wqkv"]
-    if isinstance(wq, Shard):
-        return n_heads // wq.mesh.size, n_kv // wq.mesh.size
+    ``1/tp`` where ``wq`` (or the fused ``wqkv``) is split by column, a
+    ``Shard`` or a ``DataPart`` with a column split (whole heads per rank:
+    ``validate_tp_heads``, ``check_tp_heads``)."""
+    info = shard_info(p["wq"] if "wq" in p else p["wqkv"])
+    if info is not None:
+        return n_heads // info[1].size, n_kv // info[1].size
     return n_heads, n_kv
 
 

@@ -6,7 +6,10 @@ model code calls them as it does unsharded.  Under data-parallel training
 a weight is a ``DataPart`` (``parallel/fsdp.wrap``): ``unstack`` keeps
 each layer's part, and ``dense`` and ``embed`` gather it whole where they
 use it; a leaf read outside ``dense`` (the Mamba blocks' convolution and
-scan parameters, a router) is read through ``whole``."""
+scan parameters, a router) is read through ``whole``.  On a training
+mesh with a model axis a ``DataPart`` may carry a split: once gathered it
+computes as its ``Shard``, through the autograd-aware "f" and "g" and the
+head's ``gather_last`` (``parallel/collectives.py``)."""
 from __future__ import annotations
 
 import math
@@ -15,8 +18,16 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig, DataPart, Gathered, QWeight, Shard, approx_dense
-from repro_torch.parallel.collectives import all_gather_last, all_reduce_sum
+from repro_torch.core.approx import (
+    ApproxConfig,
+    DataPart,
+    Gathered,
+    QWeight,
+    Shard,
+    approx_dense,
+    shard_info,
+)
+from repro_torch.parallel.collectives import gather_last, model_input, model_sum
 
 __all__ = [
     "dense",
@@ -56,29 +67,34 @@ def init_dense(d_in: int, d_out: int, generator: Optional[torch.Generator],
 def dense(x: torch.Tensor, w, cfg: ApproxConfig) -> torch.Tensor:
     """x (..., K) @ w (K, N) under the configured multiplier semantics;
     ``w`` may be a frozen ``QWeight`` (serving path) or a ``Shard``: a
-    column split gives the rank's output columns, a row split (``x`` the
-    rank's K-part) the whole output, its float partial products summed over
-    the ranks in float32.  A ``DataPart`` is gathered whole here; a
-    ``Gathered`` piece computes as its float weight."""
+    column split gives the rank's output columns (its input's cotangent
+    summed over the ranks, "f"), a row split (``x`` the rank's K-part) the
+    whole output, its float partial products summed over the ranks in
+    float32 ("g").  A ``DataPart`` is gathered here (to its ``Shard`` where
+    the model axis splits it); a ``Gathered`` piece computes as its float
+    weight."""
     if isinstance(w, DataPart) and cfg.mode == "float":
-        w = w.whole()
+        w = w.sharded(w.whole())
     if isinstance(w, Gathered) and cfg.mode == "float":
         w = w.w
     local = w.w if isinstance(w, Shard) else w
     if isinstance(local, QWeight) or cfg.mode != "float":
         return approx_dense(x, w, cfg).to(x.dtype)
     if isinstance(w, Shard) and w.split == "row":
-        return all_reduce_sum(x.to(torch.float32) @ local.to(torch.float32), w.mesh).to(x.dtype)
+        return model_sum(x.to(torch.float32) @ local.to(torch.float32), w.mesh).to(x.dtype)
+    if isinstance(w, Shard) and w.split == "column":
+        x = model_input(x, w.mesh)
     return x @ local.to(x.dtype)
 
 
 def embed(tokens: torch.Tensor, table) -> torch.Tensor:
     """Rows of ``table`` (V, d) for ``tokens``, float32.  A vocab ``Shard``
     looks up the ids in the rank's rows, zeroes the others and sums over
-    the ranks: exact, since each row is one rank's value plus zeros.  A
-    ``DataPart`` is gathered whole first."""
+    the ranks ("g"): exact, since each row is one rank's value plus zeros.
+    A ``DataPart`` is gathered first (to its vocab ``Shard`` where the
+    model axis splits it)."""
     if isinstance(table, DataPart):
-        table = table.whole()
+        table = table.sharded(table.whole())
     if not isinstance(table, Shard):
         return F.embedding(tokens.long(), table)
     part, mesh = table.w, table.mesh
@@ -88,7 +104,7 @@ def embed(tokens: torch.Tensor, table) -> torch.Tensor:
     rows = F.embedding(ids.clamp(0, part.shape[0] - 1), part)
     rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                           device=rows.device))
-    return all_reduce_sum(rows, mesh)
+    return model_sum(rows, mesh)
 
 
 def whole(w):
@@ -101,9 +117,11 @@ def whole(w):
 
 def gather_columns(y: torch.Tensor, w) -> torch.Tensor:
     """``y`` = x @ ``w`` whole: the ranks' columns gathered in rank order
-    where ``w`` is a column ``Shard``, else ``y`` as it is."""
-    if isinstance(w, Shard) and w.split == "column":
-        return all_gather_last(y, w.mesh)
+    where ``w`` is a column ``Shard`` (or a column-split ``DataPart``),
+    each rank's cotangent its own columns', else ``y`` as it is."""
+    info = shard_info(w)
+    if info is not None and info[0] == "column":
+        return gather_last(y, info[1])
     return y
 
 

@@ -49,7 +49,10 @@ in the tokens: each rank returns ``E * sum_e f_e * P_e^rank``, with
 ``f`` the global fraction routed (from the same counts; it has no
 gradient) and ``P^rank`` the mean router probability over its own
 tokens, so the ranks' mean, which the training step takes, is the
-global term and its gradient.
+global term and its gradient.  Over a pod axis (``launch.mesh.TrainMesh``)
+the same runs over the batch group, pod x data, whose ranks hold the
+global batch; the stacks are gathered over the data axis and their
+gradients summed across the pods too.
 
 The combine is deterministic: each token sums its k contributions in one
 fixed order, by expert ascending from zero, which is the order of the JAX
@@ -71,7 +74,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.approx import ApproxConfig, DataPart, Gathered, Shard
 from repro_torch.models import layers as L
-from repro_torch.parallel.collectives import all_gather_first, owned_whole, sum_rows
+from repro_torch.parallel.collectives import all_gather_first, sum_rows
 
 __all__ = ["Routing", "init_moe", "load_balance_loss", "moe_capacity", "moe_ffn", "route"]
 
@@ -184,10 +187,12 @@ def moe_ffn(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (T, d) in x's dtype, aux_loss float32 scalar).  Under
     a data mesh (``DataPart`` leaves) ``x`` is the rank's block of the
-    global tokens and ``aux`` the rank's term (module text)."""
+    global tokens and ``aux`` the rank's term (module text); over a pod
+    axis too, the ranks that hold the global batch are its batch group
+    (pod x data)."""
     T, d = x.shape
     E = p["router"].shape[-1]
-    data = p["router"].mesh if isinstance(p["router"], DataPart) else None
+    data = p["router"].batch if isinstance(p["router"], DataPart) else None
     capacity = moe_capacity(T * (data.size if data is not None else 1), top_k, E,
                             capacity_factor)
     r = route(x, L.whole(p["router"]), top_k, capacity, mesh=data)
@@ -254,9 +259,9 @@ def _gathered_experts(stack: DataPart, cfg: ApproxConfig):
     """A layer's (E, K, N) expert stack on a data mesh, gathered whole once
     (one all-gather; for a replicated stack, none) and cut by expert into
     ``Gathered`` pieces: the backward sums the E experts' float32
-    cotangents over the ranks in one reduce-scatter (one all-reduce) and
-    then rounds them to bf16 where the straight-through product would
-    have, as on one device."""
+    cotangents over the ranks in one reduce-scatter (one all-reduce; over
+    a pod axis one more across the pods) and then rounds them to bf16
+    where the straight-through product would have, as on one device."""
     bf = None if cfg.mode == "float" else torch.bfloat16
-    whole = owned_whole(stack.w, stack.value(), stack.dim, stack.mesh, round_to=bf)
+    whole = stack.owned(stack.value(), round_to=bf)
     return [Gathered(w) for w in whole.unbind(0)]

@@ -22,6 +22,9 @@ Under tensor parallelism (``serve.ServeSession(mesh=...)``) the tree holds
 heads, ``wo`` and ``w_down`` sum their products over the ranks, the
 vocab-split head gathers its logits and a vocab-split embedding sums its
 lookups; the pool holds the rank's KV heads (``parallel/tp.shard_cache``).
+Training over a model axis (``parallel/fsdp.wrap`` on a
+``launch.mesh.TrainMesh``) gives the same splits as ``DataPart``s, which
+``layers.dense``, ``embed`` and ``gather_columns`` run under autograd.
 The calls below are the same with and without a mesh.
 
 Parameters are a dict with the JAX package's tree shape: layer weights are

@@ -4,16 +4,22 @@ row sums, float32 partial products), a MAX all-reduce (float32 ranges),
 an all-gather along the last dim (the vocab-split logits) and one along
 the first (the expert-parallel MoE's output rows); these are inference
 only: a tensor that requires grad raises, since they are not recorded by
-autograd.  Data-parallel training (``parallel/fsdp.py``): ``gather_dim``,
-an all-gather along any dim that autograd records, its backward the SUM
-reduce-scatter of the cotangent; ``gather_value`` and ``owned_whole``, the
-same split into a value and a gradient path, so that a cast's rounding of
-the gradient can follow the ranks' sum (for a weight every rank holds
-whole, a float32 SUM all-reduce of the cotangent); ``sum_rows``, the
-ranks' sum of a MoE dispatch buffer whose rows each rank fills alone,
-its backward the rank's own cotangent; and ``barrier``; the
+autograd.  Data-parallel training (``parallel/fsdp.py``): ``gather_value``,
+an all-gather along any dim that records no graph, and ``owned_whole``,
+its gradient path: the SUM reduce-scatter of the cotangent, so that a
+cast's rounding of the gradient can follow the ranks' sum (for a weight
+every rank holds whole, a float32 SUM all-reduce of the cotangent);
+``sum_rows``, the ranks' sum of a MoE dispatch buffer whose rows each
+rank fills alone, its backward the rank's own cotangent; and ``barrier``; the
 remaining gradients' all-reduce, the ranges' MAX and the optimizer's
-sums use the functions above on tensors that need no gradient.  Nothing
+sums use the functions above on tensors that need no gradient.
+Training over a model axis (``launch.mesh.TrainMesh``) adds Megatron's
+"f" (``model_input``: the identity, its backward a float32 SUM over the
+model group) and "g" (``model_sum``: a float32 SUM, its backward the
+identity), and ``gather_last``, a vocab-split head's gather whose backward
+keeps the rank's own columns; over a pod axis ``owned_whole`` also sums a
+split part's cotangent across the pods before it rounds.  Serving calls
+the same three on tensors that need no gradient.  Nothing
 more, so gloo can carry them on CUDA tensors as well as NCCL.  Each call
 waits for its result and is counted in ``COUNTS`` (calls, and host
 seconds spent in them).
@@ -27,7 +33,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COUNTS", "all_gather_first", "all_gather_last", "all_reduce_max", "all_reduce_sum",
-           "barrier", "gather_dim", "gather_value", "max_range", "owned_whole", "sum_rows"]
+           "barrier", "gather_last", "gather_value", "max_range", "model_input",
+           "model_sum", "owned_whole", "sum_rows"]
 
 COUNTS: Dict[str, float] = {"calls": 0, "host_s": 0.0}
 
@@ -43,7 +50,7 @@ def _counted(fn):
 def _timed(fn, t: torch.Tensor):
     if t.requires_grad:
         raise NotImplementedError("these collectives carry no gradient: a tensor that "
-                                  "requires grad crosses the ranks through gather_dim")
+                                  "requires grad crosses the ranks through owned_whole")
     return _counted(fn)
 
 
@@ -109,54 +116,61 @@ def _scatter_sum(grad: torch.Tensor, pos: int, mesh) -> torch.Tensor:
     return out
 
 
+def _sum_f32(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A float32 copy of ``t`` summed over ``mesh``'s ranks (one all-reduce)."""
+    out = t.detach().to(torch.float32, copy=True).contiguous()
+    _counted(lambda: dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group))
+    return out
+
+
 class _OwnedWhole(torch.autograd.Function):
     """A whole tensor computed from the ranks' gathered parts, whose
     cotangent reaches ``part`` summed over the ranks at its slice (a
-    reduce-scatter), then rounded through ``round_to``.  With no split
+    reduce-scatter) and over ``pod``'s ranks, which hold the same part (an
+    all-reduce), then rounded through ``round_to``.  With no split
     (``dim`` None, a weight every rank holds whole) the cotangent is
-    summed over the ranks in float32 (an all-reduce), then rounded."""
+    summed over ``mesh``'s ranks in float32 (an all-reduce; none where
+    ``mesh`` is None), then rounded."""
 
     @staticmethod
-    def forward(ctx, part, whole, dim, mesh, round_to):
+    def forward(ctx, part, whole, dim, mesh, round_to, pod):
         ctx.pos = None if dim is None else dim % part.dim()
-        ctx.mesh, ctx.round_to = mesh, round_to
+        ctx.mesh, ctx.round_to, ctx.pod = mesh, round_to, pod
         return whole.view_as(whole)
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.pos is None:
-            out = grad.to(torch.float32, copy=True).contiguous()
-            _counted(lambda: dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.mesh.group))
-        else:
+        if ctx.pos is not None:
             out = _scatter_sum(grad, ctx.pos, ctx.mesh)
+            if ctx.pod is not None:
+                out = _sum_f32(out, ctx.pod)
+        elif ctx.mesh is not None:
+            out = _sum_f32(grad, ctx.mesh)
+        else:
+            out = grad
         if ctx.round_to is not None:
             out = out.to(ctx.round_to)
-        return out.to(grad.dtype), None, None, None, None
+        return out.to(grad.dtype), None, None, None, None, None
 
 
 def gather_value(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """``gather_dim``'s value, recorded by no autograd graph."""
+    """Every rank's ``part`` concatenated along ``dim`` in rank order,
+    recorded by no autograd graph (``owned_whole`` gives it a gradient)."""
     with torch.no_grad():
         return _gather_along(part.detach(), dim % part.dim(), mesh)
 
 
 def owned_whole(part: torch.Tensor, whole: torch.Tensor, dim, mesh,
-                round_to=None) -> torch.Tensor:
+                round_to=None, pod=None) -> torch.Tensor:
     """``whole`` (computed without a graph from ``gather_value(part)``, or
     from ``part`` itself where ``dim`` is None) as autograd sees it: its
     cotangent, summed over the ranks at ``part``'s slice (no collective in
-    the forward; one reduce-scatter in the backward, or one float32
-    all-reduce where ``dim`` is None), then rounded through ``round_to``
+    the forward; one reduce-scatter in the backward, and one float32
+    all-reduce over ``pod`` where given; or one float32 all-reduce over
+    ``mesh`` where ``dim`` is None), then rounded through ``round_to``
     where given, reaches ``part``.  So a cast's rounding of a gradient
     happens once, after the ranks' sum, as on one device."""
-    return _OwnedWhole.apply(part, whole, dim, mesh, round_to)
-
-
-def gather_dim(part: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """Every rank's ``part`` concatenated along ``dim`` in rank order, as
-    autograd sees it: the gradient that reaches ``part`` is the sum over
-    the ranks of the whole result's cotangent at ``part``'s slice."""
-    return owned_whole(part, gather_value(part, dim, mesh), dim, mesh)
+    return _OwnedWhole.apply(part, whole, dim, mesh, round_to, pod)
 
 
 class _SumRows(torch.autograd.Function):
@@ -184,6 +198,69 @@ def sum_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     cotangents at those rows are zeros, and no collective runs in the
     backward."""
     return _SumRows.apply(t, mesh)
+
+
+class _ModelInput(torch.autograd.Function):
+    """Megatron's "f": the identity, its cotangent summed over the model
+    group in float32."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(grad, ctx.mesh).to(grad.dtype), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """Megatron's "g": the float32 sum over the model group, its cotangent
+    passed back as it is."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return _sum_f32(t, mesh).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Every rank's columns in rank order; the cotangent that reaches the
+    rank is its own columns' (no sum: every rank of the group holds the
+    same rows and computes the same function of the whole)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.lo, ctx.n = mesh.rank * t.shape[-1], t.shape[-1]
+        return all_gather_last(t.detach(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.lo:ctx.lo + ctx.n].contiguous(), None
+
+
+def model_input(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The replicated input of a column split (Megatron's "f"): ``t`` as
+    it is, its cotangent summed over ``mesh``'s ranks in float32 before
+    any cast rounds it (one all-reduce in the backward, none forward)."""
+    return _ModelInput.apply(t, mesh)
+
+
+def model_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A row split's partial products summed over ``mesh``'s ranks in
+    float32 (Megatron's "g": one all-reduce forward, none backward)."""
+    return _ModelSum.apply(t, mesh)
+
+
+def gather_last(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A vocab-split head's columns gathered along the last dim (one
+    all-gather), its backward the rank's own columns of the cotangent: a
+    reduce-scatter (``owned_whole``'s) would multiply them by the group's
+    size, since every rank of it computes the same loss."""
+    return _GatherLast.apply(t, mesh)
 
 
 def barrier(mesh) -> None:

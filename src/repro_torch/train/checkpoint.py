@@ -14,12 +14,13 @@ walks the port's dicts as the JAX package's trees).  Publishing is atomic:
 the snapshot is written to a staging directory and renamed, then
 ``LATEST`` is replaced.
 
-Under a data mesh (``cfg=``, ``mesh=``: a training state of FSDP parts,
-``parallel/fsdp.py``) every rank calls both functions: the leaves are
-gathered whole and rank 0 writes them in the same format, and a restore
-reads the whole leaves and keeps the rank's part of each.  So a
-checkpoint written at one number of ranks restores at any other, on one
-device, and into the JAX package.
+Under a training mesh (``cfg=``, ``mesh=``: a training state of FSDP
+parts, blocks under a model axis, ``parallel/fsdp.py``) every rank calls
+both functions: the leaves are gathered whole over both axes and rank 0
+of the mesh writes them in the same format, and a restore reads the whole
+leaves and keeps the rank's part of each.  So a checkpoint written at one
+mesh shape restores at any other, on one device, and into the JAX
+package (its docstring's "reshard across cluster sizes").
 """
 from __future__ import annotations
 
@@ -50,9 +51,9 @@ def _flatten(tree: Any) -> List[Tuple[str, torch.Tensor]]:
 def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3, cfg=None,
                     mesh=None) -> Optional[str]:
     """Write ``tree`` as step ``step`` and keep the newest ``keep``; the
-    snapshot's path.  Under a data ``mesh`` (``tree`` the rank's training
-    state, cut by ``cfg``'s rules) rank 0 writes the whole state and
-    returns its path, the others None, once it is published."""
+    snapshot's path.  Under a training ``mesh`` (``tree`` the rank's
+    training state, cut by ``cfg``'s rules) rank 0 writes the whole state
+    and returns its path, the others None, once it is published."""
     if mesh is None:
         return _write(directory, step, tree, keep)
     whole = fsdp.whole_state(tree, cfg, mesh, device="cpu")

@@ -2,9 +2,10 @@
 ``train/compression.py``): each gradient leaf plus its carried residual is
 quantized to int8 with a per-leaf symmetric scale and dequantized; the
 quantization residual is carried to the next step so the bias vanishes
-over steps.  Under a data mesh each leaf is the rank's part of the global
-gradient (``parallel/fsdp.py``): its scale comes from the max over the
-ranks' parts, one MAX all-reduce for all leaves, so every element is
+over steps.  Under a training mesh each leaf is the rank's part of the
+global gradient (``parallel/fsdp.py``): its scale comes from the max over
+the ranks' parts, one MAX all-reduce over the mesh for all leaves (ranks
+that hold the same part add nothing to a max), so every element is
 quantized as the whole leaf's would be."""
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import train_axes
 from repro_torch.parallel.collectives import all_reduce_max
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
@@ -26,15 +28,16 @@ def _q8(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def compress_decompress(grads: Any, err: Optional[Any], mesh=None) -> Tuple[Any, Any]:
-    """Returns (decompressed grads, new error buffers); under a data
+    """Returns (decompressed grads, new error buffers); under a training
     ``mesh`` each leaf's scale spans the ranks' parts."""
     if err is None:
         err = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
                        grads)
     gs, es = leaves(grads), leaves(err)
     amax = [(g.to(torch.float32) + e).abs().max() for g, e in zip(gs, es)]
-    if mesh is not None:
-        amax = list(all_reduce_max(torch.stack(amax), mesh).unbind())
+    world = None if mesh is None else train_axes(mesh).world
+    if world is not None:
+        amax = list(all_reduce_max(torch.stack(amax), world).unbind())
 
     def one(g, e, a):
         gf = g.to(torch.float32) + e

@@ -7,9 +7,9 @@
   or alert). Here the policy hook is injectable for tests.
 * ``PreemptionGuard`` — SIGTERM/SIGINT handler that requests a final
   checkpoint flush + clean exit at the next step boundary (the GKE/Borg
-  maintenance-event pattern).  Under a data mesh the ranks agree on the
-  flag once per step (``poll``), so a signal one rank sees stops every
-  rank at the same step.
+  maintenance-event pattern).  Under a training mesh the ranks agree on
+  the flag once per step (``poll``: a MAX over every rank of the mesh),
+  so a signal one rank sees stops every rank at the same step.
 * ``run_with_restarts`` — supervisor that restarts a training function from
   the latest checkpoint after a (simulated or real) failure, up to a retry
   budget: checkpoint/restart fault tolerance in one callable.  Under a

@@ -19,6 +19,15 @@ gradients summed are the global batch's; the optimizer updates the
 parts.  A MoE layer routes over the global batch (``models/moe.py``)
 and returns the rank's load-balance term, whose ranks' mean is the global
 term, so it takes its share as the CE does.
+
+On a ``launch.mesh.TrainMesh`` the same holds with the batch group (pod x
+data) in the data axis's place: each rank's share is its local mean over
+the batch group's size, its metrics the batch group's means.  The dense
+family also trains over a model axis: the projections split Megatron-style
+(``core.approx.DataPart``'s split), every rank of a model group holds the
+same rows and computes the same loss, and the band term takes each
+weight whole on every rank (``_BandChunk``), each rank's block its slice
+of the term's gradient.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.core.approx import DataPart
+from repro_torch.launch.mesh import mesh_tag, train_axes
+from repro_torch.models.attention import check_tp_heads
 from repro_torch.models.transformer import forward, init_params
 from repro_torch.parallel import fsdp
 from repro_torch.parallel.collectives import all_reduce_sum, gather_value
@@ -71,39 +82,44 @@ def _band_value_and_grad(w: torch.Tensor, qmax: int):
 
 class _BandChunk(torch.autograd.Function):
     """One chunk's band term, whose backward is its cotangent times the
-    term's gradient for a unit cotangent.  On one device (``mesh`` None)
+    term's gradient for a unit cotangent.  On one device (``cuts`` None)
     the gradient is recomputed in the backward from the chunk, so no
-    intermediates are held until then.  A data mesh's part (split along
-    ``dim``, or whole where ``dim`` is None) is gathered whole once, in
-    the forward, where its gradient is taken at once and the rank's part
-    of it kept: one all-gather a chunk, where a recompute would gather it
-    again and reduce-scatter the cotangent.  Every rank computes the same
-    term and gradient (and takes the term into its objective whole), so
-    each part gets the gradient one device would give it, and the two
-    paths compute alike: a one-rank mesh step is the no-mesh step bit for
-    bit.  A leaf no rule covers (a norm scale, a plain tensor on every
-    rank, its gradient summed over the ranks by ``fsdp.reduce_grads``)
-    takes its band gradient on one rank alone (``own`` False elsewhere)."""
+    intermediates are held until then.  On a mesh the rank's block is
+    gathered whole once, in the forward (``cuts``: over the data axis,
+    then over the model axis), where its gradient is taken at once and the
+    rank's block of it kept: one all-gather an axis and chunk, where a
+    recompute would gather it again and reduce-scatter the cotangent.
+    Every rank computes the same term and gradient (and takes the term
+    into its objective whole), so each block gets the gradient one device
+    would give it (a row split's per-channel ranges span the model ranks,
+    so a model part's own term would not), and the two paths compute
+    alike: a one-rank mesh step is the no-mesh step bit for bit.  A leaf
+    no rule covers (a norm scale, a plain tensor on every rank, its
+    gradient summed over the batch group by ``fsdp.reduce_grads``) takes
+    its band gradient on one rank of the batch group alone (``own`` False
+    elsewhere)."""
 
     @staticmethod
-    def forward(ctx, w, qmax, dim, mesh, own=True):
-        ctx.qmax, ctx.mesh, ctx.own = qmax, mesh, own
-        if mesh is None:
+    def forward(ctx, w, qmax, cuts, own=True):
+        ctx.qmax, ctx.cuts, ctx.own = qmax, cuts, own
+        if cuts is None:
             ctx.save_for_backward(w)
             return _band_term(w.detach(), qmax)
-        whole = w.detach() if dim is None else gather_value(w, dim, mesh)
+        whole = w.detach()
+        for dim, axis in cuts:
+            whole = gather_value(whole, dim, axis)
         t, g = _band_value_and_grad(whole, qmax)
-        if dim is not None:
-            n = g.shape[dim] // mesh.size
-            g = g.narrow(dim, mesh.rank * n, n).contiguous()
-        ctx.save_for_backward(g)
+        for dim, axis in reversed(cuts):
+            n = g.shape[dim] // axis.size
+            g = g.narrow(dim, axis.rank * n, n)
+        ctx.save_for_backward(g.contiguous())
         return t
 
     @staticmethod
     def backward(ctx, grad):
         (saved,) = ctx.saved_tensors
-        g = _band_value_and_grad(saved, ctx.qmax)[1] if ctx.mesh is None else saved
-        return (grad * g if ctx.own else torch.zeros_like(g)), None, None, None, None
+        g = _band_value_and_grad(saved, ctx.qmax)[1] if ctx.cuts is None else saved
+        return (grad * g if ctx.own else torch.zeros_like(g)), None, None, None
 
 
 def _leaf_band_term(leaf, qmax: int, own: bool = True) -> torch.Tensor:
@@ -115,19 +131,20 @@ def _leaf_band_term(leaf, qmax: int, own: bool = True) -> torch.Tensor:
     ``_BandChunk``, so no more than a few copies of one chunk exist at
     once (a whole stack's would be about five copies of 5.8 GB for
     zamba2-2.7b's stacked ``in_proj``).  A ``DataPart``'s chunks are its
-    part's, each gathered whole once and chunked by the whole matrices'
+    block's, each gathered whole once and chunked by the whole matrices'
     size; ``own``: whether this rank takes a plain leaf's band gradient
     (``_BandChunk``)."""
     data = isinstance(leaf, DataPart)
     part = leaf.w if data else leaf
-    dim, mesh = (leaf.dim, leaf.mesh) if data else (None, None)
+    cuts = tuple(leaf.cuts()) if data else None
     if part.dim() == 2:
-        return _BandChunk.apply(part, qmax, dim, mesh, own)
+        return _BandChunk.apply(part, qmax, cuts, own)
     mats = part.reshape(-1, *part.shape[-2:])
-    per = max(1, LEAF_CHUNK // (leaf.shape[-2] * leaf.shape[-1]))
+    size = leaf.shape[-2] * leaf.shape[-1] * (leaf.model.size if data and leaf.split else 1)
+    per = max(1, LEAF_CHUNK // size)
     total = None
     for chunk in mats.split(per):
-        t = _BandChunk.apply(chunk, qmax, dim, mesh, own) * (chunk.shape[0] / mats.shape[0])
+        t = _BandChunk.apply(chunk, qmax, cuts, own) * (chunk.shape[0] / mats.shape[0])
         total = t if total is None else total + t
     return total
 
@@ -135,15 +152,16 @@ def _leaf_band_term(leaf, qmax: int, own: bool = True) -> torch.Tensor:
 def _band_reg_term(cfg: ModelConfig, params) -> torch.Tensor:
     """The paper's weight-band regularizer over every 2-D+ weight, in the JAX
     package's leaf order, each weight's term by chunks (``_leaf_band_term``);
-    a ``DataPart`` (data mesh) enters whole."""
+    a ``DataPart`` (training mesh) enters whole."""
     a = cfg.approx
     dev = leaves(params)[0].device
     if a.band_reg <= 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
-    # under a data mesh a plain leaf's band gradient is rank 0's alone: the
-    # ranks' gradients of such a leaf are summed (fsdp.reduce_grads)
-    meshes = [x.mesh for x in leaves(params) if isinstance(x, DataPart)]
-    own = not meshes or meshes[0].rank == 0
+    # under a mesh a plain leaf's band gradient is one rank's of the batch
+    # group alone: its ranks' gradients of such a leaf are summed
+    # (fsdp.reduce_grads)
+    parts = [x for x in leaves(params) if isinstance(x, DataPart)]
+    own = not parts or parts[0].batch is None or parts[0].batch.rank == 0
     total, n = torch.zeros((), dtype=torch.float32, device=dev), 0
     for leaf in leaves(params):
         if len(leaf.shape) >= 2 and leaf.shape[-1] > 1:
@@ -159,8 +177,8 @@ def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01) -> Callable:
     data mesh's rank (``fsdp.wrap``'d parameters, the rank's rows) ``ce``
     is the mean over its rows and ``aux`` its load-balance term, whose
     mean over the ranks is the global batch's (``make_train_step``
-    differentiates their share, ``(ce + aux_weight * aux) / size``, and
-    the band term on every rank).  ``batch``
+    differentiates their share, ``(ce + aux_weight * aux)`` over the batch
+    group's size, and the band term on every rank).  ``batch``
     holds ``"labels"`` and ``"tokens"``, or ``"embeddings"`` (and, for
     multimodal rope, ``"positions_thw"``) for a model without token
     inputs."""
@@ -182,13 +200,25 @@ def _detached(m: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def check_data_mesh(cfg: ModelConfig, mesh) -> None:
-    """Refuse what data-parallel training does not cover: a mesh other
-    than one data axis (named with its ROADMAP.md items).  Every family
-    trains on a data axis."""
-    if tuple(mesh.axis_names) != ("data",):
+    """Refuse what training on a mesh (a ``MeshShape``, a ``TrainMesh`` or
+    a one-axis data mesh) does not cover, before any weight is built:
+    axes other than pod, data and model; a model axis above 1 for any
+    family but dense (the JAX rules turn a MoE's model axis into expert
+    parallelism and split the Mamba blocks' scan parameters over it), or
+    one that does not divide the heads (``TPHeadsError``), each naming
+    ROADMAP.md's item 17.  Every family trains over pod and data."""
+    names = tuple(mesh.axis_names)
+    if not set(names) <= {"pod", "data", "model"}:
+        raise NotImplementedError(f"training over mesh axes {names}: the axes are pod, data "
+                                  "and model")
+    tp = int(mesh.shape.get("model", 1)) if "model" in names else 1
+    if tp > 1 and cfg.family != "dense":
         raise NotImplementedError(
-            f"training over mesh axes {tuple(mesh.axis_names)}: only a data axis is ported "
-            "(ROADMAP.md section 1, items 9-10: TP training, the pod axis)")
+            f"training the {cfg.family} family over a model axis ({mesh_tag(mesh)}) is not "
+            "ported: only the dense family trains tensor-parallel (ROADMAP.md section 1, "
+            "item 17)")
+    if tp > 1:
+        check_tp_heads(cfg.num_heads, cfg.num_kv_heads, tp)
 
 
 def make_train_step(
@@ -209,15 +239,20 @@ def make_train_step(
     average their gradients and losses; the other metrics are the last
     microbatch's.  The step updates ``state`` in place (see ``optim``).
 
-    ``mesh``: a ``launch.mesh.DataMesh`` (any family).  ``state`` is
-    then the rank's part (``parallel/fsdp.init_state`` or ``shard_state``)
-    and ``batch`` the global batch, of which the step keeps the rank's
-    rows; the metrics are global (the loss and CE the ranks' mean), the
-    same on every rank."""
+    ``mesh``: a ``launch.mesh.DataMesh`` (any family) or a
+    ``launch.mesh.TrainMesh`` (any family over pod and data; the dense
+    family over a model axis too).  ``state`` is then the rank's part
+    (``parallel/fsdp.init_state`` or ``shard_state``) and ``batch`` the
+    global batch, of which the step keeps the rank's rows; the metrics
+    are global (the loss and CE the batch group's mean), the same on
+    every rank."""
     aux_weight = 0.01
     loss_fn = make_loss_fn(cfg, aux_weight)
+    rows = None
     if mesh is not None:
         check_data_mesh(cfg, mesh)
+        rows = train_axes(mesh).batch
+    share = 1 if rows is None else rows.size
 
     def grads_of(params, batch):
         ps = leaves(params)
@@ -229,12 +264,12 @@ def make_train_step(
             objective = loss
         else:
             loss, m = loss_fn(fsdp.wrap(params, cfg, mesh), batch)
-            # the rank's rows' share of the global mean: the ranks'
+            # the rank's rows' share of the global mean: the batch group's
             # gradients then sum to the global batch's, each cotangent at
             # one device's scale before its bf16 rounding (dividing a
             # rounded sum by a size such as 3 would not); the band term
             # whole, whose backward gives each part its own gradient
-            objective = (m["ce"] + aux_weight * m["aux"]) / mesh.size + m["band_reg"]
+            objective = (m["ce"] + aux_weight * m["aux"]) / share + m["band_reg"]
         gs = torch.autograd.grad(objective, ps)
         return loss.detach(), _detached(m), unflatten(params, gs)
 
@@ -260,9 +295,12 @@ def make_train_step(
         return loss_sum / microbatch, m, acc
 
     def global_metrics(loss, m):
-        """The ranks' means of the loss and the metrics, in one all-reduce."""
+        """The batch group's means of the loss and the metrics, in one
+        all-reduce (the model ranks hold the same)."""
+        if rows is None:
+            return loss, m
         keys = sorted(m)
-        t = all_reduce_sum(torch.stack([loss] + [m[k] for k in keys]), mesh) / mesh.size
+        t = all_reduce_sum(torch.stack([loss] + [m[k] for k in keys]), rows) / rows.size
         return t[0], {k: v for k, v in zip(keys, t[1:].unbind())}
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -273,7 +311,7 @@ def make_train_step(
         if mesh is not None:
             grads = unflatten(grads, fsdp.reduce_grads(leaves(grads), cfg, mesh))
             loss, m = global_metrics(loss, m)
-            split = [d is not None for d in fsdp.data_dims(cfg, mesh.size)]
+            split = fsdp.split_axes(cfg, mesh)
         if grad_compression:
             grads, state_err = compress_decompress(grads, state.get("grad_err"), mesh)
         else:

@@ -14,10 +14,11 @@ in size where a stacked weight's would be a few copies of the stack
 (zamba2-2.7b's stacked ``in_proj`` is 5.8 GB); the update is elementwise,
 so the chunks change no value.
 
-Under a data mesh (``make_train_step(..., mesh=)``) the leaves are the
-rank's parts (``parallel/fsdp.py``): the update stays elementwise on them,
-and the global norm sums each leaf's squares over the ranks in one SUM
-all-reduce, counting a leaf every rank holds whole once.
+Under a training mesh (``make_train_step(..., mesh=)``) the leaves are
+the rank's parts (``parallel/fsdp.py``): the update stays elementwise on
+them, and the global norm sums each leaf's squares over the ranks that
+hold its other parts in one SUM all-reduce over the mesh, counting each
+part once however many ranks replicate it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import train_axes
 from repro_torch.parallel.collectives import all_reduce_sum
 from repro_torch.train.tree import LEAF_CHUNK, leaves, tree_map
 
@@ -80,17 +82,26 @@ def init_opt_state(cfg: OptConfig, params: Any) -> Dict[str, Any]:
     return state
 
 
-def global_norm(tree: Any, mesh=None, split: Optional[Sequence[bool]] = None) -> torch.Tensor:
+def global_norm(tree: Any, mesh=None, split: Optional[Sequence[Sequence[str]]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in leaf order.  Under a
-    data ``mesh`` each leaf's sum spans the ranks: ``split[i]`` says leaf
-    i is the rank's part (its squares summed over the ranks), else it is
-    whole on every rank and rank 0's sum alone counts."""
+    training ``mesh`` each leaf's sum spans the ranks: ``split[i]`` names
+    the axes (``"data"``, ``"model"``) whose ranks hold other parts of leaf
+    i; of the ranks that hold the same part (along the other axes, the
+    pods among them) the first alone counts it, and one all-reduce over
+    the mesh adds them."""
     sq = [x.to(torch.float32).square().sum() for x in leaves(tree)]
     if mesh is not None:
+        ax = train_axes(mesh)
+        lines = {"data": ax.data, "model": ax.model, "pod": ax.pod}
         v = torch.stack(sq)
-        if mesh.rank != 0:
-            v = torch.where(torch.tensor(list(split), device=v.device), v, 0.0)
-        sq = list(all_reduce_sum(v, mesh).unbind())
+        counts = [all(a is None or a.rank == 0 or name in s for name, a in lines.items())
+                  for s in split]
+        if not all(counts):
+            v = torch.where(torch.tensor(counts, device=v.device), v, 0.0)
+        if ax.world is not None:
+            v = all_reduce_sum(v, ax.world)
+        sq = list(v.unbind())
     return torch.sqrt(sum(sq))
 
 
@@ -115,12 +126,13 @@ def _chunks(*trees_leaves):
 @torch.no_grad()
 def apply_updates(
     cfg: OptConfig, params: Any, grads: Any, state: Dict[str, Any], *, mesh=None,
-    split: Optional[Sequence[bool]] = None,
+    split: Optional[Sequence[Sequence[str]]] = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step: clips ``grads`` by global norm, updates
     ``params`` and the moments in ``state`` in place, and returns
-    ``(params, new_state, {"grad_norm", "lr"})``.  Under a data ``mesh``
-    the leaves are the rank's parts, ``split`` as ``global_norm``'s."""
+    ``(params, new_state, {"grad_norm", "lr"})``.  Under a training
+    ``mesh`` the leaves are the rank's parts, ``split`` as
+    ``global_norm``'s."""
     gn = global_norm(grads, mesh, split)
     scale = _clip_scale(gn, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state["step"] + 1

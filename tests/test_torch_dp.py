@@ -64,7 +64,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.approx import ApproxConfig
 from repro_torch.data.synthetic import token_batches
 from repro_torch.launch.dryrun import collectives_per_train_step, k1_per_train_step
-from repro_torch.launch.mesh import DataMesh, MeshShape, data_ranks, parse_mesh, run_ranks
+from repro_torch.launch.mesh import DataMesh, MeshShape, mesh_ranks, parse_mesh, run_ranks
 from repro_torch.parallel import fsdp
 from repro_torch.parallel.collectives import COUNTS
 from repro_torch.parallel.sharding import opt_state_pspecs, param_pspecs, tree_bytes
@@ -587,18 +587,17 @@ def test_opt_state_pspecs_match_jax(init, kind):
 @pytest.mark.parametrize("spec,devices,want", [("auto", 3, 3), ("2", 8, 2), ("4x1", 1, 4),
                                                ("1", 1, 1)])
 def test_parse_mesh_data_ranks(spec, devices, want):
-    assert data_ranks(parse_mesh(spec, devices)) == want
+    assert mesh_ranks(parse_mesh(spec, devices)) == want
 
 
-@pytest.mark.parametrize("spec,item", [("2x2", "item 9"), ("1x4", "item 9"),
-                                       ("2x2x1", "item 10"), ("1x1x1", "item 10")])
-def test_model_and_pod_axes_are_refused(spec, item):
-    with pytest.raises(NotImplementedError, match=item):
-        data_ranks(parse_mesh(spec, 1))
-    from repro_torch.launch import train as launch
-
-    with pytest.raises(NotImplementedError, match=item):
-        launch.main(["--reduced", "--device", "cpu", "--mesh", spec, "--steps", "1"])
+@pytest.mark.parametrize("spec,ranks", [("2x2", 4), ("1x4", 4), ("2x2x1", 4), ("1x1x1", 1)])
+def test_model_and_pod_axes_are_refused(spec, ranks):
+    """Items 9 and 10 are closed: a model axis and a pod axis train
+    (``tests/test_torch_tp_train.py``), on ``parse_mesh``'s pod x data x
+    model ranks; a mesh of one rank trains on one device."""
+    shape = parse_mesh(spec, 1)
+    assert mesh_ranks(shape) == ranks
+    assert shape.axis_names == (("pod",) if spec.count("x") == 2 else ()) + ("data", "model")
 
 
 @pytest.mark.parametrize("spec", ["x2", "2x", "0", "2x2x2x2", "two"])
@@ -612,21 +611,26 @@ def test_parse_mesh_rejects_malformed(spec):
 def test_families_are_refused_under_a_data_mesh(arch, item, tmp_path):
     """Items 7 and 8 are closed: no family is refused on a data axis
     (``tests/test_torch_dp_families.py`` and ``test_torch_dp_moe.py``
-    train them).  A model axis is still refused for every family, naming
-    items 9-10 and no longer the family's own ``item``, by the step and,
-    before it builds any weights, by the launcher."""
+    train them), nor on a pod axis.  A model axis is refused for these
+    families, naming item 17 and no longer the family's own ``item``, by
+    the step and, before it builds any weights, by the launcher."""
     from repro_torch.launch import train as launch
 
     cfg = reduced_config(get_config(arch))
     loop.make_train_step(cfg, O.OptConfig(), mesh=_Mesh(0, 2))
+    loop.check_data_mesh(cfg, parse_mesh("2x2x1", 1))
 
     class _ModelAxis(_Mesh):
         axis_names = ("data", "model")
 
-    with pytest.raises(NotImplementedError, match="items 9-10") as refused:
+        def __init__(self, rank, size):
+            super().__init__(rank, size)
+            self.shape = {"data": size, "model": 2}
+
+    with pytest.raises(NotImplementedError, match="item 17") as refused:
         loop.make_train_step(cfg, O.OptConfig(), mesh=_ModelAxis(0, 2))
     assert item not in str(refused.value)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "1x2",
                      "--steps", "1", "--ckpt", str(tmp_path / "ck")])
 

@@ -569,14 +569,18 @@ def test_rank_rows_cut_embeddings_and_positions(family, dp, microbatch):
 @pytest.mark.parametrize("family", list(ARCHS))
 def test_every_family_passes_check_data_mesh(family):
     """``check_data_mesh`` refuses no family on a data axis, and refuses a
-    model axis for every family, naming items 9-10."""
+    model axis for every family but dense, naming item 17."""
     cfg = port_cfg(CASES[family])
     loop.check_data_mesh(cfg, _Mesh(0, 2))
 
     class _ModelAxis(_Mesh):
         axis_names = ("data", "model")
 
-    with pytest.raises(NotImplementedError, match="items 9-10"):
+        def __init__(self, rank, size):
+            super().__init__(rank, size)
+            self.shape = {"data": size, "model": 2}
+
+    with pytest.raises(NotImplementedError, match="item 17"):
         loop.check_data_mesh(cfg, _ModelAxis(0, 2))
 
 
